@@ -1,0 +1,87 @@
+"""Public wrapper of the flash-attention kernel (forward only: prefill).
+
+Replaces ``repro.kernels.flash_attention.kernel.flash_attention_bhsd``
+(the Pallas TPU kernel ``_attn_kernel``) behind the signature of
+``repro.kernels.flash_attention.ops.flash_attention``.  The CUDA source
+is ``csrc/flash_attention.cu``; its header says what bounds it on the
+H100 (arithmetic, at prefill shapes) and what the design does about it.
+
+A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
+launches the kernel or raises — nothing falls back.  ``LAUNCHES``
+counts kernel launches, so a run can show the path went through it.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+LAUNCHES = 0
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = _build.library("flash_attention")
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.flash_attention_error_string)
+    return _fn
+
+
+def _check_inputs(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B,Sq,H,D) and k/v (B,Sk,KH,D) of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} "
+                         f"disagree on batch, head dim or head grouping")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q/k/v must share a float32 or bfloat16 dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q: (B, Sq, H, D), k/v: (B, Sk, KH, D) -> (B, Sq, H, D).
+
+    Query head h attends kv head h // (H // KH); scale 1/sqrt(D);
+    causal positions start at 0 for both q and k, as in the reference.
+    """
+    global LAUNCHES
+    _check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {_HEAD_DIMS}")
+    fn, err_str = _kernel()
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
+             int(window), float(softcap), 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention", err_str)
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,143 @@
+"""Serving launcher of the port: continuous batching on the card.
+
+Thin client of ``repro_torch.serve`` with the CLI of ``repro.launch.serve``.
+Only the ported architectures (``repro_torch.configs``) and engine
+features run; the reference's other flags are accepted and refused with
+``NotImplementedError``.  Weights are random, drawn from ``--seed``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --variant full --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --variant reduced --device cpu --mixed
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import model as M
+from repro_torch.models.layers import paged_read_path
+from repro_torch.serve import Greedy, PagedServeEngine, ServeEngine
+from repro_torch.utils.device import resolve_device
+
+# reference flags with no port yet: (flag, argparse kwargs)
+_NOT_PORTED = [
+    ("--temperature", {"type": float, "default": 0.0}),
+    ("--top-k", {"type": int, "default": 0}),
+    ("--bucket", {"action": "store_true"}),
+    ("--chunk-len", {"type": int, "default": 0}),
+    ("--buckets", {"default": ""}),
+    ("--check-unbucketed", {"action": "store_true"}),
+    ("--sharded", {"action": "store_true"}),
+    ("--overlap-a2a", {"action": "store_true"}),
+    ("--check-unsharded", {"action": "store_true"}),
+    ("--speculate", {"action": "store_true"}),
+    ("--n-draft", {"type": int, "default": 0}),
+    ("--check-unspeculated", {"action": "store_true"}),
+    ("--kv-dtype", {"default": ""}),
+    ("--check-unquantized", {"action": "store_true"}),
+]
+
+
+def mixed_lengths(n: int, prompt_len: int, gen: int):
+    """Demo traffic: request i gets a shorter prompt + generation."""
+    return [(max(4, prompt_len - 4 * i), max(2, gen - 3 * i))
+            for i in range(n)]
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--variant", default="reduced", choices=["full", "reduced"])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seg-len", type=int, default=8)
+    ap.add_argument("--vocab", type=int, default=512,
+                    help="vocab size of the reduced variant")
+    ap.add_argument("--mixed", action="store_true",
+                    help="vary prompt/gen length per request")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the block-paged KV engine")
+    ap.add_argument("--block-len", type=int, default=16,
+                    help="paged engine: tokens per KV block")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="paged engine: pool size (0 = worst-case default)")
+    ap.add_argument("--eager-blocks", action="store_true",
+                    help="paged engine: reserve a request's worst-case "
+                         "blocks at admission instead of lazily")
+    for flag, kw in _NOT_PORTED:
+        ap.add_argument(flag, help="not ported yet", **kw)
+    args = ap.parse_args(argv)
+    for flag, kw in _NOT_PORTED:
+        if getattr(args, flag[2:].replace("-", "_")) != kw.get("default",
+                                                              False):
+            raise NotImplementedError(f"{flag} is not ported yet")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, variant=args.variant)
+    if args.variant == "reduced":
+        cfg = cfg.replace(vocab_size=args.vocab)
+    rng = np.random.default_rng(args.seed)
+    P, G = args.prompt_len, args.gen
+    lengths = (mixed_lengths(args.requests, P, G) if args.mixed
+               else [(P, G)] * args.requests)
+    # caches sized exactly: prompt + max_new, no +1
+    max_len = max(M.decode_capacity(cfg, p, g) for p, g in lengths)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = M.init_params(cfg, generator=gen)
+    kw = dict(n_slots=args.slots, max_len=max_len, sampler=Greedy(),
+              seg_len=args.seg_len, device=device)
+    if args.paged:
+        engine = PagedServeEngine(params, cfg, block_len=args.block_len,
+                                  n_blocks=args.blocks or None,
+                                  lazy=not args.eager_blocks, **kw)
+    else:
+        engine = ServeEngine(params, cfg, **kw)
+    for p, g in lengths:
+        engine.submit({"tokens": rng.integers(0, cfg.vocab_size, (1, p))},
+                      max_new=g)
+    if device.type == "cuda":
+        # build (or load) the kernels before the clock starts, so the
+        # tok/s below times serving, not nvcc
+        from repro_torch.kernels import _build
+        _build.build_all()
+        print(f"kernels: {_build.BUILD_INFO['seconds']:.1f}s "
+              f"({'cached' if _build.BUILD_INFO['cached'] else 'built'})")
+    t0 = time.perf_counter()
+    comps = engine.run()
+    dt = time.perf_counter() - t0
+    st = engine.stats
+    n_tok = st["generated_tokens"]
+    util = st["live_slot_steps"] / max(st["slot_steps"], 1)
+    dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+    print(f"{args.arch} ({args.variant}) on {dev_name}: {len(comps)} "
+          f"requests, {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
+          f"{st['segments']} segments, slot util {util:.0%})")
+    if args.paged:
+        print(f"paged: block_len={engine.block_len} pool={engine.n_blocks} "
+              f"peak_blocks={st['peak_live_blocks']} "
+              f"shared={st['shared_blocks']} "
+              f"lazy_claimed={st['lazy_claimed_blocks']} "
+              f"preemptions={st['preemptions']} "
+              f"(free after drain: {engine.alloc.n_free}, "
+              f"read path: {paged_read_path(cfg)})")
+    first = comps[min(comps)]
+    print("sample:", first.tokens[:16])
+    return comps
+
+
+if __name__ == "__main__":
+    main()
