@@ -9,18 +9,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu``, in
    parallel, into ``build/repro_torch/`` (cached by source hash);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the serve path's shapes plus small edge cases, each output
-   element within two bf16 ulps of its own value + 1e-4 (1e-4 in f32),
-   with kernel, plain and library-call (``scaled_dot_product_attention``,
-   a yardstick the port never calls) times from CUDA events with L2
-   flushed before each call, and the least time the card could take
-   (bytes over 3.35 TB/s, flops over the type's peak);
+   card, at the serve and train paths' shapes plus small edge cases,
+   each output element within two bf16 ulps of its own value + 1e-4
+   (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
+   rows whose top two logits are within ``ARGMAX_MARGIN``; kernel, plain
+   and library-call times (``scaled_dot_product_attention``, matmul +
+   ``cross_entropy``: yardsticks the port never calls) from CUDA events
+   with L2 flushed before each call, and the least time the card could
+   take (bytes over 3.35 TB/s, flops over the type's peak);
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
    behind ``PagedServeEngine``: 16 greedy requests, prompts of 128-1024
    tokens, 64 new tokens each.  Checks the completions, the allocator,
    the kernels' launch counts on that run, and the kernel path's logits
    against the plain path's;
-5. profile: torch.profiler over one prefill and one decode segment.
+5. profile: torch.profiler over one prefill and one decode segment;
+6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
+   weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
+   finite, falling losses and the kernels' launch counts on that run,
+   the kernel path's loss and gradients against the plain path's, and
+   reports ms per step, tokens/s, MFU, peak memory and a profile.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without either when
@@ -239,6 +246,105 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
     return row
 
 
+def _near_tie_rows(hs, ws, cap, margin):
+    """Rows whose top two (softcapped) logits differ by less than
+    ``margin``: the argmax there may follow the summation order."""
+    z = hs.float() @ ws.float()
+    if cap:
+        z = torch.tanh(z / cap) * cap
+    top = z.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]) < margin
+
+
+# logits of the kd_loss cases are ~N(0,1) sums of up to 2048 f32
+# products: two summation orders differ by ~1e-6, so rows whose top two
+# logits are within 1e-5 may take either index
+ARGMAX_MARGIN = 1e-5
+
+
+def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
+            timed=False, ties=False):
+    """The kd_loss kernel against its plain version.  Hidden states
+    ~N(0,1) and heads ~N(0,1/D), as the model draws them.  ``ties``
+    plants, in integer-valued inputs (exact in any order), a maximum at
+    two columns of every row; the lower index must win."""
+    from repro_torch.kernels.kd_loss import ops, ref
+    hs = _randn(gen, (T, Ds), dtype)
+    ws = (torch.randn((Ds, V), generator=gen, device="cuda")
+          / Ds ** 0.5).to(dtype)
+    lab = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ht = wt = None
+    if Dt:
+        ht = _randn(gen, (T, Dt), dtype)
+        wt = (torch.randn((Dt, V), generator=gen, device="cuda")
+              / Dt ** 0.5).to(dtype)
+    if ties:
+        rows = torch.arange(T, device="cuda")
+        hs = torch.eye(T, Ds, device="cuda").to(dtype)
+        ws = torch.randint(-3, 4, (Ds, V), generator=gen, device="cuda")
+        lo, hi = rows * 17 % (V // 2), V // 2 + rows * 29 % (V // 2)
+        ws[rows, lo] = ws[rows, hi] = 9
+        ws = ws.to(dtype)
+        lab = torch.where(rows % 2 == 0, lo, hi).to(torch.int32)
+    kw = dict(tau=tau, softcap_s=cap_s, softcap_t=cap_t)
+    ce, kl, cor = ops.kd_loss_fwd(hs, ws, ht, wt, lab, **kw)
+    if Dt:
+        w_ce, w_kl, w_cor = ref.ce_kl_ref(hs, ws, ht, wt, lab, **kw)
+    else:
+        (w_ce, w_cor), w_kl = ref.ce_ref(hs, ws, lab, softcap=cap_s), None
+    torch.cuda.synchronize()
+    name = (f"kd_loss T={T} Ds={Ds} Dt={Dt} V={V} {str(dtype)[6:]} "
+            f"tau={tau} softcap={cap_s}/{cap_t}{' ties' if ties else ''}")
+    row = check_close(name + " ce", ce, w_ce)
+    if Dt:
+        kl_row = check_close(name + " kl", kl, w_kl)
+        row["max_abs_err"] = max(row["max_abs_err"], kl_row["max_abs_err"])
+        row["err_over_limit"] = max(row["err_over_limit"],
+                                    kl_row["err_over_limit"])
+    elif not (kl == 0).all():
+        fail(f"{name}: kl is not 0 without a teacher")
+    near = _near_tie_rows(hs, ws, cap_s, ARGMAX_MARGIN)
+    wrong = (cor != w_cor) & ~near
+    if ties and not (torch.equal(cor, w_cor) and torch.equal(
+            cor, (torch.arange(T, device="cuda") % 2 == 0).float())):
+        fail(f"{name}: a planted tie did not go to the lower index")
+    if wrong.any():
+        fail(f"{name}: correct differs on {int(wrong.sum())} rows whose top "
+             f"two logits differ by {ARGMAX_MARGIN} or more")
+    row.update(near_tie_rows=int(near.sum()),
+               correct_differs_on_near_ties=int(((cor != w_cor) & near).sum()))
+    if timed:
+        lab64 = lab.long()
+        if Dt:
+            def library():
+                zs = torch.matmul(hs, ws).float()
+                zt = torch.matmul(ht, wt).float()
+                c = F.cross_entropy(zs, lab64, reduction="none")
+                k = F.kl_div(F.log_softmax(zs / tau, -1),
+                             F.log_softmax(zt / tau, -1), log_target=True,
+                             reduction="none").sum(-1) * tau ** 2
+                return c, k
+
+            def plain():
+                return ref.ce_kl_ref(hs, ws, ht, wt, lab, **kw)
+        else:
+            def library():
+                return F.cross_entropy(torch.matmul(hs, ws).float(), lab64,
+                                       reduction="none")
+
+            def plain():
+                return ref.ce_ref(hs, ws, lab, softcap=cap_s)
+        d_all = Ds + (Dt or 0)
+        flops = 2 * T * d_all * V
+        nbytes = (T * d_all + d_all * V) * hs.element_size() + 4 * T * 4
+        row.update(ms=time_ms(lambda: ops.kd_loss_fwd(hs, ws, ht, wt, lab,
+                                                      **kw)),
+                   plain_ms=time_ms(plain), library_ms=time_ms(library))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+    return row
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -254,9 +360,18 @@ def phase_kernels():
              paged_case(gen, [5, 40, 17], 3, 8, 2, 32, 4, f32, window=12,
                         softcap=30.0),
              paged_case(gen, [1, 200], 1, 4, 4, 128, 16, f32)]
-    for row in flash + paged:
+    kd = [kd_case(gen, 2048, 2048, 0, 32000, bf, timed=True),
+          kd_case(gen, 2048, 2048, 1024, 32000, bf, tau=2.0, timed=True),
+          kd_case(gen, 130, 96, 0, 1000, f32),
+          kd_case(gen, 77, 64, 48, 333, f32, tau=2.0, cap_s=30.0,
+                  cap_t=50.0),
+          kd_case(gen, 200, 40, 0, 777, bf, cap_s=15.0),
+          kd_case(gen, 64, 136, 72, 129, bf, tau=0.5, cap_t=20.0),
+          kd_case(gen, 96, 96, 0, 5000, bf, ties=True),
+          kd_case(gen, 96, 96, 0, 5000, f32, ties=True)]
+    for row in flash + paged + kd:
         print("kernel " + json.dumps(row))
-    return flash, paged
+    return flash, paged, kd
 
 
 # ---------------------------------------------------------------------------
@@ -386,10 +501,12 @@ def phase_serve():
     return launches
 
 
-def profile(fn, top: int = 8):
+def profile(fn, top: int = 8, groups=None):
     """One call of ``fn`` under torch.profiler: host wall time, summed
     device kernel time (one stream, so kernels do not overlap), the
-    device's idle share of the wall, and the kernels that took most."""
+    device's idle share of the wall, and the kernels that took most.
+    ``groups`` maps a name to kernel-name fragments; each group's summed
+    device time is reported under ``group_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -414,7 +531,10 @@ def profile(fn, top: int = 8):
         fail("the profiler recorded no device events")
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
+    group_ms = {g: sum(us for us, k, _ in rows if any(f in k for f in frags))
+                / 1e3 for g, frags in (groups or {}).items()}
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "group_ms": group_ms,
             "device_idle_share": 1 - device_ms / (wall * 1e3),
             "device_launches": sum(r[2] for r in rows),
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n,
@@ -436,7 +556,178 @@ def phase_profile(params, cfg, prompt, make_engine):
                                    "decode_segment_8_steps": seg}))
 
 
+# ---------------------------------------------------------------------------
+# phase 6: train full-width TinyLlama-1.1B
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 1024, 1e-3
+# kernel path vs plain path on one batch at full width, bf16.  The plain
+# path rounds its logits to bf16 (the head GEMM's output) where the
+# kernel keeps them in f32, and the two backwards round bf16 activations
+# at different points through 22 layers.  Reading on an H100 (700 W):
+# loss |d| = 6.6e-5; relative L2 error of the gradients 0.0125
+# (lm_head), 0.0073 (final_norm), 0.0169 (layer 11's wq).  Limits: the
+# loss to LOSS_TOL absolute, each gradient to GRAD_TOL, about 3x the
+# worst reading (||g_kernel - g_plain|| / ||g_plain||).
+LOSS_TOL = 2e-4
+GRAD_TOL = 0.05
+PEAK_BF16 = PEAK_FLOPS[torch.bfloat16]
+
+
+def _grad_check(M, cfg, params, batch):
+    """Loss and the gradients of ``lm_head``, ``final_norm`` and layer
+    11's ``wq``, kernel path against plain path, same weights, same
+    batch."""
+    layer = 11
+    leaves = {"lm_head": params["lm_head"],
+              "final_norm": params["final_norm"]["scale"],
+              "wq": params["blocks"]["sub0"]["attn"]["wq"]}
+    out = {}
+    for use_kernels in (True, False):
+        for t in leaves.values():
+            t.requires_grad_(True)
+        loss, _ = M.loss_fn(params, cfg.replace(use_kernels=use_kernels),
+                            batch)
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+        out[use_kernels] = (loss.item(), {
+            k: (g[layer] if k == "wq" else g).float()
+            for k, g in zip(leaves, gs)})
+        del gs
+    (lk, gk), (lp, gp) = out[True], out[False]
+    res = {"loss_kernel": lk, "loss_plain": lp, "loss_abs_err": abs(lk - lp)}
+    for k in leaves:
+        res[f"{k}_rel_err"] = ((gk[k] - gp[k]).norm() / gp[k].norm()).item()
+        res[f"{k}_max_abs_err"] = (gk[k] - gp[k]).abs().max().item()
+    print("train kernel vs plain " + json.dumps(res))
+    if not math.isfinite(res["loss_abs_err"]) or \
+            res["loss_abs_err"] > LOSS_TOL:
+        fail(f"kernel-path loss differs from plain path by "
+             f"{res['loss_abs_err']} > {LOSS_TOL}")
+    for k in leaves:
+        if not res[f"{k}_rel_err"] <= GRAD_TOL:
+            fail(f"kernel-path {k} gradient differs from plain path by "
+                 f"{res[f'{k}_rel_err']} (relative L2) > {GRAD_TOL}")
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return res
+
+
+def phase_train():
+    """``train_device`` on full-width TinyLlama-1.1B (bf16, random weights
+    from seed 0): 8 steps at batch 4 x 1024 tokens, lr 1e-3, through the
+    functions ``launch/train.py`` uses.  Then the kernel path against the
+    plain path on one batch, the step time, and a profile of one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import device as D
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+    from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
+
+    cfg = get_config("tinyllama-1.1b", variant="full")
+    if not (cfg.use_kernels and cfg.remat):
+        fail("config does not train through the kernels with remat")
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    spec = D.DeviceSpec(0, cfg, 0, int(corpus.device_domain[0]))
+    run = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               lr=TRAIN_LR, seed=0, device="cuda")
+
+    # the main path, counts from 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa_ops.LAUNCHES = 0
+    kd_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    up = D.train_device(spec, corpus, **run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa_ops.LAUNCHES,
+                "kd_loss": kd_ops.LAUNCHES}
+    losses = up["losses"]
+    del up
+    # every group and every loss chunk is rematerialised in the backward
+    # (cfg.remat), so each kernel runs twice per use per step
+    chunks = TRAIN_SEQ // cfg.loss_chunk
+    want = {"flash_attention": TRAIN_STEPS * cfg.n_layers * 2,
+            "kd_loss": TRAIN_STEPS * chunks * 2}
+    print(f"train: {TRAIN_STEPS} steps in {wall:.2f}s, losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses}")
+    if launches != want:
+        fail(f"train launches {launches} != expected {want}")
+
+    # kernel path against plain path on one batch, fresh weights
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, generator=gen)
+    batch = {k: v.cuda() for k, v in corpus.device_batch(
+        0, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+    check = _grad_check(M, cfg, params, batch)
+
+    # step time: one warm-up step, then synchronised steps
+    opt = adamw_init(params)
+    sched = cosine_schedule(TRAIN_LR, TRAIN_STEPS, warmup=1)
+    batches = corpus.device_batches(0, 5, TRAIN_BATCH, TRAIN_SEQ)
+    steps = [{k: v[s].cuda() for k, v in batches.items()} for s in range(5)]
+    D.train_step(params, opt, cfg, steps[0], sched(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for b in steps[1:4]:
+        t0 = time.perf_counter()
+        D.train_step(params, opt, cfg, b, sched(2))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the step's two halves on CUDA events: loss + gradient, then AdamW
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ev[0].record()
+    loss, _ = M.loss_fn(params, cfg, steps[4])
+    grads = torch.autograd.grad(loss, leaves)
+    ev[1].record()
+    adamw_update(tree_unflatten_like(params, grads), opt, params,
+                 lr=sched(2))
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_matmul = n_params - params["embed"].numel()   # the lookup is no GEMM
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    attn = 3 * 4 * TRAIN_BATCH * H * Dh * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 \
+        * cfg.n_layers                 # causal QK^T and PV, fwd + 2x bwd
+    model_flops = 6 * n_matmul * tokens + attn
+    ms = sorted(step_ms)[len(step_ms) // 2]
+    prof = profile(lambda: D.train_step(params, opt, cfg, steps[4],
+                                        sched(2)),
+                   top=10, groups={"kd_loss": ("kd_partial", "kd_merge"),
+                                   "flash_fwd": ("flash_fwd",)})
+    res = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "losses": losses, "train_device_wall_s": wall,
+           "launches": launches, "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "mfu": model_flops / (ms / 1e3) / PEAK_BF16,
+           "model_tflop_per_step": model_flops / 1e12,
+           "n_params": n_params, "peak_mem_gb": peak_gb,
+           "loss_grad_ms": ev[0].elapsed_time(ev[1]),
+           "adamw_ms": ev[1].elapsed_time(ev[2]), **check}
+    print("train " + json.dumps(res))
+    print("profile " + json.dumps({"train_step": prof}))
+    return launches
+
+
 KERNELS = {
+    "kd_loss": {
+        "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
+        "replaces": "src/repro/kernels/kd_loss/kernel.py:163"},
     "flash_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:108"},
@@ -461,11 +752,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = phase_card()
     phase_build()
-    flash, paged = phase_kernels()
-    launches = phase_serve()
+    flash, paged, kd = phase_kernels()
+    serve = phase_serve()
+    train = phase_train()
+    # launches: the counts of every path run that drives the kernel
+    launches = {k: serve.get(k, 0) + train.get(k, 0) for k in KERNELS}
     line = []
     for kname, main_row in (("flash_attention", flash[0]),
-                            ("paged_attn", paged[0])):
+                            ("paged_attn", paged[0]), ("kd_loss", kd[0])):
+        if launches[kname] <= 0:
+            fail(f"{kname} was never launched on the main path")
         line.append({"name": kname, **KERNELS[kname],
                      "launches": launches[kname],
                      "max_abs_err": main_row["max_abs_err"],

@@ -1,4 +1,4 @@
-"""Public wrapper of the flash-attention kernel (forward only: prefill).
+"""Public wrapper of the flash-attention kernel, with its gradient.
 
 Replaces ``repro.kernels.flash_attention.kernel.flash_attention_bhsd``
 (the Pallas TPU kernel ``_attn_kernel``) behind the signature of
@@ -6,8 +6,14 @@ Replaces ``repro.kernels.flash_attention.kernel.flash_attention_bhsd``
 is ``csrc/flash_attention.cu``; its header says what bounds it on the
 H100 (arithmetic, at prefill shapes) and what the design does about it.
 
-A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
-launches the kernel or raises — nothing falls back.  ``LAUNCHES``
+A CPU tensor runs the plain version in ``ref.py``, and autograd goes
+straight through it.  A CUDA tensor launches the kernel or raises —
+nothing falls back — inside a ``torch.autograd.Function`` whose backward
+is the reference's ``_fa_bhsd_bwd``: it recomputes the dense
+``flash_attention_ref`` on the saved q, k, v and differentiates that
+(scores (B·H, Sq, Sk) live in the backward only).  The GQA repeat in
+``flash_attention_ref`` sums the K/V gradients over each group's query
+heads, as the VJP of the reference's ``jnp.repeat`` does.  ``LAUNCHES``
 counts kernel launches, so a run can show the path went through it.
 """
 from __future__ import annotations
@@ -63,11 +69,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Query head h attends kv head h // (H // KH); scale 1/sqrt(D);
     causal positions start at 0 for both q and k, as in the reference.
     """
-    global LAUNCHES
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(softcap))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        return _flash_fwd(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flash_attention_ref(*qkv, **ctx.kw)
+        dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_fwd(q, k, v, *, causal, window, softcap):
+    """The kernel launch (CUDA tensors)."""
+    global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

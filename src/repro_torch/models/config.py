@@ -3,8 +3,9 @@
 The port keeps its own copy so that it never imports the JAX package.
 The fields are those of the reference, so a configuration reads the
 same in both packages, with one rename: ``use_pallas`` is
-``use_kernels`` here (route attention through the hand-written CUDA
-kernels of ``repro_torch.kernels``) and defaults to True.  Only the
+``use_kernels`` here (route attention and the LM loss through the
+hand-written CUDA kernels of ``repro_torch.kernels``) and defaults to
+True.  Only the
 dense family is ported so far; the fields of the other families are
 kept so later slices can fill them in.
 """
@@ -119,7 +120,7 @@ class ModelConfig:
     # causal-aware chunk skipping in the attention loop (perf opt; see
     # EXPERIMENTS.md §Perf) — skips fully-masked (q-chunk, k-chunk) pairs.
     attn_skip_masked_chunks: bool = False
-    use_kernels: bool = True   # hand-written CUDA attention kernels
+    use_kernels: bool = True   # hand-written CUDA attention/loss kernels
     # Unroll every lax.scan (incl. chunk loops).  Used by the dry-run's
     # cost calibration: XLA's cost_analysis counts a while-loop body ONCE,
     # so scanned modules under-report FLOPs; the calibration lowers two

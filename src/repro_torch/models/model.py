@@ -1,11 +1,14 @@
-"""Model assembly of the port: init / prefill / decode, dense family.
+"""Model assembly of the port: init / loss / prefill / decode, dense
+family.
 
 Counterpart of ``repro.models.model``.  The parameter layout is the
 reference's: nested dicts with the same keys, layer parameters stacked
 along a leading group axis (``blocks/sub{i}/...`` of shape
 ``(n_groups, ...)``, ``n_groups = n_layers / len(attn_pattern)``), and
 ``(in, out)`` weight matrices.  Where the reference scans over the group
-axis, the port loops over it in Python and indexes the stacked tensors.
+axis, the port loops over it in Python over views of the stacked
+tensors; training rematerialises each group (and each loss chunk) in
+the backward when ``cfg.remat``, as the reference's ``jax.checkpoint``.
 
 Caches follow the reference's layout too.  Contiguous decode cache:
 ``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh).  Paged cache:
@@ -19,6 +22,8 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -114,21 +119,58 @@ def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
     return x + ffn_out, cache
 
 
+def _groups(tree, n: int):
+    """The ``n`` per-group views of a stacked tree, from one
+    ``torch.unbind`` per leaf: its backward stacks the groups' gradients
+    in one step, where indexing each group would add a zero-padded
+    full-size gradient per group."""
+    if isinstance(tree, dict):
+        per_key = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][g] for k in tree} for g in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` rematerialised in the backward when ``cfg.remat``, as the
+    reference's ``jax.checkpoint`` (non-reentrant
+    ``torch.utils.checkpoint``: only the inputs are saved).  Without
+    autograd (serving) there is no backward, and ``fn`` runs as is."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError('remat_policy="dots" is not ported yet')
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
                causal: bool, collect_cache: bool):
-    """Loop over the stacked groups of sub-layers (full sequence).
-    Returns (x, caches) with the per-layer k/v stacked on the group axis
-    (an empty dict unless ``collect_cache``)."""
-    per_sub = {f"sub{i}": {"k": [], "v": []} for i in range(len(pattern))}
+    """Loop over the stacked groups of sub-layers (full sequence), each
+    group rematerialised in the backward when ``cfg.remat``.  Returns
+    (x, caches) with the per-layer k/v stacked on the group axis (an
+    empty dict unless ``collect_cache``)."""
     n = next(iter(blocks["sub0"]["ln1"].values())).shape[0]
-    for g in range(n):
-        gp = _layer(blocks, g)
+
+    def group_fn(x, gp):
+        kvs = []
         for i, kind in enumerate(pattern):
             x, kv = _block_full(gp[f"sub{i}"], cfg, x, positions, kind=kind,
                                 causal=causal)
-            if collect_cache:
-                per_sub[f"sub{i}"]["k"].append(kv["k"])
-                per_sub[f"sub{i}"]["v"].append(kv["v"])
+            kvs.append(kv)
+        return x, (kvs if collect_cache else [])
+
+    group_fn = _maybe_remat(cfg, group_fn)
+    per_sub = {f"sub{i}": {"k": [], "v": []} for i in range(len(pattern))}
+    for gp in _groups(blocks, n):
+        x, kvs = group_fn(x, gp)
+        for i, kv in enumerate(kvs):
+            per_sub[f"sub{i}"]["k"].append(kv["k"])
+            per_sub[f"sub{i}"]["v"].append(kv["v"])
     if not collect_cache:
         return x, {}
     return x, {s: {k: torch.stack(v) for k, v in e.items()}
@@ -211,6 +253,73 @@ def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                       collect_cache=collect_cache)
     caches = {"blocks": c} if collect_cache else {}
     return layers.apply_norm(params["final_norm"], x), caches
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def chunked_ce(params, cfg: ModelConfig, h, labels, mask):
+    """Sequence-chunked CE: never materialises (B, S, V) logits at once.
+    With ``cfg.use_kernels`` each chunk goes through the fused kd_loss
+    kernel (``kd_ops.ce_from_hidden``), else through ``_head`` +
+    logsumexp + gather.  Each chunk is rematerialised in the backward
+    when ``cfg.remat``, as in the reference.
+
+    Returns (sum_nll, sum_tokens, sum_correct) as f32 scalars.
+    """
+    B, S, D = h.shape
+    C = min(cfg.loss_chunk, S)
+    pad = (-S) % C
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    n = h.shape[1] // C
+
+    def body(hh, ll, mm):
+        if cfg.use_kernels:
+            from repro_torch.kernels.kd_loss import ops as kd_ops
+            w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+            nll, correct = kd_ops.ce_from_hidden(
+                hh, w, ll, softcap=cfg.final_logit_softcap)
+        else:
+            logits = _head(params, cfg, hh)
+            lse = torch.logsumexp(logits, dim=-1)
+            # gather takes int64 indices
+            gold = torch.gather(logits, -1, ll.long()[..., None])[..., 0]
+            nll = lse - gold
+            correct = (torch.argmax(logits, -1) == ll).float()
+        mmf = mm.float()
+        return (torch.sum(nll * mmf), torch.sum(mmf),
+                torch.sum(correct * mmf))
+
+    body = _maybe_remat(cfg, body)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    nll_s, tok_s, cor_s = zero, zero, zero
+    for i in range(n):
+        sl = slice(i * C, (i + 1) * C)
+        a, b, c = body(h[:, sl], labels[:, sl], mask[:, sl])
+        nll_s, tok_s, cor_s = nll_s + a, tok_s + b, cor_s + c
+    return nll_s, tok_s, cor_s
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Autoregressive LM loss (Eq. 2), dense family.  Returns (loss,
+    metrics) with the reference's keys; ``aux_loss`` is 0 (no MoE)."""
+    h, _ = backbone(params, cfg, batch)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    nll, tok, cor = chunked_ce(params, cfg, h, labels, mask)
+    loss = nll / torch.clamp(tok, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    metrics = {"nll": nll, "tokens": tok,
+               "accuracy": cor / torch.clamp(tok, min=1.0),
+               "aux_loss": aux, "ce_loss": loss}
+    return loss + aux, metrics
 
 
 # ---------------------------------------------------------------------------

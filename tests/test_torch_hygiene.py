@@ -51,7 +51,10 @@ def _env():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.convert, repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.kernels.paged_attn.ops; "
+            "repro_torch.kernels.paged_attn.ops, "
+            "repro_torch.kernels.kd_loss.ops, repro_torch.launch.train, "
+            "repro_torch.federated.device, repro_torch.data.federated, "
+            "repro_torch.optim, repro_torch.utils.pytree; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
