@@ -9,12 +9,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu``, in
    parallel, into ``build/repro_torch/`` (cached by source hash);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the serve and train paths' shapes plus small edge cases,
+   card, at the serve, train and tune paths' shapes plus small edge
+   cases (MoE: a drop case, transposed operands, gelu, ragged edges),
    each output element within two bf16 ulps of its own value + 1e-4
    (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
    rows whose top two logits are within ``ARGMAX_MARGIN``; kernel, plain
    and library-call times (``scaled_dot_product_attention``, matmul +
-   ``cross_entropy``: yardsticks the port never calls) from CUDA events
+   ``cross_entropy``, ``torch.bmm``, ``index_add_``: yardsticks the
+   port never calls) from CUDA events
    with L2 flushed before each call, and the least time the card could
    take (bytes over 3.35 TB/s, flops over the type's peak);
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
@@ -27,7 +29,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run,
    the kernel path's loss and gradients against the plain path's, and
-   reports ms per step, tokens/s, MFU, peak memory and a profile.
+   reports ms per step, tokens/s, MFU, peak memory and a profile;
+7. tune: Phase III on Qwen1.5-MoE-A2.7B at full width, 12 of its 24
+   layers (bf16, random weights): K = 4 random base models merged by
+   ``merge_into_moe`` on the card (the merge rule checked exactly), then
+   ``DeepFusionServer.merge_and_tune`` for 6 steps of 4 x 1024 tokens
+   with frozen experts at lr 5e-4.  Checks finite losses, frozen experts
+   bit-identical and every trainable leaf changed, the MoE kernels'
+   launch counts, the kernel path's loss and gradients against its plain
+   version in bf16 and in f32 (the dropless plain path reported), and
+   reports ms per step, tokens/s, MFU, peak memory, dropped assignments
+   per step and a profile.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without either when
@@ -345,6 +357,162 @@ def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
     return row
 
 
+# the expert layer on the tune path: batch 4 x 1024 tokens of
+# Qwen1.5-MoE-A2.7B, top-4 of 60 experts, moe_d_ff 1408, and the
+# reference's capacity max(ceil(T*k/E)*2, 8) = 548 slots per expert
+MOE_T, MOE_K, MOE_E, MOE_D, MOE_F = 4096, 4, 60, 2048, 1408
+MOE_CAP = max(-(-MOE_T * MOE_K // MOE_E) * 2, 8)
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def gmm_case(gen, E, M, K, N, *, ta=False, tb=False, da=torch.float32,
+             db=torch.float32, dc=torch.float32, timed=False):
+    """The grouped-matmul kernel against its plain version (bmm of f32
+    casts).  A ~N(0,1), B ~N(0,1/K), so outputs are O(1).  ``ta``/``tb``
+    hand the kernel transposed views, as the backward does."""
+    from repro_torch.kernels.moe_gemm import ops, ref
+    a = torch.randn((E, K, M) if ta else (E, M, K), generator=gen,
+                    device="cuda").to(da)
+    b = (torch.randn((E, N, K) if tb else (E, K, N), generator=gen,
+                     device="cuda") / K ** 0.5).to(db)
+    a = a.transpose(1, 2) if ta else a
+    b = b.transpose(1, 2) if tb else b
+    out = ops.grouped_matmul(a, b, out_dtype=dc)
+    want = ref.grouped_matmul_ref(a, b, dc)
+    torch.cuda.synchronize()
+    row = check_close(f"grouped_matmul E={E} M={M} K={K} N={N} "
+                      f"a={str(da)[6:]}{'^T' if ta else ''} "
+                      f"b={str(db)[6:]}{'^T' if tb else ''} "
+                      f"out={str(dc)[6:]}", out, want)
+    if timed:
+        af, bf_ = a.float().contiguous(), b.float().contiguous()
+        row.update(ms=time_ms(lambda: ops.grouped_matmul(a, b, out_dtype=dc)),
+                   plain_ms=time_ms(lambda: ref.grouped_matmul_ref(a, b, dc)),
+                   library_ms=time_ms(lambda: torch.bmm(af, bf_)))
+        # bf16 x bf16 products are exact in f32, so the card's rate for
+        # them is the bf16 tensor-core rate; an f32 operand takes the f32
+        # rate (TF32 would round it)
+        peak = torch.bfloat16 if da == db == torch.bfloat16 else torch.float32
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(a, b, out), 2 * E * M * N * K, peak)
+    return row
+
+
+def ffn_case(gen, E, C, D, Fh, dtype, *, act="silu", timed=False):
+    """The grouped-FFN kernel (both stages) against its plain version."""
+    from repro_torch.kernels.moe_gemm import ops, ref
+    x = _randn(gen, (E, C, D), dtype)
+    wg, wu = ((torch.randn((E, D, Fh), generator=gen, device="cuda")
+               / D ** 0.5).to(dtype) for _ in range(2))
+    wo = (torch.randn((E, Fh, D), generator=gen, device="cuda")
+          / Fh ** 0.5).to(dtype)
+    out = ops.grouped_ffn_fwd(x, wg, wu, wo, act=act)
+    want = ref.grouped_ffn_ref(x, wg, wu, wo, act=act)
+    torch.cuda.synchronize()
+    row = check_close(f"grouped_ffn E={E} C={C} D={D} F={Fh} "
+                      f"{str(dtype)[6:]} {act}", out, want)
+    if timed:
+        actf = F.silu if act == "silu" else (
+            lambda t: F.gelu(t, approximate="tanh"))
+
+        def library():  # a torch.bmm chain in the working dtype
+            return torch.bmm(actf(torch.bmm(x, wg)) * torch.bmm(x, wu), wo)
+
+        row.update(ms=time_ms(lambda: ops.grouped_ffn_fwd(x, wg, wu, wo,
+                                                          act=act)),
+                   plain_ms=time_ms(lambda: ref.grouped_ffn_ref(
+                       x, wg, wu, wo, act=act)),
+                   library_ms=time_ms(library))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(x, wg, wu, wo, out), 6 * E * C * D * Fh, dtype)
+    return row
+
+
+def gsa_case(gen, direction, T, E, k, D, dtype, *, bias=0.0, timed=False):
+    """The gather/scatter-add kernel as dispatch (tokens -> capacity
+    slots) or combine (slots -> tokens) of softmax-top-k routing from
+    random logits, ``bias`` added to expert 0 (a drop case).  Held to the
+    plain version on the card (``index_add_``, atomics) by the bf16 rule,
+    and bit for bit to the plain version on the CPU, which adds rows in
+    order as the kernel does."""
+    from repro_torch.kernels.moe_dispatch import ops, ref
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    logits[:, 0] += bias
+    w, idx = torch.softmax(logits, -1).topk(k, -1)
+    w = w / w.sum(-1, keepdim=True)
+    cap = max(-(-T * k // E) * 2, 8)
+    flat_e = idx.reshape(-1)
+    flat_tok = torch.arange(T * k, device="cuda") // k
+    pos, keep = ops.capacity_positions(flat_e, cap)
+    slot = torch.where(keep, flat_e * cap + pos, 0)
+    if direction == "dispatch":
+        src = _randn(gen, (T, D), dtype)
+        src_rows, dst, scale, n_out = flat_tok, slot, keep.float(), E * cap
+    else:
+        src = _randn(gen, (E * cap, D), dtype)
+        src_rows, dst, n_out = slot, flat_tok, T
+        scale = torch.where(keep, w.reshape(-1), 0.0)
+    out = ops.gather_scatter_add_rows(src, src_rows, dst, scale, n_out)
+    want = ref.gather_scatter_add_ref(src, src_rows, dst, scale, n_out)
+    torch.cuda.synchronize()
+    name = (f"gather_scatter_add {direction} T={T} E={E} k={k} cap={cap} "
+            f"D={D} {str(dtype)[6:]} bias={bias}")
+    row = check_close(name, out, want)
+    cpu = ref.gather_scatter_add_ref(src.cpu(), src_rows.cpu(), dst.cpu(),
+                                     scale.cpu(), n_out)
+    if not torch.equal(out.cpu(), cpu):
+        fail(f"{name}: differs from the in-order sum of the plain version "
+             f"on the CPU")
+    row.update(dropped=int((~keep).sum()), rows=int(src_rows.numel()),
+               equal_to_cpu_in_order=True)
+    if bias and not row["dropped"]:
+        fail(f"{name}: the drop case dropped nothing")
+    if timed:
+        # each referenced source row read once, every output row written
+        # once, the (row, scale, destination) triples read once
+        used = int(torch.unique(src_rows).numel())
+        nbytes = ((used + n_out) * D * src.element_size()
+                  + 12 * src_rows.numel())
+
+        def library():  # index_add_, with its gather and scale
+            return torch.zeros((n_out, D), dtype=dtype, device="cuda"
+                               ).index_add_(0, dst, src[src_rows]
+                                            * scale[:, None].to(dtype))
+
+        row.update(ms=time_ms(lambda: ops.gather_scatter_add_rows(
+                       src, src_rows, dst, scale, n_out)),
+                   plain_ms=time_ms(lambda: ref.gather_scatter_add_ref(
+                       src, src_rows, dst, scale, n_out)),
+                   library_ms=time_ms(library))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 0, dtype)
+    return row
+
+
+def moe_cases(gen):
+    """Kernels 4-6 at the tune path's shapes (timed), and edge cases."""
+    bf, f32 = torch.bfloat16, torch.float32
+    E, C, D, Fh = MOE_E, MOE_CAP, MOE_D, MOE_F
+    ffn = [ffn_case(gen, E, C, D, Fh, bf, timed=True),
+           ffn_case(gen, 3, 70, 96, 200, bf, act="gelu"),
+           ffn_case(gen, 2, 130, 100, 136, bf),
+           ffn_case(gen, 3, 33, 64, 72, f32, act="gelu")]
+    # the backward's products at the path's shapes: g = x @ wg, then
+    # dwg = x^T @ dg and dh = dy @ wo^T through transposed views
+    gmm = [gmm_case(gen, E, C, D, Fh, da=bf, db=bf, timed=True),
+           gmm_case(gen, E, D, C, Fh, ta=True, da=bf, db=f32, timed=True),
+           gmm_case(gen, E, C, D, Fh, tb=True, da=bf, db=bf),
+           gmm_case(gen, 3, 130, 37, 70, ta=True, tb=True, da=f32, db=bf,
+                    dc=bf)]
+    gsa = [gsa_case(gen, "dispatch", MOE_T, E, MOE_K, D, bf, timed=True),
+           gsa_case(gen, "combine", MOE_T, E, MOE_K, D, bf, timed=True),
+           gsa_case(gen, "dispatch", MOE_T, E, MOE_K, D, bf, bias=4.0),
+           gsa_case(gen, "combine", 300, 8, 2, 2100, f32, bias=3.0)]
+    return ffn, gmm, gsa
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -369,9 +537,12 @@ def phase_kernels():
           kd_case(gen, 64, 136, 72, 129, bf, tau=0.5, cap_t=20.0),
           kd_case(gen, 96, 96, 0, 5000, bf, ties=True),
           kd_case(gen, 96, 96, 0, 5000, f32, ties=True)]
-    for row in flash + paged + kd:
+    ffn, gmm, gsa = moe_cases(gen)
+    for row in flash + paged + kd + ffn + gmm + gsa:
         print("kernel " + json.dumps(row))
-    return flash, paged, kd
+    return {"flash_attention": flash[0], "paged_attn": paged[0],
+            "kd_loss": kd[0], "grouped_ffn": ffn[0],
+            "grouped_matmul": gmm[0], "gather_scatter_add": gsa[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -724,6 +895,344 @@ def phase_train():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: Phase III on Qwen1.5-MoE-A2.7B, full width, 12 of 24 layers
+# ---------------------------------------------------------------------------
+
+TUNE_LAYERS, TUNE_STEPS, TUNE_BATCH, TUNE_SEQ, TUNE_K = 12, 6, 4, 1024, 4
+TUNE_CHECK_LAYER = 5
+# The kernel path's loss and gradients on one 1 x 1024 batch of the tuned
+# model, against the same path with kernels 4-6 swapped for their plain
+# versions (``moe_ffn_capacity_ref``: the same capacity, ranks and
+# drops), in f32 (parameters upcast).  The plain run replays the kernel
+# run's top-4 expert choices (and takes its weights and load-balance loss
+# at them): the two paths sum in other orders, and a near-tied choice
+# resolved the other way by that rounding (in f32 too: one token in layer
+# 11 in two of four runs; unreplayed, that read 7.6e-3 on wi_gate) would
+# change which experts a token meets and compound through 12 layers.
+# The dropless plain path (``use_kernels=False``) is a different
+# function wherever the capacity drops, so it is reported, not held.
+# Readings on an H100 (700 W), with and without a replayed choice: loss
+# |d| = 0, gradients 3.3e-6 (lm_head) to 5.4e-6 (wi_gate) relative L2.
+# Limits: the loss to 1e-5 (about ten f32 ulps of ~12.6), each gradient
+# to 2e-5, about 3x the worst reading.
+TUNE_LOSS_TOL = 1e-5
+TUNE_GRAD_TOL = 2e-5
+# The same check on the tuned bf16 model, as it runs: stage A's mma.sync
+# and the backward's bf16-operand products against the plain version's
+# f32 bmm of bf16 inputs, activations rounded to bf16 at the same points
+# but from sums in other orders, so one-ulp differences compound through
+# 12 layers (the replay then swaps 21-85 of 1,024 tokens' choices a
+# layer).  Reading on an H100 (700 W): loss |d| 3.7e-4, gradients 0.022
+# (lm_head) to 0.035 (wi_gate) relative L2.  Limits about 3x the
+# reading: 1e-3 and 0.1.
+TUNE_BF16_LOSS_TOL = 1e-3
+TUNE_BF16_GRAD_TOL = 0.1
+
+
+def _dropped(idx, n_experts):
+    """Assignments that ``moe_ffn``'s capacity drops for one call's
+    routing choices idx (T, k)."""
+    from repro_torch.kernels.moe_dispatch.ops import capacity_positions
+    T, k = idx.shape
+    _, keep = capacity_positions(idx.reshape(-1),
+                                 max(-(-T * k // n_experts) * 2, 8))
+    return int((~keep).sum())
+
+
+def _check_merge(params, bases, cfg):
+    """The merge rule, exactly: routed expert e of every layer is base
+    model e mod K's FFN, and the shared experts tile the bases' average
+    FFN (f32 sum, divided, rounded to bf16; ``wo`` divided by their
+    number).  Frozen leaves: this holds after tuning too."""
+    from repro_torch.utils.pytree import tree_average
+    K, n_sh = len(bases), cfg.n_shared_experts
+    sub = params["blocks"]["sub0"]["moe"]
+    for w in ("wi_gate", "wi_up", "wo"):
+        for e in range(cfg.n_experts):
+            if not torch.equal(sub[w][:, e],
+                               bases[e % K]["blocks"]["sub0"]["mlp"][w]):
+                fail(f"routed expert {e} {w} is not base {e % K}'s FFN")
+    avg = tree_average([b["blocks"]["sub0"]["mlp"] for b in bases])
+    want = {"wi_gate": avg["wi_gate"].repeat(1, 1, n_sh),
+            "wi_up": avg["wi_up"].repeat(1, 1, n_sh),
+            "wo": avg["wo"].repeat(1, n_sh, 1) / n_sh}
+    for w, t in want.items():
+        if not torch.equal(sub["shared"][w], t):
+            fail(f"shared expert {w} is not the tiled average FFN")
+
+
+def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol):
+    """Loss and the gradients of ``lm_head``, layer TUNE_CHECK_LAYER's
+    router, ``wq`` and (frozen) routed ``wi_gate``: the kernel path
+    against its plain version (held to ``loss_tol`` absolute and
+    ``grad_tol`` relative L2) and against the dropless plain path
+    (reported).  ``params`` in ``cfg.dtype``."""
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.kernels.moe_gemm import ref as mg_ref
+    from repro_torch.models import moe
+    from repro_torch.utils.pytree import tree_leaves
+    g = TUNE_CHECK_LAYER
+    sub = params["blocks"]["sub0"]
+    leaves = {"lm_head": params["lm_head"], "router": sub["moe"]["router"],
+              "wq": sub["attn"]["wq"], "wi_gate": sub["moe"]["wi_gate"]}
+    for t in tree_leaves(params):
+        t.requires_grad_(False)
+    for t in leaves.values():
+        t.requires_grad_(True)
+
+    choices, replaced = [], []
+    own_route = moe.route
+
+    def recording_route(p, c, x):
+        w, idx, aux = own_route(p, c, x)
+        choices.append(idx)
+        return w, idx, aux
+
+    def replaying_route(p, c, x):
+        # the kernel run's choices, in call order (forward, then remat's
+        # recompute); weights and load-balance loss from this run's own
+        # router probabilities at those choices
+        _, idx, _ = own_route(p, c, x)
+        want = choices[len(replaced)]
+        replaced.append(int((torch.sort(idx, -1).values != torch.sort(
+            want, -1).values).any(-1).sum()))
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        w = probs.gather(-1, want)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, want, moe.load_balance_loss(c, probs, want)
+
+    def run(use_kernels, plain_moe, route):
+        kernel_moe_ffn = mg_ops.moe_ffn
+        n0 = md_ops.LAUNCHES + sum(mg_ops.LAUNCHES.values())
+        if plain_moe:
+            mg_ops.moe_ffn = mg_ref.moe_ffn_capacity_ref
+        moe.route = route
+        try:
+            loss, _ = M.loss_fn(params, cfg.replace(use_kernels=use_kernels),
+                                batch)
+            gs = torch.autograd.grad(loss, list(leaves.values()))
+        finally:
+            mg_ops.moe_ffn = kernel_moe_ffn
+            moe.route = own_route
+        moe_launches = md_ops.LAUNCHES + sum(mg_ops.LAUNCHES.values()) - n0
+        grads = {k: (gr if k == "lm_head" else gr[g]).float()
+                 for k, gr in zip(leaves, gs)}
+        return loss.item(), grads, moe_launches
+
+    lk, gk, nk = run(True, False, recording_route)
+    lc, gc, nc = run(True, True, replaying_route)
+    lp, gp, _ = run(False, False, own_route)
+    if len(replaced) != len(choices):
+        fail(f"tune check: {len(choices)} routing calls in the kernel run, "
+             f"{len(replaced)} replayed")
+    if nk <= 0 or nc != 0:
+        fail(f"tune check: {nk} MoE kernel launches on the kernel path, "
+             f"{nc} on its plain version")
+
+    def cmp(ga, gb, la, lb, tag):
+        res = {f"loss_{tag}": lb, f"loss_abs_err_{tag}": abs(la - lb)}
+        for k in leaves:
+            res[f"{k}_rel_err_{tag}"] = (
+                (ga[k] - gb[k]).norm() / gb[k].norm()).item()
+        return res
+
+    # the first n_layers routing calls are the forward's, one per layer
+    drops = [_dropped(i, cfg.n_experts) for i in choices[:cfg.n_layers]]
+    res = {"dtype": cfg.dtype, "loss_kernel": lk,
+           "kernel_path_dropped_per_layer": drops,
+           "plain_choices_replaced_per_call": replaced,
+           "assignments_per_layer": batch["tokens"].numel() * cfg.top_k,
+           **cmp(gk, gc, lk, lc, "vs_plain_capacity"),
+           **cmp(gk, gp, lk, lp, "vs_plain_dropless")}
+    print("tune kernel vs plain " + json.dumps(res))
+    err = res["loss_abs_err_vs_plain_capacity"]
+    if not math.isfinite(err) or err > loss_tol:
+        fail(f"tune ({cfg.dtype}): kernel-path loss differs from its plain "
+             f"version by {err} > {loss_tol}")
+    for k in leaves:
+        e = res[f"{k}_rel_err_vs_plain_capacity"]
+        if not e <= grad_tol:
+            fail(f"tune ({cfg.dtype}): kernel-path {k} gradient differs from "
+                 f"its plain version by {e} (relative L2) > {grad_tol}")
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return res
+
+
+def phase_tune():
+    """Phase III through ``DeepFusionServer.merge_and_tune`` at full width
+    with 12 of 24 layers: merge K = 4 random base models, tune 6 steps of
+    4 x 1024 tokens with frozen experts (lr 5e-4, cosine, warmup 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import merge, tuning
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import server as S
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
+
+    cfg = get_config("qwen2-moe-a2.7b", variant="full").replace(
+        n_layers=TUNE_LAYERS)
+    if not (cfg.use_kernels and cfg.remat):
+        fail("config does not tune through the kernels with remat")
+    base_cfg = merge.base_config_of(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bases = [M.init_params(base_cfg, generator=torch.Generator(
+        device="cuda").manual_seed(100 + i)) for i in range(TUNE_K)]
+    scfg = S.ServerConfig(cfg, tune_steps=TUNE_STEPS, tune_batch=TUNE_BATCH,
+                          seq_len=TUNE_SEQ, seed=0)
+    # the server's merge, drawn again from its seed (seed + 303): check
+    # the rule, and keep the trainable leaves to see that tuning moves them
+    merged = merge.merge_into_moe(torch.Generator(device="cuda").manual_seed(
+        scfg.seed + 303), cfg, bases)
+    _check_merge(merged, bases, cfg)
+    mask = tuning.expert_freeze_mask(merged)
+    before = {p: t.clone() for (p, t), m in zip(tree_paths(merged),
+                                                tree_leaves(mask)) if m}
+    del merged
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    marks, choices, step_choices = [], [], []
+    own_route = moe.route
+
+    def recording_route(p, c, x):
+        w, idx, aux = own_route(p, c, x)
+        choices.append(idx)
+        return w, idx, aux
+
+    def on_step(s, loss):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        step_choices.append(choices[:])
+        choices.clear()
+
+    srv = S.DeepFusionServer(scfg, corpus, [], device="cuda",
+                             on_step=on_step)
+    # the main path, counts from 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
+    mg_ops.LAUNCHES.update(grouped_ffn=0, grouped_matmul=0)
+    moe.route = recording_route
+    t0 = time.perf_counter()
+    try:
+        params, losses = srv.merge_and_tune(bases)
+    finally:
+        moe.route = own_route
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention": fa_ops.LAUNCHES,
+                "kd_loss": kd_ops.LAUNCHES,
+                "gather_scatter_add": md_ops.LAUNCHES,
+                "grouped_ffn": mg_ops.LAUNCHES["grouped_ffn"],
+                "grouped_matmul": mg_ops.LAUNCHES["grouped_matmul"]}
+    L, n = cfg.n_layers, TUNE_STEPS
+    # per layer and step, with each group rematerialised: dispatch and
+    # combine forward twice plus their two backward movements; the FFN
+    # forward twice; the backward's eight grouped products; flash twice;
+    # kd_loss twice per loss chunk
+    want = {"flash_attention": 2 * L * n,
+            "kd_loss": 2 * (TUNE_SEQ // cfg.loss_chunk) * n,
+            "gather_scatter_add": 6 * L * n, "grouped_ffn": 2 * L * n,
+            "grouped_matmul": 8 * L * n}
+    # each layer routes twice a step: the forward and remat's recompute
+    drops = [sum(_dropped(i, cfg.n_experts) for i in c) / 2
+             for c in step_choices]
+    del step_choices
+    print(f"tune: {n} steps in {wall:.2f}s (merge included), losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches}")
+    if launches != want:
+        fail(f"tune launches {launches} != expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite tuning loss: {losses}")
+
+    # frozen experts bit-identical to the merge, trainable leaves moved
+    _check_merge(params, bases, cfg)
+    del bases
+    now = dict(tree_paths(params))
+    frozen = [p for p, m in zip(now, tree_leaves(
+        tuning.expert_freeze_mask(params))) if not m]
+    unchanged = [p for p, t in before.items() if torch.equal(now[p], t)]
+    # bf16 norm scales sit at 1.0, where half a bf16 ulp (2^-10) exceeds
+    # an AdamW step of lr <= 5e-4: they round back to 1.0 (the reference
+    # keeps bf16 parameters too).  Every other trainable leaf must move.
+    norms = [p for p in unchanged if p.endswith("/scale")
+             and bool((now[p] == 1).all())]
+    if set(unchanged) - set(norms):
+        fail(f"trainable leaves unchanged by tuning: "
+             f"{sorted(set(unchanged) - set(norms))}")
+    del before, now
+
+    # where the time goes: one more step under the profiler
+    mask, opt = tuning.init_tuning(params)
+    step = tuning.make_tune_step(cfg, mask)
+    b = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
+        TUNE_BATCH, TUNE_SEQ, seed_salt=78).items()}
+    prof = profile(lambda: step(params, opt, b, scfg.tune_lr), top=12,
+                   groups={"grouped_matmul_and_ffn_stage_b": ("gmm_kernel",),
+                           "ffn_stage_b": ("gmm_kernel<float, "
+                                           "__nv_bfloat16, __nv_bfloat16>",),
+                           "ffn_stage_a": ("ffn_gate_up",),
+                           "gather_scatter_add": ("gsa_kernel",),
+                           "kd_loss": ("kd_partial", "kd_merge"),
+                           "flash_fwd": ("flash_fwd",)})
+    del opt, step
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    trainable = sum(map(bool, tree_leaves(mask)))
+
+    # the tuned model, kernel path against its plain version: in bf16 as
+    # tuned, then in f32 (the bf16 copy freed)
+    batch = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
+        1, TUNE_SEQ, seed_salt=77).items()}
+    check_bf16 = _tune_grad_check(M, cfg, params, batch,
+                                  TUNE_BF16_LOSS_TOL, TUNE_BF16_GRAD_TOL)
+    params = tree_map(lambda t: t.detach().float(), params)
+    torch.cuda.empty_cache()
+    check = _tune_grad_check(M, cfg.replace(dtype="float32"), params, batch,
+                             TUNE_LOSS_TOL, TUNE_GRAD_TOL)
+    del params
+
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    ms = sorted(step_ms)[len(step_ms) // 2]
+    tokens = TUNE_BATCH * TUNE_SEQ
+    D, Fh, H, Dh = cfg.d_model, cfg.moe_d_ff, cfg.n_heads, \
+        cfg.resolved_head_dim
+    per_layer = (4 * D * H * Dh + D * cfg.n_experts
+                 + 3 * D * Fh * (cfg.n_shared_experts + cfg.top_k))
+    active = L * per_layer + D * cfg.vocab_size   # the head is a GEMM too
+    attn = 3 * 4 * TUNE_BATCH * H * Dh * TUNE_SEQ * (TUNE_SEQ + 1) / 2 * L
+    model_flops = 6 * active * tokens + attn
+    res = {"layers": L, "steps": n, "batch": TUNE_BATCH, "seq": TUNE_SEQ,
+           "base_models": TUNE_K, "losses": losses, "setup_s": setup_s,
+           "merge_and_tune_wall_s": wall, "launches": launches,
+           "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "mfu": model_flops / (ms / 1e3) / PEAK_BF16,
+           "model_tflop_per_step": model_flops / 1e12,
+           "active_matmul_params": active, "n_params": n_params,
+           "trainable_fraction": srv.report["trainable_fraction"],
+           "dropped_per_step": drops,
+           "assignments_per_step": L * tokens * cfg.top_k,
+           "frozen_leaves_bit_identical": len(frozen),
+           "trainable_leaves_changed": trainable - len(norms),
+           "norm_scales_unchanged_in_bf16": norms,
+           "peak_mem_gb": peak_gb, **check,
+           "bf16_check": check_bf16}
+    print("tune " + json.dumps(res))
+    print("profile " + json.dumps({"tune_step": prof}))
+    return launches
+
+
 KERNELS = {
     "kd_loss": {
         "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
@@ -734,6 +1243,15 @@ KERNELS = {
     "paged_attn": {
         "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:159"},
+    "grouped_ffn": {
+        "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm/kernel.py:136"},
+    "grouped_matmul": {
+        "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm/kernel.py:103"},
+    "gather_scatter_add": {
+        "route": "cuda", "source": "src/repro_torch/csrc/moe_dispatch.cu",
+        "replaces": "src/repro/kernels/moe_dispatch/kernel.py:68"},
 }
 
 
@@ -752,14 +1270,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = phase_card()
     phase_build()
-    flash, paged, kd = phase_kernels()
+    rows = phase_kernels()
     serve = phase_serve()
     train = phase_train()
+    tune = phase_tune()
     # launches: the counts of every path run that drives the kernel
-    launches = {k: serve.get(k, 0) + train.get(k, 0) for k in KERNELS}
+    launches = {k: serve.get(k, 0) + train.get(k, 0) + tune.get(k, 0)
+                for k in KERNELS}
     line = []
-    for kname, main_row in (("flash_attention", flash[0]),
-                            ("paged_attn", paged[0]), ("kd_loss", kd[0])):
+    for kname in KERNELS:
+        main_row = rows[kname]
         if launches[kname] <= 0:
             fail(f"{kname} was never launched on the main path")
         line.append({"name": kname, **KERNELS[kname],

@@ -8,11 +8,13 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 from repro_torch.models.config import ModelConfig, reduced
 
 PORTED: Dict[str, ModelConfig] = {
     "tinyllama-1.1b": TINYLLAMA_1_1B,
+    "qwen2-moe-a2.7b": QWEN2_MOE_A2_7B,
 }
 
 

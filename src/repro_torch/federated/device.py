@@ -65,16 +65,19 @@ def device_upload_bytes(cfg: ModelConfig, embedding_dim: int = 32) -> int:
 # ---------------------------------------------------------------------------
 
 def train_step(params, opt, cfg: ModelConfig, batch, lr: float, *,
-               weight_decay: float = 0.0):
+               weight_decay: float = 0.0, freeze_mask=None):
     """One training step, in place on ``params`` and ``opt``: the LM loss,
-    its gradient with respect to every parameter, and AdamW.  Returns
+    its gradient with respect to every parameter (frozen ones included:
+    the clip norm covers them), and AdamW with ``freeze_mask``.  Returns
     (loss, metrics, stats), tensors on the device."""
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = M.loss_fn(params, cfg, batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
+    del leaves
     _, _, stats = adamw_update(tree_unflatten_like(params, grads), opt,
-                               params, lr=lr, weight_decay=weight_decay)
+                               params, lr=lr, weight_decay=weight_decay,
+                               freeze_mask=freeze_mask)
     return loss.detach(), metrics, stats
 
 

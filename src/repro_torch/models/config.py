@@ -5,9 +5,8 @@ The fields are those of the reference, so a configuration reads the
 same in both packages, with one rename: ``use_pallas`` is
 ``use_kernels`` here (route attention and the LM loss through the
 hand-written CUDA kernels of ``repro_torch.kernels``) and defaults to
-True.  Only the
-dense family is ported so far; the fields of the other families are
-kept so later slices can fill them in.
+True.  The dense and MoE families are ported so far; the fields of the
+other families are kept so later slices can fill them in.
 """
 from __future__ import annotations
 
@@ -120,7 +119,7 @@ class ModelConfig:
     # causal-aware chunk skipping in the attention loop (perf opt; see
     # EXPERIMENTS.md §Perf) — skips fully-masked (q-chunk, k-chunk) pairs.
     attn_skip_masked_chunks: bool = False
-    use_kernels: bool = True   # hand-written CUDA attention/loss kernels
+    use_kernels: bool = True   # hand-written CUDA kernels (attn/loss/MoE)
     # Unroll every lax.scan (incl. chunk loops).  Used by the dry-run's
     # cost calibration: XLA's cost_analysis counts a while-loop body ONCE,
     # so scanned modules under-report FLOPs; the calibration lowers two

@@ -1,5 +1,5 @@
 """Model assembly of the port: init / loss / prefill / decode, dense
-family.
+and MoE families.
 
 Counterpart of ``repro.models.model``.  The parameter layout is the
 reference's: nested dicts with the same keys, layer parameters stacked
@@ -9,6 +9,12 @@ along a leading group axis (``blocks/sub{i}/...`` of shape
 axis, the port loops over it in Python over views of the stacked
 tensors; training rematerialises each group (and each loss chunk) in
 the backward when ``cfg.remat``, as the reference's ``jax.checkpoint``.
+
+MoE sub-layers (``arch_type="moe"``) hold ``moe`` in place of ``mlp``
+(``models/moe.py``) and add their load-balance loss to the training
+loss.  The MoE family trains and runs prefill; its decode (which takes
+the reference's serving ``live`` mask) is not ported yet and raises, as
+do DeepSeek's leading dense layers (``first_dense_layers``) and MTP.
 
 Caches follow the reference's layout too.  Contiguous decode cache:
 ``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh).  Paged cache:
@@ -25,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -56,10 +62,19 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.attn_type != "gqa" or cfg.n_mtp \
-            or cfg.first_dense_layers:
+    if cfg.arch_type not in ("dense", "moe") or cfg.attn_type != "gqa" \
+            or cfg.n_mtp or cfg.first_dense_layers:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported yet")
+            f"{cfg.name} is not ported yet: only the dense and MoE GQA "
+            "families without leading dense layers or MTP are")
+
+
+def _check_decode(cfg: ModelConfig) -> None:
+    _check_ported(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE decode (with the serving live mask) is not "
+            "ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -72,9 +87,12 @@ def _init_block(generator, cfg: ModelConfig, dtype, lead):
         "ln1": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
         "ln2": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
         "attn": layers.init_attention(generator, cfg, dtype, lead),
-        "mlp": layers.init_mlp(generator, cfg, cfg.d_model, cfg.d_ff, dtype,
-                               lead),
     }
+    if cfg.is_moe:
+        p["moe"] = moe.init_moe(generator, cfg, dtype, lead)
+    else:
+        p["mlp"] = layers.init_mlp(generator, cfg, cfg.d_model, cfg.d_ff,
+                                   dtype, lead)
     if cfg.post_block_norm:
         p["ln1_post"] = layers.init_norm(cfg, cfg.d_model, dtype, dev, lead)
         p["ln2_post"] = layers.init_norm(cfg, cfg.d_model, dtype, dev, lead)
@@ -83,7 +101,8 @@ def _init_block(generator, cfg: ModelConfig, dtype, lead):
 
 def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
                 causal: bool = True):
-    """Full-sequence sub-layer.  Returns (x, cache_entry)."""
+    """Full-sequence sub-layer.  Returns (x, aux, cache_entry): ``aux``
+    is the MoE load-balance loss (0 for a dense sub-layer)."""
     window = _window_for(cfg, kind)
     h = layers.apply_norm(p["ln1"], x)
     attn_out, (k, v) = layers.attention_full(p["attn"], cfg, h, positions,
@@ -92,10 +111,14 @@ def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
         attn_out = layers.apply_norm(p["ln1_post"], attn_out)
     x = x + attn_out
     h = layers.apply_norm(p["ln2"], x)
-    ffn_out = layers.apply_mlp(p["mlp"], cfg, h)
+    if "moe" in p:
+        ffn_out, aux = moe.apply_moe(p["moe"], cfg, h)
+    else:
+        ffn_out = layers.apply_mlp(p["mlp"], cfg, h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_block_norm:
         ffn_out = layers.apply_norm(p["ln2_post"], ffn_out)
-    return x + ffn_out, {"k": k, "v": v}
+    return x + ffn_out, aux, {"k": k, "v": v}
 
 
 def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
@@ -103,7 +126,9 @@ def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
     """Decode / chunk sub-layer.  x: (B, C, D), pos: (B, C) — C=1 is the
     single-token decode step.  ``cache`` is the layer's ``{"k", "v"}``
     (contiguous rows, or block pools when ``block_tables`` is given),
-    updated in place."""
+    updated in place.  Dense sub-layers only: MoE decode is not ported."""
+    if "moe" in p:
+        raise NotImplementedError("MoE decode is not ported yet")
     window = _window_for(cfg, kind)
     h = layers.apply_norm(p["ln1"], x)
     attn_out, cache = layers.attention_decode(
@@ -152,29 +177,35 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
                causal: bool, collect_cache: bool):
     """Loop over the stacked groups of sub-layers (full sequence), each
     group rematerialised in the backward when ``cfg.remat``.  Returns
-    (x, caches) with the per-layer k/v stacked on the group axis (an
-    empty dict unless ``collect_cache``)."""
+    (x, aux, caches): ``aux`` the MoE load-balance losses summed per
+    group (through the remat, as the reference's scan carries it), and
+    the per-layer k/v stacked on the group axis (an empty dict unless
+    ``collect_cache``)."""
     n = next(iter(blocks["sub0"]["ln1"].values())).shape[0]
 
     def group_fn(x, gp):
         kvs = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(pattern):
-            x, kv = _block_full(gp[f"sub{i}"], cfg, x, positions, kind=kind,
-                                causal=causal)
+            x, a, kv = _block_full(gp[f"sub{i}"], cfg, x, positions,
+                                   kind=kind, causal=causal)
+            aux = aux + a
             kvs.append(kv)
-        return x, (kvs if collect_cache else [])
+        return x, aux, (kvs if collect_cache else [])
 
     group_fn = _maybe_remat(cfg, group_fn)
     per_sub = {f"sub{i}": {"k": [], "v": []} for i in range(len(pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gp in _groups(blocks, n):
-        x, kvs = group_fn(x, gp)
+        x, a, kvs = group_fn(x, gp)
+        aux = aux + a
         for i, kv in enumerate(kvs):
             per_sub[f"sub{i}"]["k"].append(kv["k"])
             per_sub[f"sub{i}"]["v"].append(kv["v"])
     if not collect_cache:
-        return x, {}
-    return x, {s: {k: torch.stack(v) for k, v in e.items()}
-               for s, e in per_sub.items()}
+        return x, aux, {}
+    return x, aux, {s: {k: torch.stack(v) for k, v in e.items()}
+                    for s, e in per_sub.items()}
 
 
 def _decode_stack(blocks, cfg: ModelConfig, x, pos, cache, *, pattern,
@@ -240,19 +271,20 @@ def _head(params, cfg: ModelConfig, h):
 
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
              collect_cache: bool = False):
-    """Full-sequence forward of the dense family.  Returns (final-normed
-    hidden (B, S, D), caches) — ``caches`` is ``{"blocks": ...}`` when
-    ``collect_cache``, else empty."""
+    """Full-sequence forward of the dense and MoE families.  Returns
+    (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 for dense),
+    caches) — ``caches`` is ``{"blocks": ...}`` when ``collect_cache``,
+    else empty."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
-    x, c = _run_stack(params["blocks"], cfg, x, positions,
-                      pattern=cfg.attn_pattern, causal=True,
-                      collect_cache=collect_cache)
+    x, aux, c = _run_stack(params["blocks"], cfg, x, positions,
+                           pattern=cfg.attn_pattern, causal=True,
+                           collect_cache=collect_cache)
     caches = {"blocks": c} if collect_cache else {}
-    return layers.apply_norm(params["final_norm"], x), caches
+    return layers.apply_norm(params["final_norm"], x), aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +337,10 @@ def chunked_ce(params, cfg: ModelConfig, h, labels, mask):
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Autoregressive LM loss (Eq. 2), dense family.  Returns (loss,
-    metrics) with the reference's keys; ``aux_loss`` is 0 (no MoE)."""
-    h, _ = backbone(params, cfg, batch)
+    """Autoregressive LM loss (Eq. 2) plus the MoE load-balance loss.
+    Returns (loss + aux, metrics) with the reference's keys; ``aux_loss``
+    is 0 for the dense family."""
+    h, aux, _ = backbone(params, cfg, batch)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -315,7 +348,6 @@ def loss_fn(params, cfg: ModelConfig, batch):
                           device=labels.device)
     nll, tok, cor = chunked_ce(params, cfg, h, labels, mask)
     loss = nll / torch.clamp(tok, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     metrics = {"nll": nll, "tokens": tok,
                "accuracy": cor / torch.clamp(tok, min=1.0),
                "aux_loss": aux, "ce_loss": loss}
@@ -329,14 +361,14 @@ def loss_fn(params, cfg: ModelConfig, batch):
 def prefill(params, cfg: ModelConfig, batch):
     """Runs the full prompt, returns (last_token_logits (B, V) f32,
     cache) with the cache entries of every position."""
-    h, caches = backbone(params, cfg, batch, collect_cache=True)
+    h, _, caches = backbone(params, cfg, batch, collect_cache=True)
     return _head(params, cfg, h[:, -1:])[:, 0], caches
 
 
 def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device):
     """Zeroed contiguous cache for ``decode_step`` (capacity S): per
     sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh)."""
-    _check_ported(cfg)
+    _check_decode(cfg)
     shape = (_n_groups(cfg), B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"blocks": {
         f"sub{i}": {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
@@ -396,7 +428,7 @@ def _map2(fn, a, b):
 def prefill_into_cache(cfg: ModelConfig, decode_cache, prefill_cache):
     """Graft a ``prefill`` cache into a ``decode_step`` cache along the
     sequence axis of each stacked KV entry (dense family)."""
-    _check_ported(cfg)
+    _check_decode(cfg)
     return {"blocks": _map2(graft_cache_entry, decode_cache["blocks"],
                             prefill_cache["blocks"])}
 
@@ -423,7 +455,7 @@ def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, ids, mask, *,
     place: prompt block i lands in pool block ``ids[i]``.  ``mask`` is
     False for blocks whose content is already pooled (prefix sharing);
     their writes go to the trash block 0 instead."""
-    _check_ported(cfg)
+    _check_decode(cfg)
     ids = torch.as_tensor(ids, dtype=torch.long)
     mask = torch.as_tensor(mask, dtype=torch.bool)
     ids_eff = torch.where(mask, ids, torch.zeros_like(ids))
@@ -446,7 +478,7 @@ def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
     """Shared decode body: pre-embedded inputs x (B, C, D) at positions
     pos (B, C) int32, written into (and attended against) the cache in
     place.  Returns (final-normed hidden (B, C, D), cache)."""
-    _check_ported(cfg)
+    _check_decode(cfg)
     x, cache["blocks"] = _decode_stack(
         params["blocks"], cfg, x, pos, cache["blocks"],
         pattern=cfg.attn_pattern, block_tables=block_tables,

@@ -40,13 +40,31 @@ def adamw_init(params, *, freeze_mask=None, policy=None):
             "step": 0}
 
 
+_CHUNK = 1 << 26  # elements per f32 temporary of the norm
+
+
+def _sq_sum(g):
+    """Σ g² in f32.  A leaf larger than ``_CHUNK`` elements (an expert
+    bank's gradient) is summed chunk by chunk, so its f32 temporaries
+    stay small."""
+    if g.numel() <= _CHUNK:
+        return torch.sum(torch.square(g.float()))
+    return sum(torch.sum(torch.square(c.float()))
+               for c in g.reshape(-1).split(_CHUNK))
+
+
+def _clip_scale(grads, max_norm: float):
+    """(min(1, max_norm / ||grads||), ||grads||), the norm in f32 over
+    all leaves, both 0-d tensors on the device (no host sync)."""
+    gnorm = torch.sqrt(sum(_sq_sum(g) for g in tree_leaves(grads)))
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), gnorm
+
+
 def global_norm_clip(grads, max_norm: float):
     """Scale every gradient by min(1, max_norm / ||grads||), the norm in
     f32 over all leaves.  Returns (clipped tree, norm as a 0-d tensor);
     the scale stays on the device, so clipping costs no host sync."""
-    gs = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    scale, gnorm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gnorm
 
 
@@ -60,8 +78,11 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
     if freeze_mask is None:
         freeze_mask = tree_map(lambda _: True, params)
     step = state["step"] + 1
+    scale = None
     if clip_norm:
-        grads, gnorm = global_norm_clip(grads, clip_norm)
+        # the norm covers every leaf; only trainable gradients are scaled
+        # (a frozen expert bank's clipped copy would go unused)
+        scale, gnorm = _clip_scale(grads, clip_norm)
     else:
         gnorm = torch.zeros((), dtype=torch.float32)
     # the reference forms the bias corrections in f32
@@ -73,6 +94,8 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
     def upd(p, g, m, v, trainable):
         if not trainable:
             return
+        if scale is not None:
+            g = (g * scale).to(g.dtype)
         gf = g.float()
         m_new = b1 * m + (1 - b1) * gf
         v_new = b2 * v + (1 - b2) * torch.square(gf)

@@ -8,15 +8,17 @@ the device until the caller reads them: one host sync per epoch.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
-def scan_epoch(step: Callable, schedule: Callable, steps: int) -> Callable:
+def scan_epoch(step: Callable, schedule: Callable, steps: int, *,
+               on_step: Optional[Callable] = None) -> Callable:
     """``step: (carry, batch, lr) -> (carry, loss)`` -> ``epoch: (carry,
     batches, start=0) -> (carry, losses)`` over stacked batches (a dict
-    of (steps, ...) tensors)."""
+    of (steps, ...) tensors).  ``on_step(s, loss)``, if given, runs after
+    step ``s`` (e.g. to time it; it may synchronise)."""
 
     def epoch(carry, batches, start: int = 0):
         losses = []
@@ -24,6 +26,8 @@ def scan_epoch(step: Callable, schedule: Callable, steps: int) -> Callable:
             b = {k: v[s] for k, v in batches.items()}
             carry, loss = step(carry, b, schedule(start + s))
             losses.append(loss.detach())
+            if on_step is not None:
+                on_step(s, losses[-1])
         return carry, torch.stack(losses)
 
     return epoch

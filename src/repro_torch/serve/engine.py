@@ -22,7 +22,8 @@ youngest request is preempted (and replayed) when the pool runs dry.
 
 Not ported yet, and refused with ``NotImplementedError``: bucketed
 chunked admission (``chunk_len``/``buckets``), speculative decode,
-quantized KV (``kv_dtype``) and sharded serving (``mesh``).  The
+quantized KV (``kv_dtype``), sharded serving (``mesh``) and MoE
+configurations (their decode takes the reference's ``live`` mask).  The
 reference's compiled-executable cache has no counterpart: nothing here
 is compiled.
 """
@@ -108,6 +109,10 @@ class ServeEngine:
                                    ("mesh", mesh, None)]:
             if val != default:
                 raise NotImplementedError(f"{name} is not ported yet")
+        if cfg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE serving (decode with the live mask) is not "
+                "ported yet")
         cfg.validate()
         self.device = resolve_device(device)
         leaf_dev = _first_leaf(params).device

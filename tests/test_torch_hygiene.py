@@ -54,7 +54,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.paged_attn.ops, "
             "repro_torch.kernels.kd_loss.ops, repro_torch.launch.train, "
             "repro_torch.federated.device, repro_torch.data.federated, "
-            "repro_torch.optim, repro_torch.utils.pytree; "
+            "repro_torch.optim, repro_torch.utils.pytree, "
+            "repro_torch.kernels.moe_gemm.ops, "
+            "repro_torch.kernels.moe_dispatch.ops, repro_torch.models.moe, "
+            "repro_torch.core.merge, repro_torch.core.tuning, "
+            "repro_torch.federated.server; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -113,7 +117,7 @@ def test_unported_launcher_flags_raise(flag):
         serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b", "nope"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b", "nope"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not ported yet"):
         get_config(arch)

@@ -8,7 +8,11 @@ machine with one:
 f32 inputs, so the kernels are held to 1e-4 (sums in another order);
 ``chip_smoke.py`` covers bf16 at the serve and train paths' shapes.
 The kd_loss kernel also takes bf16 here: its products are exact in f32,
-so only the summation order differs and 1e-4 holds for it too.
+so only the summation order differs and 1e-4 holds for it too.  The MoE
+kernels' bf16 outputs (rounded once from f32, as the plain versions
+round) are held to 1e-2 relative (about two bf16 ulps) + 1e-4; the
+dispatch kernel adds rows in the plain version's order and must equal
+it bit for bit.
 """
 import numpy as np
 import pytest
@@ -20,12 +24,18 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.kd_loss import ops as kd
 from repro_torch.kernels.kd_loss.ref import ce_kl_ref, ce_ref
 from repro_torch.kernels.paged_attn import ops as pa
+from repro_torch.kernels.moe_dispatch import ops as dis
+from repro_torch.kernels.moe_gemm import ops as gemm
+from repro_torch.kernels.moe_gemm.ref import (grouped_ffn_bwd_ref,
+                                              grouped_ffn_ref,
+                                              grouped_matmul_ref)
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 from repro_torch.models import model as M
 from repro_torch.serve import PagedServeEngine
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=1e-4, rtol=1e-4)
+BF16_TOL = dict(atol=1e-4, rtol=1e-2)
 
 
 @pytest.fixture
@@ -206,3 +216,142 @@ def test_kd_loss_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="dtype"):
         kd.kd_loss_fwd(hs.half(), ws.half(), None, None,
                        torch.zeros(4, dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# MoE kernels: grouped matmul (5), grouped FFN (4), gather/scatter-add (6)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ta,tb,da,db,dc", [
+    (False, False, torch.float32, torch.float32, torch.float32),
+    (True, False, torch.bfloat16, torch.float32, torch.float32),
+    (False, True, torch.float32, torch.bfloat16, torch.float32),
+    (True, True, torch.bfloat16, torch.bfloat16, torch.bfloat16)])
+def test_grouped_matmul_kernel_matches_plain(cuda, ta, tb, da, db, dc):
+    """Transposed operands (views), mixed operand dtypes, ragged M, N and
+    K (none a multiple of the 128 x 128 x 16 tile)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    E, M, K, N = 3, 130, 37, 70
+    a = torch.randn((E, K, M) if ta else (E, M, K), generator=g,
+                    device=cuda).to(da)
+    b = torch.randn((E, N, K) if tb else (E, K, N), generator=g,
+                    device=cuda).to(db)
+    a = a.transpose(1, 2) if ta else a
+    b = b.transpose(1, 2) if tb else b
+    n0 = gemm.LAUNCHES["grouped_matmul"]
+    out = gemm.grouped_matmul(a, b, out_dtype=dc)
+    assert gemm.LAUNCHES["grouped_matmul"] == n0 + 1
+    want = grouped_matmul_ref(a, b, dc)
+    torch.testing.assert_close(out, want,
+                               **(TOL if dc == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype,act,C,D,F", [
+    (torch.float32, "silu", 70, 96, 200),
+    (torch.bfloat16, "gelu", 70, 96, 200),
+    (torch.bfloat16, "silu", 130, 100, 136),
+    (torch.float32, "gelu", 9, 40, 24)])
+def test_grouped_ffn_kernel_matches_plain(cuda, dtype, act, C, D, F):
+    """Ragged C and F edges; D = 100 takes the scalar loads of x."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    E = 3
+    x = torch.randn(E, C, D, generator=g, device=cuda).to(dtype)
+    wg, wu = (torch.randn(E, D, F, generator=g, device=cuda).div(D ** 0.5)
+              .to(dtype) for _ in range(2))
+    wo = torch.randn(E, F, D, generator=g, device=cuda).div(F ** 0.5).to(dtype)
+    n0 = gemm.LAUNCHES["grouped_ffn"]
+    out = gemm.grouped_ffn_fwd(x, wg, wu, wo, act=act)
+    assert gemm.LAUNCHES["grouped_ffn"] == n0 + 1
+    assert out.dtype == dtype
+    want = grouped_ffn_ref(x, wg, wu, wo, act=act)
+    torch.testing.assert_close(out, want,
+                               **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_grouped_ffn_gradient_matches_plain(cuda, act):
+    """The backward's eight products through the grouped-matmul kernel
+    against the explicit-chain plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    E, C, D, F = 2, 50, 64, 72
+    x = torch.randn(E, C, D, generator=g, device=cuda)
+    wg, wu = (torch.randn(E, D, F, generator=g, device=cuda) / 8
+              for _ in range(2))
+    wo = torch.randn(E, F, D, generator=g, device=cuda) / 8
+    dy = torch.randn(E, C, D, generator=g, device=cuda)
+    args = [t.clone().requires_grad_(True) for t in (x, wg, wu, wo)]
+    n0 = gemm.LAUNCHES["grouped_matmul"]
+    gemm.grouped_ffn(*args, act=act).backward(dy)
+    assert gemm.LAUNCHES["grouped_matmul"] == n0 + 8
+    for got, want in zip([t.grad for t in args],
+                         grouped_ffn_bwd_ref(x, wg, wu, wo, dy, act=act)):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_scatter_add_kernel_equals_plain_in_row_order(cuda, dtype):
+    """Repeated destinations, untouched destinations, zero scales: the
+    kernel sums each destination's rows in row order, exactly as the
+    plain version on the CPU does."""
+    g = torch.Generator().manual_seed(8)
+    Ns, R, n_out, D = 50, 300, 90, 2100   # D past one block's 2048 columns
+    src = torch.randn(Ns, D, generator=g).to(dtype)
+    sr = torch.randint(0, Ns, (R,), generator=g, dtype=torch.int32)
+    dr = torch.randint(0, n_out - 10, (R,), generator=g, dtype=torch.int32)
+    scale = torch.randn(R, generator=g)
+    scale[::7] = 0
+    n0 = dis.LAUNCHES
+    out = dis.gather_scatter_add_rows(src.to(cuda), sr.to(cuda), dr.to(cuda),
+                                      scale.to(cuda), n_out)
+    assert dis.LAUNCHES == n0 + 1
+    want = dis.gather_scatter_add_rows(src, sr, dr, scale, n_out)
+    assert torch.equal(out.cpu(), want)
+    assert (out[n_out - 10:] == 0).all()
+
+
+def test_moe_ffn_on_card_drops_as_on_the_cpu(cuda):
+    """A router biased onto expert 0 overflows its capacity: the card
+    drops the assignments the CPU drops, and values and gradients agree
+    (f32)."""
+    g = torch.Generator().manual_seed(9)
+    T, E, k, D, F = 64, 8, 2, 64, 96
+    logits = torch.randn(T, E, generator=g)
+    logits[:, 0] += 3.0
+    w, idx = torch.softmax(logits, -1).topk(k, -1)
+    w = w / w.sum(-1, keepdim=True)
+    xt = torch.randn(T, D, generator=g)
+    ws = [torch.randn(E, D, F, generator=g) / 8,
+          torch.randn(E, D, F, generator=g) / 8,
+          torch.randn(E, F, D, generator=g) / 8]
+    dout = torch.randn(T, D, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.detach().to(dev).requires_grad_(True)
+                for t in [xt, w] + ws]
+        out = gemm.moe_ffn(args[0], args[1], idx.to(dev), *args[2:])
+        _, keep = dis.capacity_positions(idx.to(dev).reshape(-1),
+                                         max(-(-T * k // E) * 2, 8))
+        drops = int((~keep).sum())
+        out.backward(dout.to(dev))
+        res[dev] = (drops, out.detach().cpu(), [a.grad.cpu() for a in args])
+    assert res["cuda"][0] == res["cpu"][0] > 0
+    torch.testing.assert_close(res["cuda"][1], res["cpu"][1], **TOL)
+    for a, b in zip(res["cuda"][2], res["cpu"][2]):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def test_moe_kernels_refuse_what_they_do_not_take(cuda):
+    h = torch.zeros(2, 4, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="dtype"):
+        gemm.grouped_matmul(h, torch.zeros(2, 8, 3, device=cuda,
+                                           dtype=torch.float16))
+    with pytest.raises(TypeError, match="share a dtype"):
+        bf = dict(device=cuda, dtype=torch.bfloat16)
+        gemm.grouped_ffn_fwd(torch.zeros(2, 4, 8, device=cuda),
+                             *(torch.zeros(s, **bf)
+                               for s in ((2, 8, 5), (2, 8, 5), (2, 5, 8))))
+    with pytest.raises(ValueError, match="one device"):
+        dis.gather_scatter_add_rows(torch.zeros(4, 8, device=cuda),
+                                    torch.zeros(3, dtype=torch.int32),
+                                    torch.zeros(3, dtype=torch.int32),
+                                    torch.ones(3), 2)

@@ -147,7 +147,8 @@ def test_paged_generate_matches_reference(models):
 
 
 def test_unported_family_raises():
-    cfg = get_config("tinyllama-1.1b", variant="reduced").replace(
-        arch_type="moe", n_experts=4, top_k=2)
+    # MoE is ported; DeepSeek's leading dense layers are not
+    cfg = get_config("qwen2-moe-a2.7b", variant="reduced").replace(
+        first_dense_layers=1)
     with pytest.raises(NotImplementedError):
         M.init_params(cfg, generator=torch.Generator())
