@@ -10,13 +10,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    parallel, into ``build/repro_torch/`` (cached by source hash);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serve, train and tune paths' shapes plus small edge
-   cases (MoE: a drop case, transposed operands, gelu, ragged edges),
+   cases (MoE: a drop case, transposed operands, gelu, ragged edges;
+   SSD scan: ragged, two groups with h0, f32, odd tiles, each also with
+   slow decay, where the far pairs and the carried state must show),
    each output element within two bf16 ulps of its own value + 1e-4
    (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
    rows whose top two logits are within ``ARGMAX_MARGIN``; kernel, plain
    and library-call times (``scaled_dot_product_attention``, matmul +
    ``cross_entropy``, ``torch.bmm``, ``index_add_``: yardsticks the
-   port never calls) from CUDA events
+   port never calls; none for the SSD scan) from CUDA events
    with L2 flushed before each call, and the least time the card could
    take (bytes over 3.35 TB/s, flops over the type's peak);
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
@@ -25,6 +27,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the kernels' launch counts on that run, and the kernel path's logits
    against the plain path's;
 5. profile: torch.profiler over one prefill and one decode segment;
+5b. serve_ssm: full-width, full-depth Mamba2-1.3B (bf16, random weights
+   from seed 0) behind ``PagedServeEngine``: 16 greedy requests, prompts
+   of 128-1024 tokens, 64 new tokens each.  Checks the completions, the
+   SSD kernel's launches (48 per prefill), logits on two prompts (f32
+   kernel path against the plain version; bf16 paths against the f32
+   model; prefill + decode against one prefill), and profiles one
+   1024-token prefill and one decode segment;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run,
@@ -513,6 +522,150 @@ def moe_cases(gen):
     return ffn, gmm, gsa
 
 
+# SSD scan outputs: bf16 y within two bf16 ulps of the case's largest |y|
+# (kernel and plain version both round once from f32).  f32 y and the
+# final state (f32 in every case): sums and the in-chunk cumsum run in
+# other orders, so a limit relative to the case's largest value.
+# Readings on an H100 (700 W): y 7.2e-6 of the largest |y| (f32, fast
+# decay, path shape with h0), final states 4.6e-6.  Limit about 3x that.
+SSD_F32_REL = 2e-5
+SSD_FAR = 64          # "far" pairs: more than 64 rows (a quarter chunk) apart
+SSD_MIN_SHARE = 0.10  # each term a slow-decay case must show
+
+
+def _ssd_inputs(gen, B, S, H, P, N, G, dtype, with_h0, slow):
+    """x, B, C ~ N(0,1) (B/C x 0.3); fast decay as the reference's init
+    (A = -1, dt = softplus(N(0,1)), about 0.75 a row), or slow decay
+    (dt * |A| <= 0.01: exp(cum) over a 256-row chunk >= e^-2.56)."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = rnd(B, S, H, P).to(dtype)
+    if slow:
+        dt = 0.02 + 0.08 * torch.rand((B, S, H), generator=gen, device="cuda")
+        A = -(0.02 + 0.08 * torch.rand((H,), generator=gen, device="cuda"))
+    else:
+        dt = F.softplus(rnd(B, S, H))
+        A = -torch.ones(H, device="cuda")
+    b = (0.3 * rnd(B, S, G, N)).to(dtype)
+    c = (0.3 * rnd(B, S, G, N)).to(dtype)
+    h0 = 0.5 * rnd(B, H, P, N) if with_h0 else None
+    return x, dt, A, b, c, h0
+
+
+def ssd_bound_ms(B, S, H, P, N, G, Q, dtype, with_h0):
+    """Least time for the scan on these shapes: per chunk of Qc rows the
+    causal triangle of C·Bᵀ (operands in x's dtype: the bf16 tensor-core
+    rate for bf16) and of (C·Bᵀ∘L)(x∘dt), the carried-state term where a
+    state enters (chunks after the first, or h0), and the state update
+    (f32 operands: the f32 rate); bytes: each input read once (B/C once
+    per group), y and the final state written once."""
+    xs = torch.finfo(dtype).bits // 8
+    cb = wx = inter = upd = 0.0
+    for c in range(-(-S // Q)):
+        qc = min(Q, S - c * Q)
+        pairs = qc * (qc + 1) / 2
+        cb += 2 * N * pairs
+        wx += 2 * P * pairs
+        if c > 0 or with_h0:
+            inter += 2 * qc * N * P
+        upd += 2 * qc * N * P
+    bh = B * H
+    t_ops = (bh * cb / PEAK_FLOPS[dtype]
+             + bh * (wx + inter + upd) / PEAK_FLOPS[torch.float32])
+    nbytes = (2 * B * S * H * P * xs + B * S * H * 4 + H * 4
+              + 2 * B * S * G * N * xs
+              + B * H * P * N * 4 * (2 if with_h0 else 1))
+    t_b = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_b) * 1e3, "bytes" if t_b >= t_ops else "operations",
+            (bh * (cb + wx + inter + upd)) / 1e9)
+
+
+def ssd_case(gen, B, S, H, P, N, G, dtype, *, chunk=256, with_h0=False,
+             slow=False, timed=False):
+    """The SSD scan kernel against its plain version, y and the final
+    state.  A slow-decay case also reports, from the plain version, the
+    share of the intra-chunk term from pairs more than SSD_FAR rows (at
+    most a quarter of the chunk) apart, and the carried-state term's
+    share of |y| over the chunks after the first (with h0, also over the
+    first chunk), and fails if one is under SSD_MIN_SHARE: so the check
+    can see each term."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    x, dt, A, b, c, h0 = _ssd_inputs(gen, B, S, H, P, N, G, dtype, with_h0,
+                                     slow)
+    kw = dict(chunk=chunk, init_state=h0)
+    y, h = ops.ssd(x, dt, A, b, c, **kw)
+    wy, wh = ref.ssd_scan_ref(x, dt, A, b, c, **kw)
+    torch.cuda.synchronize()
+    name = (f"ssd_scan B={B} S={S} H={H} P={P} N={N} G={G} chunk={chunk} "
+            f"{str(dtype)[6:]} h0={with_h0} {'slow' if slow else 'fast'} "
+            f"decay")
+    err_y = (y.float() - wy.float()).abs().max().item()
+    max_y = wy.float().abs().max().item()
+    if dtype == torch.float32:
+        lim_y = SSD_F32_REL * max_y
+    else:
+        ulp = math.ldexp(torch.finfo(dtype).eps, math.frexp(max_y)[1] - 1)
+        lim_y = 2 * ulp
+    err_h = (h - wh).abs().max().item()
+    lim_h = SSD_F32_REL * wh.abs().max().item()
+    row = {"case": name, "max_abs_err": err_y, "limit": lim_y,
+           "max_abs_want": max_y, "state_max_abs_err": err_h,
+           "state_limit": lim_h}
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()) \
+            or not (err_y <= lim_y and err_h <= lim_h):
+        fail(f"{name}: y error {err_y} (limit {lim_y}), state error {err_h} "
+             f"(limit {lim_h})")
+    if slow:
+        Q = min(chunk, S)
+        near, far, inter = ref.ssd_terms(x, dt, A, b, c,
+                                         far=min(SSD_FAR, Q // 4), **kw)
+        intra = near.abs() + far.abs()
+        tot = intra + inter.abs()
+        shares = {"far_pair_share": (far.abs().sum() / intra.sum()).item()}
+        if S > Q:
+            shares["carried_share_after_first_chunk"] = (
+                inter[:, Q:].abs().sum() / tot[:, Q:].sum()).item()
+        if with_h0:
+            shares["h0_share_first_chunk"] = (
+                inter[:, :Q].abs().sum() / tot[:, :Q].sum()).item()
+        row.update(shares)
+        low = {k: v for k, v in shares.items() if not v >= SSD_MIN_SHARE}
+        if low:
+            fail(f"{name}: a slow-decay case shows too little of a term "
+                 f"{low} (< {SSD_MIN_SHARE}): the check would not see it")
+    if timed:
+        row.update(ms=time_ms(lambda: ops.ssd(x, dt, A, b, c, **kw)),
+                   plain_ms=time_ms(lambda: ref.ssd_scan_ref(x, dt, A, b, c,
+                                                             **kw)),
+                   library_ms=None)
+        row["bound_ms"], row["bound_by"], row["gflop"] = ssd_bound_ms(
+            B, S, H, P, N, G, min(chunk, S), dtype, with_h0)
+    return row
+
+
+def ssd_cases(gen):
+    """Kernel 7 at the ssm serve path's shape (one 1024-token prompt of
+    Mamba2-1.3B: B*H = 64, P 64, N 128, chunk 256, bf16; timed), a
+    ragged prompt, two groups with h0, f32, odd tile edges; each case
+    also with slow decay."""
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for slow in (False, True):
+        rows += [ssd_case(gen, 1, 1024, 64, 64, 128, 1, bf, slow=slow,
+                          timed=not slow),
+                 ssd_case(gen, 1, 777, 64, 64, 128, 1, bf, slow=slow),
+                 ssd_case(gen, 2, 300, 8, 64, 128, 2, bf, with_h0=True,
+                          slow=slow),
+                 ssd_case(gen, 1, 1024, 64, 64, 128, 1, f32, with_h0=True,
+                          slow=slow),
+                 ssd_case(gen, 1, 200, 6, 80, 200, 3, f32, chunk=100,
+                          with_h0=True, slow=slow)]
+    print("ssd_scan library_ms: null -- no single PyTorch call computes the "
+          "chunked scan (its plain version is einsum, cumsum and a loop "
+          "over chunks)")
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -538,11 +691,13 @@ def phase_kernels():
           kd_case(gen, 96, 96, 0, 5000, bf, ties=True),
           kd_case(gen, 96, 96, 0, 5000, f32, ties=True)]
     ffn, gmm, gsa = moe_cases(gen)
-    for row in flash + paged + kd + ffn + gmm + gsa:
+    ssd = ssd_cases(gen)
+    for row in flash + paged + kd + ffn + gmm + gsa + ssd:
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "kd_loss": kd[0], "grouped_ffn": ffn[0],
-            "grouped_matmul": gmm[0], "gather_scatter_add": gsa[0]}
+            "grouped_matmul": gmm[0], "gather_scatter_add": gsa[0],
+            "ssd_scan": ssd[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -561,11 +716,11 @@ def check_logits(params, cfg, M, prompt):
     bl, P = 16, prompt.shape[1]
     n_pb = -(-P // bl)
     n_blocks = n_pb + 2
-    cache = M.init_paged_cache(cfg, n_blocks, bl, device="cuda")
+    cache = M.init_paged_cache(cfg, 1, n_blocks, bl, device="cuda")
     sub = M.prefill_into_cache(
         cfg, M.init_decode_cache(cfg, 1, n_pb * bl, device="cuda"), pc)
     ids = list(range(1, n_pb + 1))
-    M.scatter_prefill_paged(cfg, cache, sub, ids, [True] * n_pb,
+    M.scatter_prefill_paged(cfg, cache, sub, 0, ids, [True] * n_pb,
                             block_len=bl)
     bt = torch.tensor([ids + [n_pb + 1]], dtype=torch.int32, device="cuda")
     tok = lk.argmax(-1).to(torch.int32)[:, None]
@@ -725,6 +880,232 @@ def phase_profile(params, cfg, prompt, make_engine):
         seg = profile(eng.step)  # no slot free: a decode segment only
     print("profile " + json.dumps({"prefill_1024": pre,
                                    "decode_segment_8_steps": seg}))
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: serve full-width Mamba2-1.3B
+# ---------------------------------------------------------------------------
+
+# (i) the f32 model, kernel path against the same model with the kernel
+# swapped for its plain version, all logits of a prompt (max |logit|
+# about 5).  The in-chunk cumsum reaches about -190 over a 256-row chunk
+# at the reference's init, so exp(cum[q] - cum[s]) carries about 1e-5
+# relative rounding in any order, and 48 random layers amplify it.  Both
+# paths' distances to the f32 model with the scan in f64 are reported
+# beside it.  Readings on an H100 (700 W): 1.39e-3 and 1.55e-3 (1024-
+# and 486-token prompts); the limit about 3x that.
+SSM_F32_LOGIT_TOL = 4e-3
+# (iii) prefill of all but the last 8 tokens then 8 decode steps, against
+# one prefill, f32 kernel path.  Reading on an H100 (700 W): 3.1e-4; the
+# limit about 3x that.
+SSM_F32_DECODE_TOL = 1e-3
+# (ii) the bf16 model against the f32 model's logits (plain version): the
+# kernel path's RMS distance at most 1.5x the plain-version path's, so
+# the limit is what bf16 itself costs, not a number on the logits' scale
+SSM_BF16_RATIO = 1.5
+SSM_DECODE_TAIL = 8
+
+
+def _ssd_scan_f64(xh, dt, A, Bh, Ch, *, chunk, init_state=None):
+    """The plain version computed in f64, y rounded to x's dtype."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    y, h = ssd_ref.ssd_scan_ref(
+        xh.double(), dt.double(), A.double(), Bh.double(), Ch.double(),
+        chunk=chunk,
+        init_state=None if init_state is None else init_state.double())
+    return y.to(xh.dtype), h.float()
+
+
+def _ssm_logits(M, params, cfg, toks, plain=False):
+    """Logits (S, V) f32 of every position of one prompt, through the
+    kernel or, with ``plain``, through the kernel's plain version ("f64":
+    the plain version in f64)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    kernel = ssd_ops.ssd
+    if plain:
+        ssd_ops.ssd = (_ssd_scan_f64 if plain == "f64"
+                       else ssd_ref.ssd_scan_ref)
+    try:
+        h, _, _ = M.backbone(params, cfg, {"tokens": toks})
+    finally:
+        ssd_ops.ssd = kernel
+    return M._head(params, cfg, h)[0]
+
+
+def _prefill_decode_logits(M, params, cfg, toks, n: int):
+    """Prefill of all but the last ``n`` tokens, then ``n`` decode steps
+    feeding them: the logits (n, V) of those positions."""
+    S = toks.shape[1]
+    logits, pc = M.prefill(params, cfg, {"tokens": toks[:, :S - n]})
+    cache = M.prefill_into_cache(cfg, M.init_decode_cache(
+        cfg, 1, S, device="cuda"), pc)
+    out = [logits[0]]
+    for j in range(S - n, S - 1):
+        logits, cache = M.decode_step(params, cfg, cache, toks[:, j:j + 1],
+                                      torch.tensor([j], device="cuda"))
+        out.append(logits[0])
+    return torch.stack(out)
+
+
+def ssm_logit_readings(M, params, cfg, prompt):
+    """(i) f32 kernel path against f32 plain-version path (and, reported,
+    both against the scan in f64), (ii) bf16 kernel and plain-version
+    paths against the f32 model, (iii) prefill then decode against one
+    prefill."""
+    from repro_torch.utils.pytree import tree_map
+    toks = torch.as_tensor(prompt, device="cuda")
+    S, n = toks.shape[1], SSM_DECODE_TAIL
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    k32 = _ssm_logits(M, p32, cfg32, toks, plain=False)
+    q32 = _ssm_logits(M, p32, cfg32, toks, plain=True)
+    o64 = _ssm_logits(M, p32, cfg32, toks, plain="f64")
+    kb = _ssm_logits(M, params, cfg, toks, plain=False)
+    qb = _ssm_logits(M, params, cfg, toks, plain=True)
+    d32 = _prefill_decode_logits(M, p32, cfg32, toks, n)
+    db = _prefill_decode_logits(M, params, cfg, toks, n)
+    del p32
+
+    def rms(a, b):
+        return (a - b).pow(2).mean().sqrt().item()
+
+    res = {"len": S, "max_abs_logit": q32.abs().max().item(),
+           "f32_kernel_vs_plain": (k32 - q32).abs().max().item(),
+           "f32_kernel_to_f64_scan": (k32 - o64).abs().max().item(),
+           "f32_plain_to_f64_scan": (q32 - o64).abs().max().item(),
+           "bf16_kernel_to_f32_rms": rms(kb, q32),
+           "bf16_plain_to_f32_rms": rms(qb, q32),
+           "bf16_kernel_to_f32_max": (kb - q32).abs().max().item(),
+           "bf16_plain_to_f32_max": (qb - q32).abs().max().item(),
+           "bf16_kernel_vs_plain_max": (kb - qb).abs().max().item(),
+           "f32_prefill_decode_vs_prefill": (
+               d32 - k32[S - n - 1:S - 1]).abs().max().item(),
+           "bf16_prefill_decode_vs_prefill": (
+               db - kb[S - n - 1:S - 1]).abs().max().item()}
+    res["bf16_rms_ratio"] = (res["bf16_kernel_to_f32_rms"]
+                             / res["bf16_plain_to_f32_rms"])
+    print("ssm logits " + json.dumps(res))
+    return res
+
+
+def check_ssm_logits(res):
+    """Holds one prompt's readings to the limits."""
+    if not all(math.isfinite(v) for v in res.values()):
+        fail(f"ssm logits: non-finite readings {res}")
+    if res["f32_kernel_vs_plain"] > SSM_F32_LOGIT_TOL:
+        fail(f"ssm (i): f32 kernel-path logits differ from the plain-version "
+             f"path by {res['f32_kernel_vs_plain']} > {SSM_F32_LOGIT_TOL}")
+    if res["bf16_rms_ratio"] > SSM_BF16_RATIO:
+        fail(f"ssm (ii): bf16 kernel path is {res['bf16_rms_ratio']:.3f}x "
+             f"as far from the f32 model as the plain-version path "
+             f"(limit {SSM_BF16_RATIO})")
+    if res["f32_prefill_decode_vs_prefill"] > SSM_F32_DECODE_TOL:
+        fail(f"ssm (iii): prefill + decode logits differ from one prefill "
+             f"by {res['f32_prefill_decode_vs_prefill']} > "
+             f"{SSM_F32_DECODE_TOL}")
+
+
+def phase_serve_ssm():
+    """Full-width, full-depth Mamba2-1.3B (bf16, random weights from seed
+    0) behind ``PagedServeEngine`` with 8 slots: 16 greedy requests of
+    128-1024 prompt tokens, 64 new tokens each, after a warm-up run.
+    Checks the completions, the SSD kernel's launches on that run (48 per
+    prefill), the logit checks (i)-(iii) on two prompts, and profiles one
+    1024-token prefill and one decode segment."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine
+
+    cfg = get_config("mamba2-1.3b", variant="full")
+    if not cfg.use_kernels or M.has_paged_leaves(cfg):
+        fail("mamba2 config: no kernels, or paged leaves")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in convert.flatten(params).values())
+    print(f"serve_ssm: {cfg.name} {n_params / 1e9:.3f}B params {cfg.dtype}, "
+          f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
+
+    rng = np.random.default_rng(1)
+    lens = [int(p) for p in np.linspace(128, 1024, 16)]
+    prompts = [rng.integers(0, cfg.vocab_size, (1, p)).astype(np.int32)
+               for p in lens]
+    max_new, n_slots, seg_len = 64, 8, 8
+
+    with torch.no_grad():
+        checks = [ssm_logit_readings(M, params, cfg, prompts[i])
+                  for i in (15, 6)]
+        for res in checks:
+            check_ssm_logits(res)
+        torch.cuda.empty_cache()
+
+        def make_engine():
+            eng = PagedServeEngine(params, cfg, n_slots=n_slots,
+                                   seg_len=seg_len,
+                                   max_len=max(lens) + max_new,
+                                   device="cuda")
+            for p in prompts:
+                eng.submit({"tokens": p}, max_new=max_new)
+            return eng
+
+        make_engine().run()   # warm-up
+        eng = make_engine()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssd_ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ssd_scan": ssd_ops.LAUNCHES}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    st = eng.stats
+    if sorted(comps) != list(range(len(prompts))):
+        fail(f"ssm completed {sorted(comps)}")
+    for uid, c in comps.items():
+        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+            fail(f"ssm request {uid}: {len(c.tokens)} tokens, prompt "
+                 f"{c.prompt_len}")
+        if (c.tokens < 0).any() or (c.tokens >= cfg.vocab_size).any():
+            fail(f"ssm request {uid}: token ids out of range")
+    if st["fresh_blocks"] or st["preemptions"] or \
+            eng.alloc.n_free != eng.n_blocks - 1:
+        fail(f"ssm: the paged engine touched its block pool: {st}")
+    want = {"ssd_scan": cfg.n_layers * st["prefills"]}
+    if launches != want or st["prefills"] != len(prompts):
+        fail(f"ssm launches {launches} != expected {want} "
+             f"({st['prefills']} prefills)")
+    steps = st["segments"] * seg_len
+    ttft = sorted(c.ttft_s for c in comps.values())
+    res = {"requests": len(comps), "prompt_lens": lens,
+           "generated_tokens": st["generated_tokens"], "wall_s": wall,
+           "tok_per_s": st["generated_tokens"] / wall,
+           "decode_steps": steps,
+           "ms_per_decode_step": 1e3 * st["decode_s"] / steps,
+           "admit_s": st["admit_s"], "decode_s": st["decode_s"],
+           "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+           "ttft_min_s": ttft[0], "prefills": st["prefills"],
+           "launches": launches, "peak_mem_gb": peak_gb,
+           "n_params": n_params, "logit_checks": checks}
+    print("serve_ssm " + json.dumps(res))
+
+    toks = torch.as_tensor(prompts[-1], device="cuda")
+    groups = {"ssd_scan": ("ssd_chunk", "ssd_state")}
+    with torch.no_grad():
+        pre = profile(lambda: M.prefill(params, cfg, {"tokens": toks}),
+                      top=10, groups=groups)
+        eng = make_engine()
+        eng.step()        # admits the first 8 requests, runs a segment
+        seg = profile(eng.step, top=10)  # no slot free: a decode segment
+    print("profile " + json.dumps({"ssm_prefill_1024": pre,
+                                   "ssm_decode_segment_8_steps": seg}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1252,6 +1633,9 @@ KERNELS = {
     "gather_scatter_add": {
         "route": "cuda", "source": "src/repro_torch/csrc/moe_dispatch.cu",
         "replaces": "src/repro/kernels/moe_dispatch/kernel.py:68"},
+    "ssd_scan": {
+        "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:91"},
 }
 
 
@@ -1272,10 +1656,12 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     serve = phase_serve()
+    serve_ssm = phase_serve_ssm()
     train = phase_train()
     tune = phase_tune()
     # launches: the counts of every path run that drives the kernel
-    launches = {k: serve.get(k, 0) + train.get(k, 0) + tune.get(k, 0)
+    launches = {k: sum(path.get(k, 0)
+                       for path in (serve, serve_ssm, train, tune))
                 for k in KERNELS}
     line = []
     for kname in KERNELS:

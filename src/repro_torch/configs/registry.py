@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 from repro_torch.models.config import ModelConfig, reduced
@@ -15,6 +16,7 @@ from repro_torch.models.config import ModelConfig, reduced
 PORTED: Dict[str, ModelConfig] = {
     "tinyllama-1.1b": TINYLLAMA_1_1B,
     "qwen2-moe-a2.7b": QWEN2_MOE_A2_7B,
+    "mamba2-1.3b": MAMBA2_1_3B,
 }
 
 

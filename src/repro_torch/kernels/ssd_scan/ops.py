@@ -1,0 +1,139 @@
+"""Public wrapper of the SSD chunked-scan kernel (Mamba-2 prefill).
+
+Replaces ``repro.kernels.ssd_scan.kernel.ssd_scan_bh`` (the Pallas TPU
+kernel ``_ssd_kernel``) behind the signature of
+``repro.kernels.ssd_scan.ops.ssd``, in the model's layout.  The CUDA
+source is ``csrc/ssd_scan.cu``; its header says what bounds it on the
+H100 and what the design does about it.
+
+The kernel reads x, B and C through their strides, so the model hands it
+views of its conv output, and B/C once per group: ``Bh``/``Ch`` may be
+(B, S, H, N) or (B, S, G, N) with G dividing H (head h reads group
+h // (H / G)), where the reference repeats each group to H heads first.
+
+A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
+launches the kernel or raises — nothing falls back.  ``LAUNCHES`` counts
+the calls that launch the kernel (three CUDA launches on one stream
+each), so a run can show the path went through it.  The kernel has no
+backward (the reference's ``ssd`` has no VJP either): a call that would
+need one raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+LAUNCHES = 0
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 1024
+_fn = None
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``SsdArgs`` in ``csrc/ssd_scan.cu`` (strides in
+    elements)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("x", "dt", "A", "b", "c", "h0", "y", "hout", "hbuf",
+                  "clast")]
+                + [(n, ctypes.c_int) for n in
+                   ("batch", "S", "H", "G", "P", "N", "Q", "nC", "dtype")]
+                + [(n, ctypes.c_longlong) for n in
+                   ("xs_b", "xs_s", "xs_h", "ds_b", "ds_s", "ds_h",
+                    "bs_b", "bs_s", "bs_g", "cs_b", "cs_s", "cs_g")])
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = _build.library("ssd_scan")
+        fn = lib.ssd_scan_fwd
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.ssd_scan_error_string)
+    return _fn
+
+
+def _check_inputs(xh, dt, A, Bh, Ch, init_state):
+    if xh.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bh.dim() != 4 \
+            or Bh.shape != Ch.shape:
+        raise ValueError(
+            f"expected xh (B,S,H,P), dt (B,S,H), A (H,) and Bh/Ch (B,S,G,N) "
+            f"of one shape, got {tuple(xh.shape)}, {tuple(dt.shape)}, "
+            f"{tuple(A.shape)}, {tuple(Bh.shape)}, {tuple(Ch.shape)}")
+    Bsz, S, H, P = xh.shape
+    G, N = Bh.shape[2], Bh.shape[3]
+    if tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,) \
+            or tuple(Bh.shape[:2]) != (Bsz, S) or H % G:
+        raise ValueError(
+            f"shapes disagree: xh {tuple(xh.shape)}, dt {tuple(dt.shape)}, "
+            f"A {tuple(A.shape)}, Bh/Ch {tuple(Bh.shape)} (G must divide H)")
+    if init_state is not None and tuple(init_state.shape) != (Bsz, H, P, N):
+        raise ValueError(f"init_state {tuple(init_state.shape)} != "
+                         f"{(Bsz, H, P, N)}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32 or (
+            init_state is not None and init_state.dtype != torch.float32):
+        raise TypeError("dt, A and init_state must be float32")
+    if not (xh.dtype == Bh.dtype == Ch.dtype) or xh.dtype not in _DTYPES:
+        raise TypeError(f"xh, Bh and Ch must share a float32 or bfloat16 "
+                        f"dtype, got {xh.dtype}, {Bh.dtype}, {Ch.dtype}")
+    ts = [t for t in (xh, dt, A, Bh, Ch, init_state) if t is not None]
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("all inputs must lie on one device")
+    return ts
+
+
+def ssd(xh, dt, A, Bh, Ch, *, chunk: int = 128, init_state=None):
+    """Model-layer layout: xh (B, S, H, P); dt (B, S, H) f32 (softplus'd);
+    A (H,) f32, negative; Bh/Ch (B, S, H, N) or (B, S, G, N);
+    init_state (B, H, P, N) f32 or None.  Returns (y (B, S, H, P) in xh's
+    dtype, final state (B, H, P, N) f32), as
+    ``repro.kernels.ssd_scan.ops.ssd``."""
+    global LAUNCHES
+    ts = _check_inputs(xh, dt, A, Bh, Ch, init_state)
+    if xh.device.type == "cpu":
+        return ssd_scan_ref(xh, dt, A, Bh, Ch, chunk=chunk,
+                            init_state=init_state)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd: unsupported device {xh.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "ssd: the kernel has no backward (ssm training is not ported "
+            "yet); call it under torch.no_grad()")
+    for name, t in (("xh", xh), ("Bh", Bh), ("Ch", Ch)):
+        if t.stride(3) != 1:
+            raise ValueError(f"ssd: {name} needs unit stride along its last "
+                             f"axis, got strides {t.stride()}")
+    if not A.is_contiguous() or (init_state is not None
+                                 and not init_state.is_contiguous()):
+        raise ValueError("ssd: A and init_state must be contiguous")
+    Bsz, S, H, P = xh.shape
+    G, N = Bh.shape[2], Bh.shape[3]
+    Q = min(int(chunk), S)
+    if not 1 <= Q <= MAX_CHUNK:
+        raise ValueError(f"ssd: chunk {Q} not in [1, {MAX_CHUNK}]")
+    nC = -(-S // Q)
+    dev = xh.device
+    y = torch.empty((Bsz, S, H, P), dtype=xh.dtype, device=dev)
+    hout = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    # chunk states, then in place the state entering each chunk
+    hbuf = torch.empty((Bsz * H, nC, P, N), dtype=torch.float32, device=dev)
+    clast = torch.empty((Bsz * H, nC), dtype=torch.float32, device=dev)
+    a = _Args(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bh.data_ptr(),
+              Ch.data_ptr(),
+              0 if init_state is None else init_state.data_ptr(),
+              y.data_ptr(), hout.data_ptr(), hbuf.data_ptr(),
+              clast.data_ptr(), Bsz, S, H, G, P, N, Q, nC,
+              _DTYPES[xh.dtype],
+              *xh.stride()[:3], *dt.stride(), *Bh.stride()[:3],
+              *Ch.stride()[:3])
+    fn, err_str = _kernel()
+    err = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssd", err_str)
+    LAUNCHES += 1
+    return y, hout

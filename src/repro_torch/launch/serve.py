@@ -9,6 +9,8 @@ features run; the reference's other flags are accepted and refused with
       --variant full --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --variant reduced --device cpu --mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --variant full --paged
 """
 from __future__ import annotations
 
@@ -127,13 +129,15 @@ def main(argv=None):
           f"requests, {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
           f"{st['segments']} segments, slot util {util:.0%})")
     if args.paged:
+        read_path = (paged_read_path(cfg) if M.has_paged_leaves(cfg)
+                     else "none, the state is per slot")
         print(f"paged: block_len={engine.block_len} pool={engine.n_blocks} "
               f"peak_blocks={st['peak_live_blocks']} "
               f"shared={st['shared_blocks']} "
               f"lazy_claimed={st['lazy_claimed_blocks']} "
               f"preemptions={st['preemptions']} "
               f"(free after drain: {engine.alloc.n_free}, "
-              f"read path: {paged_read_path(cfg)})")
+              f"read path: {read_path})")
     first = comps[min(comps)]
     print("sample:", first.tokens[:16])
     return comps

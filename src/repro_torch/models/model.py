@@ -1,5 +1,5 @@
-"""Model assembly of the port: init / loss / prefill / decode, dense
-and MoE families.
+"""Model assembly of the port: init / loss / prefill / decode, dense,
+MoE and ssm (Mamba-2) families.
 
 Counterpart of ``repro.models.model``.  The parameter layout is the
 reference's: nested dicts with the same keys, layer parameters stacked
@@ -16,12 +16,22 @@ loss.  The MoE family trains and runs prefill; its decode (which takes
 the reference's serving ``live`` mask) is not ported yet and raises, as
 do DeepSeek's leading dense layers (``first_dense_layers``) and MTP.
 
+The ssm family (``arch_type="ssm"``, Mamba2) stacks ``{"ln", "mixer"}``
+over its ``n_layers`` (``models/ssm.py``) and serves: prefill through
+the SSD scan, decode through the O(1) recurrence.  Its training (the
+``ssd_chunked`` backward) and chunked prefill are not ported yet and
+raise.
+
 Caches follow the reference's layout too.  Contiguous decode cache:
-``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh).  Paged cache:
-the same leaves as block pools (n_groups, n_blocks, block_len, KH, Dh);
-block id b is row b of every pool, and block 0 is the trash block.
-Decode writes these tensors in place (the reference returns new ones);
-the functions still return the cache so call sites read the same.
+``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh); for the ssm
+family ``blocks/{state,conv}`` of shape (n_layers, B, H, P, N) in f32
+and (n_layers, B, K-1, conv_dim).  Paged cache: the sequence-carrying
+leaves as block pools (n_groups, n_blocks, block_len, KH, Dh), where
+block id b is row b of every pool and block 0 is the trash block;
+leaves without a sequence axis (the ssm state and conv tail) keep one
+row per slot.  Decode writes these tensors in place (the reference
+returns new ones); the functions still return the cache so call sites
+read the same.
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -62,11 +72,13 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe") or cfg.attn_type != "gqa" \
-            or cfg.n_mtp or cfg.first_dense_layers:
+    attn_ok = (cfg.arch_type in ("dense", "moe") and cfg.attn_type == "gqa"
+               or cfg.arch_type == "ssm")
+    if not attn_ok or cfg.n_mtp or cfg.first_dense_layers:
         raise NotImplementedError(
             f"{cfg.name} is not ported yet: only the dense and MoE GQA "
-            "families without leading dense layers or MTP are")
+            "families without leading dense layers or MTP, and the ssm "
+            "family, are")
 
 
 def _check_decode(cfg: ModelConfig) -> None:
@@ -244,6 +256,12 @@ def init_params(cfg: ModelConfig, *, generator):
                                          (cfg.d_model, cfg.vocab_size), 0,
                                          dtype)
     lead = (_n_groups(cfg),)
+    if cfg.arch_type == "ssm":
+        p["blocks"] = {
+            "ln": layers.init_norm(cfg, cfg.d_model, dtype, dev,
+                                   (cfg.n_layers,)),
+            "mixer": ssm.init_ssm(generator, cfg, dtype, (cfg.n_layers,))}
+        return p
     p["blocks"] = {f"sub{i}": _init_block(generator, cfg, dtype, lead)
                    for i in range(cfg.layers_per_scan)}
     return p
@@ -269,17 +287,40 @@ def _head(params, cfg: ModelConfig, h):
     return logits
 
 
+def _ssm_backbone(params, cfg: ModelConfig, x, collect_cache: bool):
+    """x + ssm_forward(ln(x)) per layer; the per-layer decode cache
+    entries stacked on the layer axis when ``collect_cache``."""
+    caches = {"state": [], "conv": []}
+    for bp in _groups(params["blocks"], cfg.n_layers):
+        h = layers.apply_norm(bp["ln"], x)
+        if collect_cache:
+            out, c = ssm.ssm_forward(bp["mixer"], cfg, h, return_cache=True)
+            caches["state"].append(c["state"])
+            caches["conv"].append(c["conv"])
+        else:
+            out = ssm.ssm_forward(bp["mixer"], cfg, h)
+        x = x + out
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not collect_cache:
+        return x, aux, {}
+    return x, aux, {k: torch.stack(v) for k, v in caches.items()}
+
+
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
              collect_cache: bool = False):
-    """Full-sequence forward of the dense and MoE families.  Returns
-    (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 for dense),
+    """Full-sequence forward of the dense, MoE and ssm families.  Returns
+    (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 but for MoE),
     caches) — ``caches`` is ``{"blocks": ...}`` when ``collect_cache``,
     else empty."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
+    if cfg.arch_type == "ssm":
+        x, aux, c = _ssm_backbone(params, cfg, x, collect_cache)
+        caches = {"blocks": c} if collect_cache else {}
+        return layers.apply_norm(params["final_norm"], x), aux, caches
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x, aux, c = _run_stack(params["blocks"], cfg, x, positions,
                            pattern=cfg.attn_pattern, causal=True,
                            collect_cache=collect_cache)
@@ -340,6 +381,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
     """Autoregressive LM loss (Eq. 2) plus the MoE load-balance loss.
     Returns (loss + aux, metrics) with the reference's keys; ``aux_loss``
     is 0 for the dense family."""
+    if cfg.arch_type == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: ssm training (the ssd_chunked backward) is not "
+            "ported yet")
     h, aux, _ = backbone(params, cfg, batch)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -367,8 +412,20 @@ def prefill(params, cfg: ModelConfig, batch):
 
 def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device):
     """Zeroed contiguous cache for ``decode_step`` (capacity S): per
-    sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh)."""
+    sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh); for the
+    ssm family the recurrent ``state`` (n_layers, B, H, P, N) in f32 and
+    the ``conv`` tail (n_layers, B, K-1, conv_dim), which have no
+    sequence axis."""
     _check_decode(cfg)
+    if cfg.arch_type == "ssm":
+        L = cfg.n_layers
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return {"blocks": {
+            "state": torch.zeros((L, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((L, B, cfg.ssm_conv - 1, conv_dim),
+                                dtype=_dtype(cfg), device=device)}}
     shape = (_n_groups(cfg), B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"blocks": {
         f"sub{i}": {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
@@ -419,66 +476,140 @@ def graft_cache_entry(dst, src):
     return dst
 
 
-def _map2(fn, a, b):
-    if isinstance(a, dict):
-        return {k: _map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
+def _map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def prefill_into_cache(cfg: ModelConfig, decode_cache, prefill_cache):
     """Graft a ``prefill`` cache into a ``decode_step`` cache along the
-    sequence axis of each stacked KV entry (dense family)."""
+    sequence axis of each stacked KV entry (dense family); the ssm
+    family's state and conv tail are position-free and adopted whole."""
     _check_decode(cfg)
-    return {"blocks": _map2(graft_cache_entry, decode_cache["blocks"],
-                            prefill_cache["blocks"])}
+    return {"blocks": _map(graft_cache_entry, decode_cache["blocks"],
+                           prefill_cache["blocks"])}
 
 
 # ---------------------------------------------------------------------------
 # serving: block-paged decode cache
 # ---------------------------------------------------------------------------
 
-def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_len: int, *,
-                     device):
-    """Block-paged decode cache: every leaf of the dense family carries
-    a sequence axis, so each becomes a pool (n_groups, n_blocks,
-    block_len, KH, Dh); the reference's slot-resident leaves (recurrent
-    state, cross KV) belong to families not ported yet.  Block 0 is the
-    trash block: never allocated, it absorbs the writes of finished
-    slots."""
-    return init_decode_cache(cfg, n_blocks, block_len, device=device)
+def _axis_diff(a, b):
+    """Tree of the one axis where two cache trees' leaves differ, or -1
+    where they agree."""
+    def axis(x, y):
+        diff = [i for i, (p, q) in enumerate(zip(x.shape, y.shape)) if p != q]
+        return diff[0] if diff else -1
+    return _map(axis, a, b)
 
 
-def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, ids, mask, *,
-                          block_len: int):
+def decode_cache_batch_axes(cfg: ModelConfig):
+    """Tree of the batch-axis index of every decode-cache leaf,
+    discovered by diffing two meta caches that differ only in B."""
+    return _axis_diff(init_decode_cache(cfg, 2, 8, device="meta"),
+                      init_decode_cache(cfg, 3, 8, device="meta"))
+
+
+def decode_cache_seq_axes(cfg: ModelConfig):
+    """Tree of the sequence-axis index of every decode-cache leaf, or -1
+    for leaves with no growing sequence axis (the ssm state and conv
+    tail): exactly the leaves that stay slot-resident when paged."""
+    return _axis_diff(init_decode_cache(cfg, 2, 8, device="meta"),
+                      init_decode_cache(cfg, 2, 16, device="meta"))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def has_paged_leaves(cfg: ModelConfig) -> bool:
+    """False only for families whose whole decode state is per-slot
+    recurrent (pure ssm): the paged engine then keeps no block pool."""
+    return any(ax >= 0 for ax in _leaves(decode_cache_seq_axes(cfg)))
+
+
+def init_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int,
+                     block_len: int, *, device):
+    """Block-paged decode cache.  Sequence-carrying leaves become pools:
+    the contiguous (stacked..., B, S, ...) leaf turns into (stacked...,
+    n_blocks, block_len, ...), block id b being row b of every pool.
+    Leaves with no sequence axis (the ssm state and conv tail) keep a
+    batch axis of ``n_slots``.  Block 0 is the trash block: never
+    allocated, it absorbs the writes of finished slots."""
+    pool = init_decode_cache(cfg, n_blocks, block_len, device="meta")
+    slotted = init_decode_cache(cfg, n_slots, block_len, device="meta")
+
+    def make(p, s, ax):
+        t = p if ax >= 0 else s
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+    return _map(make, pool, slotted, decode_cache_seq_axes(cfg))
+
+
+def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, slot: int,
+                          ids, mask, *, block_len: int):
     """Scatter a B=1 contiguous decode cache ``sub`` (already grafted via
-    ``prefill_into_cache``, S = len(ids) * block_len) into the pools, in
-    place: prompt block i lands in pool block ``ids[i]``.  ``mask`` is
-    False for blocks whose content is already pooled (prefix sharing);
-    their writes go to the trash block 0 instead."""
+    ``prefill_into_cache``, S = len(ids) * block_len) into the paged
+    cache, in place: prompt block i lands in pool block ``ids[i]``, and
+    slot-resident leaves in batch row ``slot``, overwritten whole.
+    ``mask`` is False for blocks whose content is already pooled (prefix
+    sharing); their writes go to the trash block 0 instead."""
     _check_decode(cfg)
     ids = torch.as_tensor(ids, dtype=torch.long)
     mask = torch.as_tensor(mask, dtype=torch.bool)
     ids_eff = torch.where(mask, ids, torch.zeros_like(ids))
 
-    def put(dst, src):
+    def put(dst, src, bax, sax):
+        if sax < 0:
+            dst.select(bax, slot).copy_(src.select(bax, 0))
+            return dst
+        # the pools' layout: (stacked, n_blocks, block_len, ...)
+        assert (bax, sax) == (1, 2), (bax, sax)
         s = src[:, 0]                                  # drop B
         s = s.reshape((s.shape[0], -1, block_len) + tuple(s.shape[2:]))
         dst[:, ids_eff.to(dst.device)] = s.to(dst.dtype)
         return dst
 
-    return {"blocks": _map2(put, paged_cache["blocks"], sub["blocks"])}
+    return _map(put, paged_cache, sub, decode_cache_batch_axes(cfg),
+                decode_cache_seq_axes(cfg))
 
 
 # ---------------------------------------------------------------------------
 # serving: decode
 # ---------------------------------------------------------------------------
 
+def _ssm_step(bp, cfg: ModelConfig, x, bc, C: int):
+    """One Mamba-2 block: the O(1) recurrence for C=1; the C>1 chunk path
+    (``ssm_prefill_chunk``) is not ported yet and raises."""
+    h = layers.apply_norm(bp["ln"], x)
+    if C == 1:
+        return ssm.ssm_decode(bp["mixer"], cfg, h, bc)
+    return ssm.ssm_prefill_chunk(bp["mixer"], cfg, h, bc)
+
+
 def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
                   block_tables=None, write_tables=None):
     """Shared decode body: pre-embedded inputs x (B, C, D) at positions
     pos (B, C) int32, written into (and attended against) the cache in
-    place.  Returns (final-normed hidden (B, C, D), cache)."""
+    place.  Returns (final-normed hidden (B, C, D), cache).  The ssm
+    family steps every row's recurrent state and ignores positions and
+    tables (its leaves are slot-resident)."""
     _check_decode(cfg)
+    if cfg.arch_type == "ssm":
+        for g in range(cfg.n_layers):
+            bc = _layer(cache["blocks"], g)
+            out, nc = _ssm_step(_layer(params["blocks"], g), cfg, x, bc,
+                                x.shape[1])
+            x = x + out
+            for k in bc:
+                bc[k].copy_(nc[k])
+        return layers.apply_norm(params["final_norm"], x), cache
     x, cache["blocks"] = _decode_stack(
         params["blocks"], cfg, x, pos, cache["blocks"],
         pattern=cfg.attn_pattern, block_tables=block_tables,

@@ -19,11 +19,16 @@ per attention leaf plus per-slot block tables (``repro_torch.serve.paged``):
 a request holds the blocks its tokens span, identical prompt prefixes
 are pooled once (refcounted), decode blocks are claimed lazily, and the
 youngest request is preempted (and replayed) when the pool runs dry.
+A family whose decode state is all per-slot recurrent (the ssm family)
+has no paged leaves: the paged engine then keeps no block pool, shares
+no prefix and never preempts, and admission overwrites the slot's state
+and conv tail whole, as in the reference.
 
 Not ported yet, and refused with ``NotImplementedError``: bucketed
 chunked admission (``chunk_len``/``buckets``), speculative decode,
-quantized KV (``kv_dtype``), sharded serving (``mesh``) and MoE
-configurations (their decode takes the reference's ``live`` mask).  The
+quantized KV (``kv_dtype``), sharded serving (``mesh``), MoE
+configurations (their decode takes the reference's ``live`` mask) and
+the families not ported yet.  The
 reference's compiled-executable cache has no counterpart: nothing here
 is compiled.
 """
@@ -356,7 +361,8 @@ class PagedServeEngine(ServeEngine):
     deterministic replay (greedy, so its final tokens are unchanged).
     The oldest request is never preempted, which guarantees progress.
     ``lazy=False`` claims ``ceil(decode_capacity / block_len)`` blocks
-    at admission.
+    at admission.  For a family without paged leaves (ssm) no block is
+    ever claimed and every table entry stays the trash block.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, block_len: int = 16,
@@ -368,7 +374,9 @@ class PagedServeEngine(ServeEngine):
         # default pool: worst case every slot holds max_len live tokens
         self.n_blocks = (1 + n_slots * self.max_blocks
                          if n_blocks is None else n_blocks)
-        self.share_prefix, self.lazy = share_prefix, lazy
+        self._has_paged = M.has_paged_leaves(cfg)
+        self.share_prefix = share_prefix and self._has_paged
+        self.lazy = lazy and self._has_paged
         self.alloc = pg.PagedAllocator(self.n_blocks, block_len)
         self.block_tables = np.full((n_slots, self.max_blocks), pg.TRASH,
                                     np.int32)
@@ -381,13 +389,16 @@ class PagedServeEngine(ServeEngine):
     # -- cache layout ------------------------------------------------------
 
     def _init_cache(self) -> None:
-        self.cache = M.init_paged_cache(self.cfg, self.n_blocks,
-                                        self.block_len, device=self.device)
+        self.cache = M.init_paged_cache(self.cfg, self.n_slots,
+                                        self.n_blocks, self.block_len,
+                                        device=self.device)
 
     # -- admission ---------------------------------------------------------
 
     def _validate_capacity(self, uid: int, P: int, max_new: int) -> None:
         super()._validate_capacity(uid, P, max_new)
+        if not self._has_paged:
+            return
         n_total = -(-M.decode_capacity(self.cfg, P, max_new)
                     // self.block_len)
         if n_total > self.n_blocks - 1:
@@ -402,6 +413,8 @@ class PagedServeEngine(ServeEngine):
                  // self.block_len)
 
     def _plan(self, req: Request):
+        if not self._has_paged:
+            return {"keys": [], "n_pb": 0, "n_alloc": 0, "missing": 0}
         bl = self.block_len
         pos0 = M.decode_pos0(self.cfg, req.prompt_len)
         n_pb = -(-pos0 // bl)
@@ -454,7 +467,7 @@ class PagedServeEngine(ServeEngine):
         sub = M.prefill_into_cache(
             self.cfg, M.init_decode_cache(self.cfg, 1, n_pb * bl,
                                           device=self.device), pc)
-        M.scatter_prefill_paged(self.cfg, self.cache, sub, ids[:n_pb],
+        M.scatter_prefill_paged(self.cfg, self.cache, sub, slot, ids[:n_pb],
                                 fresh[:n_pb], block_len=bl)
 
     def _rollback_place(self, slot: int, req: Request) -> None:
@@ -521,6 +534,8 @@ class PagedServeEngine(ServeEngine):
         self.stats["preemptions"] += 1
 
     def _pre_segment(self) -> None:
+        if not self._has_paged:
+            return
         needs = self._segment_needs()
         while sum(needs.values()) > self.alloc.n_free:
             self._preempt_youngest()

@@ -58,7 +58,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.moe_gemm.ops, "
             "repro_torch.kernels.moe_dispatch.ops, repro_torch.models.moe, "
             "repro_torch.core.merge, repro_torch.core.tuning, "
-            "repro_torch.federated.server; "
+            "repro_torch.federated.server, repro_torch.models.ssm, "
+            "repro_torch.kernels.ssd_scan.ops; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -117,7 +118,7 @@ def test_unported_launcher_flags_raise(flag):
         serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b", "nope"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "zamba2-7b", "nope"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not ported yet"):
         get_config(arch)

@@ -355,3 +355,93 @@ def test_moe_kernels_refuse_what_they_do_not_take(cuda):
                                     torch.zeros(3, dtype=torch.int32),
                                     torch.zeros(3, dtype=torch.int32),
                                     torch.ones(3), 2)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan (Mamba-2 prefill)
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(cuda, B, S, H, P, N, G, dtype, with_h0, slow, seed=0):
+    """The model's distributions: x, B, C ~ N(0, 1) (B/C x 0.3), dt =
+    softplus(N(0,1)) and A = -1 (fast decay, as the reference's init), or
+    dt * |A| <= 0.01 (slow decay: the carried state and far pairs reach
+    y)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+    x = rnd(B, S, H, P).to(dtype)
+    if slow:
+        dt = 0.02 + 0.08 * torch.rand(B, S, H, generator=g, device=cuda)
+        A = -(0.02 + 0.08 * torch.rand(H, generator=g, device=cuda))
+    else:
+        dt = torch.nn.functional.softplus(rnd(B, S, H))
+        A = -torch.ones(H, device=cuda)
+    b, c = ((0.3 * rnd(B, S, G, N)).to(dtype) for _ in range(2))
+    h0 = 0.5 * rnd(B, H, P, N) if with_h0 else None
+    return x, dt, A, b, c, h0
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["fast", "slow"])
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,dtype,with_h0", [
+    (1, 1024, 64, 64, 128, 1, 256, torch.bfloat16, False),   # the path
+    (1, 777, 64, 64, 128, 1, 256, torch.bfloat16, False),    # ragged
+    (2, 300, 8, 64, 128, 2, 256, torch.bfloat16, True),      # groups, h0
+    (1, 600, 4, 64, 128, 1, 256, torch.float32, True),
+    (2, 45, 4, 16, 16, 2, 32, torch.float32, False),         # reduced
+    (1, 200, 6, 80, 200, 3, 100, torch.float32, True),       # odd tiles
+    (1, 37, 2, 8, 8, 1, 1000, torch.float32, False)])        # S < chunk
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, G, chunk, dtype,
+                                  with_h0, slow):
+    """y and the final state against the plain version.  bf16 y within two
+    bf16 ulps of the case's largest |y| (both round once from f32); f32 y
+    and every final state within 5e-5 of the largest value (sums and the
+    cumsum in another order)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    x, dt, A, b, c, h0 = _ssd_inputs(cuda, B, S, H, P, N, G, dtype,
+                                     with_h0, slow)
+    n0 = ssd.LAUNCHES
+    y, h = ssd.ssd(x, dt, A, b, c, chunk=chunk, init_state=h0)
+    assert ssd.LAUNCHES == n0 + 1
+    wy, wh = ssd_scan_ref(x, dt, A, b, c, chunk=chunk, init_state=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    m = wy.float().abs().max()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(m)
+        limit = 2 * torch.ldexp(torch.tensor(2.0 ** -7, device=cuda), e - 1)
+    else:
+        limit = 5e-5 * m
+    assert (y.float() - wy.float()).abs().max() <= limit
+    assert (h - wh).abs().max() <= 5e-5 * wh.abs().max()
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    x, dt, A, b, c, _ = _ssd_inputs(cuda, 1, 40, 2, 8, 8, 1, torch.float32,
+                                    False, False)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, b, c)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd.ssd(x.requires_grad_(True), dt, A, b, c)
+
+
+def test_reduced_mamba2_on_card_matches_cpu(cuda):
+    """Reduced Mamba2 (f32) served through the SSD kernel on the card
+    emits the CPU engine's greedy tokens."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    cfg = get_config("mamba2-1.3b", variant="reduced")
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, P)) for P in (2, 33, 70)]
+    outs = {}
+    n0 = ssd.LAUNCHES
+    for dev in ("cpu", "cuda"):
+        eng = PagedServeEngine(_to(params, dev), cfg, n_slots=2, max_len=80,
+                               seg_len=4, device=dev)
+        for pr in prompts:
+            eng.submit({"tokens": pr}, max_new=8)
+        outs[dev] = {u: c.tokens.tolist() for u, c in eng.run().items()}
+    assert ssd.LAUNCHES - n0 == cfg.n_layers * len(prompts)
+    assert outs["cuda"] == outs["cpu"]

@@ -73,10 +73,10 @@ def _paged_state(cfg_j, pj, cfg, pt, P=9, bl=4):
     cj = JM.scatter_prefill_paged(cfg_j, cj, subj, 0, jnp.asarray(ids),
                                   jnp.asarray(mask), block_len=bl)
     lt, pct = M.prefill(pt, cfg, {"tokens": torch.as_tensor(toks)})
-    ct = M.init_paged_cache(cfg, 9, bl, device="cpu")
+    ct = M.init_paged_cache(cfg, 2, 9, bl, device="cpu")
     subt = M.prefill_into_cache(cfg, M.init_decode_cache(cfg, 1, n_pb * bl,
                                                          device="cpu"), pct)
-    M.scatter_prefill_paged(cfg, ct, subt, ids, mask, block_len=bl)
+    M.scatter_prefill_paged(cfg, ct, subt, 0, ids, mask, block_len=bl)
     bt = np.array([[1, 2, 3, 4, 0], [0, 0, 0, 0, 0]], np.int32)
     tok = np.array([[int(np.argmax(np.asarray(lj)))], [0]], np.int32)
     pos = np.array([P, 0], np.int32)
