@@ -12,7 +12,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    card, at the serve, train and tune paths' shapes plus small edge
    cases (MoE: a drop case, transposed operands, gelu, ragged edges;
    SSD scan: ragged, two groups with h0, f32, odd tiles, each also with
-   slow decay, where the far pairs and the carried state must show),
+   slow decay, where the far pairs and the carried state must show;
+   flash and paged attention at head dims 16, 24, 96, 112 and 256; the
+   paged kernel's int8/fp8 dequant branch with scales that vary by row
+   and head, where permuted or dropped scales must move the plain
+   output by QUANT_FAR),
    each output element within two bf16 ulps of its own value + 1e-4
    (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
    rows whose top two logits are within ``ARGMAX_MARGIN``; kernel, plain
@@ -27,6 +31,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the kernels' launch counts on that run, and the kernel path's logits
    against the plain path's;
 5. profile: torch.profiler over one prefill and one decode segment;
+5a. serve_kv: the same model, traffic and engine with the KV pool in
+   bf16, int8, fp8 and bf16 again, in turns.  Checks the completions,
+   the dequant branch's launches in the quantized runs (22 per decode
+   step, none of the unquantized branch), the decode logits of the
+   quantized kernel path against the quantized gather path and against
+   the unquantized path (and that dropped scales would fail that
+   limit), reports speed, pool bytes and peak memory against the bf16
+   runs, bf16 against int8 pools of equal bytes (live requests,
+   preemptions), and profiles an int8 decode segment;
 5b. serve_ssm: full-width, full-depth Mamba2-1.3B (bf16, random weights
    from seed 0) behind ``PagedServeEngine``: 16 greedy requests, prompts
    of 128-1024 tokens, 64 new tokens each.  Checks the completions, the
@@ -219,15 +232,8 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
     from repro_torch.kernels.paged_attn import ops, ref
     from repro_torch.models.layers import paged_gather
     B = len(ctx)
-    nbt = -(-max(ctx) // bl)
-    need = [-(-c // bl) for c in ctx]
-    n_blocks = 1 + sum(need)
-    perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
-    bt = torch.zeros((B, nbt), dtype=torch.int32, device="cuda")
-    o = 0
-    for b, n in enumerate(need):
-        bt[b, :n] = perm[o:o + n].to(torch.int32)
-        o += n
+    bt, n_blocks = _pool_table(gen, ctx, bl)
+    nbt = bt.shape[1]
     pos = torch.tensor([c - C for c in ctx], dtype=torch.int32,
                        device="cuda")
     q = _randn(gen, (B, C, H, D), dtype)
@@ -261,6 +267,129 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
                                                           **kw)),
             plain_ms=time_ms(lambda: ref.paged_attention_ref(
                 q, kp, vp, bt, pos, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kg, vg, attn_mask=mask, enable_gqa=True)))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+    return row
+
+
+def _pool_table(gen, ctx, bl):
+    """Block table and pool size for len(ctx) slots holding ctx[b] cached
+    positions: blocks scattered over the pool in a random order, table
+    entries past a slot's blocks pointing at block 0."""
+    B = len(ctx)
+    nbt = -(-max(ctx) // bl)
+    need = [-(-c // bl) for c in ctx]
+    n_blocks = 1 + sum(need)
+    perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
+    bt = torch.zeros((B, nbt), dtype=torch.int32, device="cuda")
+    o = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[o:o + n].to(torch.int32)
+        o += n
+    return bt, n_blocks
+
+
+# A quantized case draws q ~ N(0, 16) and each K/V row as N(0,1) times
+# 2^u, u uniform in
+# [-QUANT_LOG2_SPREAD, QUANT_LOG2_SPREAD] per (position, kv head), less
+# QUANT_LOG2_SPREAD (rows of at most unit size: outputs stay O(1), so
+# the f32 limit of 1e-4 stays a few ulps), then quantizes them: scales
+# then span 2^(2 * spread) across rows and heads.  The plain version is
+# run again with the k scales permuted across rows and heads, the v
+# scales permuted, and both set to 1 (dropped); each output must lie at
+# least QUANT_FAR (relative RMS) from the true plain output, or the
+# check could not see a misplaced or dropped scale.
+QUANT_LOG2_SPREAD = 4.0
+QUANT_FAR = 0.1
+
+
+def _rel_rms(a, b):
+    """RMS of a - b over the RMS of b, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def paged_quant_case(gen, ctx, C, H, KH, D, bl, dtype, kv, *, window=0,
+                     softcap=0.0, timed=False):
+    """The paged kernel's dequant branch against its plain version: int8
+    or fp8 pools with per-(position, kv head) scales that vary by row and
+    head, q and out in ``dtype``.  Also shows that permuted or dropped
+    scales move the plain output by at least QUANT_FAR."""
+    from repro_torch.kernels.paged_attn import ops, ref
+    from repro_torch.models import quant
+    from repro_torch.models.layers import paged_gather
+    B = len(ctx)
+    bt, n_blocks = _pool_table(gen, ctx, bl)
+    pos = torch.tensor([c - C for c in ctx], dtype=torch.int32,
+                       device="cuda")
+    # q ~ N(0, 16): scores spread enough that moving the k scales moves
+    # the softmax weights
+    q = (4 * torch.randn((B, C, H, D), generator=gen, device="cuda")
+         ).to(dtype)
+
+    def rows():
+        u = (torch.rand((n_blocks, bl, KH, 1), generator=gen, device="cuda")
+             * 2 - 1) * QUANT_LOG2_SPREAD - QUANT_LOG2_SPREAD
+        return torch.randn((n_blocks, bl, KH, D), generator=gen,
+                           device="cuda") * torch.exp2(u)
+    kp, ks = quant.quantize(rows(), kv)
+    vp, vs = quant.quantize(rows(), kv)
+    kw = dict(window=window, softcap=softcap, out_dtype=dtype)
+    out = ops.paged_decode_attention(q, kp, vp, bt, pos, k_scale=ks,
+                                     v_scale=vs, **kw)
+    want = ref.paged_attention_ref(q, kp, vp, bt, pos, k_scale=ks,
+                                   v_scale=vs, **kw)
+    torch.cuda.synchronize()
+    name = (f"paged_quant {kv} slots={B} ctx={min(ctx)}-{max(ctx)} C={C} "
+            f"H={H} KH={KH} D={D} bl={bl} out={str(dtype)[6:]} "
+            f"window={window} softcap={softcap}")
+    row = check_close(name, out, want)
+
+    def perm(t):
+        idx = torch.randperm(t.numel(), generator=gen, device="cuda")
+        return t.reshape(-1)[idx].reshape(t.shape)
+    ones = torch.ones_like(ks)
+    far = {
+        "k_scales_permuted": ref.paged_attention_ref(
+            q, kp, vp, bt, pos, k_scale=perm(ks), v_scale=vs, **kw),
+        "v_scales_permuted": ref.paged_attention_ref(
+            q, kp, vp, bt, pos, k_scale=ks, v_scale=perm(vs), **kw),
+        "scales_dropped": ref.paged_attention_ref(
+            q, kp, vp, bt, pos, k_scale=ones, v_scale=ones, **kw)}
+    far = {k: _rel_rms(v, want) for k, v in far.items()}
+    row.update(kv=kv, rel_rms_from_true=far,
+               scale_log2_range=[math.log2(ks.min().item()),
+                                 math.log2(ks.max().item())])
+    near = {k: v for k, v in far.items() if not v >= QUANT_FAR}
+    if near:
+        fail(f"{name}: perturbed scales leave the plain output within "
+             f"{QUANT_FAR} relative RMS {near}: the check could not see them")
+    if timed:
+        # every visible int8/fp8 K/V row once, plus its 4-byte scale per
+        # pool, q read and out written once
+        n_rows = sum(ctx)
+        nbytes = (2 * n_rows * KH * (D * kp.element_size() + 4)
+                  + 2 * q.numel() * q.element_size()
+                  + bt.numel() * 4 + pos.numel() * 4)
+        flops = 4 * D * H * sum(c - C + 1 + (C - 1) / 2 for c in ctx) * C
+        # the library yardstick attends a pre-gathered, pre-dequantized
+        # cache in q's dtype (neither the gather nor the dequant timed)
+        S = bt.shape[1] * bl
+        kg = quant.dequantize(paged_gather(kp, bt), paged_gather(ks, bt),
+                              dtype).transpose(1, 2).contiguous()
+        vg = quant.dequantize(paged_gather(vp, bt), paged_gather(vs, bt),
+                              dtype).transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        kpos = torch.arange(S, device="cuda")[None, None, None, :]
+        qpos = (pos.long()[:, None, None, None]
+                + torch.arange(C, device="cuda")[None, None, :, None])
+        mask = kpos <= qpos
+        row.update(
+            ms=time_ms(lambda: ops.paged_decode_attention(
+                q, kp, vp, bt, pos, k_scale=ks, v_scale=vs, **kw)),
+            plain_ms=time_ms(lambda: ref.paged_attention_ref(
+                q, kp, vp, bt, pos, k_scale=ks, v_scale=vs, **kw)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kg, vg, attn_mask=mask, enable_gqa=True)))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
@@ -666,6 +795,57 @@ def ssd_cases(gen):
     return rows
 
 
+# head dims beyond the serve/train/tune paths' 64 and 128 (and 32): those
+# of the repository's other configs, gpt2-tiny and qwen-moe-tiny 16,
+# llama-tiny 24, bloom-1.1b 96, zamba2-7b 112, gemma2-9b/paligemma 256
+NEW_HEAD_DIMS = (16, 24, 96, 112, 256)
+
+
+def head_dim_cases(gen):
+    """Flash and paged (both branches) at every new head dim, bf16 and
+    f32; one flash (gemma2-9b's heads, D 256) and one paged case
+    (bloom-1.1b's, D 96) timed."""
+    bf, f32 = torch.bfloat16, torch.float32
+    flash, paged, quant = [], [], []
+    for i, D in enumerate(NEW_HEAD_DIMS):
+        dt = (bf, f32)[i % 2]
+        flash += [flash_case(gen, 2, 150, 8, 2, D, dt, window=60),
+                  flash_case(gen, 1, 97, 4, 4, D, (f32, bf)[i % 2],
+                             softcap=30.0)]
+        paged += [paged_case(gen, [3, 70, 130], 1, 8, 2, D, 16, dt),
+                  paged_case(gen, [9, 40], 3, 4, 1, D, 8, (f32, bf)[i % 2],
+                             window=20, softcap=30.0)]
+        quant += [paged_quant_case(gen, [3, 70, 130], 1, 8, 2, D, 16, dt,
+                                   ("int8", "fp8")[i % 2]),
+                  paged_quant_case(gen, [9, 40], 3, 4, 1, D, 8,
+                                   (f32, bf)[i % 2], ("fp8", "int8")[i % 2],
+                                   window=20, softcap=30.0)]
+    flash.append(flash_case(gen, 1, 1024, 16, 8, 256, bf, timed=True))
+    ctx = [int(c) for c in np.linspace(64, 1088, 8)]
+    paged.append(paged_case(gen, ctx, 1, 16, 16, 96, 16, bf, timed=True))
+    return flash, paged, quant
+
+
+def quant_cases(gen):
+    """The dequant branch at the serve path's shape (8 slots, ctx
+    64-1088, H 32 over KH 4, D 64, block_len 16, bf16 out; timed), C = 4,
+    GQA with window and softcap in f32, and D = 24, whose int8/fp8 rows
+    (24 bytes) take 8-byte loads; int8 and fp8 each."""
+    bf, f32 = torch.bfloat16, torch.float32
+    ctx = [int(c) for c in np.linspace(64, 1088, 8)]
+    rows = []
+    for kv in ("int8", "fp8"):
+        rows += [paged_quant_case(gen, ctx, 1, 32, 4, 64, 16, bf, kv,
+                                  timed=True),
+                 paged_quant_case(gen, ctx, 4, 32, 4, 64, 16, bf, kv),
+                 paged_quant_case(gen, [5, 40, 17], 3, 8, 2, 64, 4, f32, kv,
+                                  window=12, softcap=30.0),
+                 paged_quant_case(gen, [1, 70, 33], 1, 8, 2, 24, 16, bf, kv),
+                 paged_quant_case(gen, [9, 130], 2, 6, 3, 24, 8, f32, kv,
+                                  window=50)]
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -681,6 +861,8 @@ def phase_kernels():
              paged_case(gen, [5, 40, 17], 3, 8, 2, 32, 4, f32, window=12,
                         softcap=30.0),
              paged_case(gen, [1, 200], 1, 4, 4, 128, 16, f32)]
+    pq = quant_cases(gen)
+    hd_flash, hd_paged, hd_quant = head_dim_cases(gen)
     kd = [kd_case(gen, 2048, 2048, 0, 32000, bf, timed=True),
           kd_case(gen, 2048, 2048, 1024, 32000, bf, tau=2.0, timed=True),
           kd_case(gen, 130, 96, 0, 1000, f32),
@@ -692,10 +874,12 @@ def phase_kernels():
           kd_case(gen, 96, 96, 0, 5000, f32, ties=True)]
     ffn, gmm, gsa = moe_cases(gen)
     ssd = ssd_cases(gen)
-    for row in flash + paged + kd + ffn + gmm + gsa + ssd:
+    for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
+                + ffn + gmm + gsa + ssd):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
-            "kd_loss": kd[0], "grouped_ffn": ffn[0],
+            "paged_attn_quant": pq[0], "kd_loss": kd[0],
+            "grouped_ffn": ffn[0],
             "grouped_matmul": gmm[0], "gather_scatter_add": gsa[0],
             "ssd_scan": ssd[0]}
 
@@ -761,10 +945,7 @@ def phase_serve():
     print(f"serve: {cfg.name} {n_params / 1e9:.3f}B params {cfg.dtype}, "
           f"init {time.perf_counter() - t0:.1f}s")
 
-    rng = np.random.default_rng(0)
-    lens = [int(p) for p in np.linspace(128, 1024, 16)]
-    prompts = [rng.integers(0, cfg.vocab_size, (1, p)).astype(np.int32)
-               for p in lens]
+    lens, prompts = _serve_prompts(cfg)
     max_new, n_slots, bl, seg_len = 64, 8, 16, 8
 
     with torch.no_grad():
@@ -783,14 +964,17 @@ def phase_serve():
         make_engine().run()
         eng = make_engine()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()   # the timed run's own peak
         fa_ops.LAUNCHES = 0
-        pa_ops.LAUNCHES = 0
+        pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = 0
         t0 = time.perf_counter()
         comps = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": fa_ops.LAUNCHES,
-                    "paged_attn": pa_ops.LAUNCHES}
+                    "paged_attn": pa_ops.LAUNCHES,
+                    "paged_attn_quant": pa_ops.LAUNCHES_QUANT}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     st = eng.stats
     if sorted(comps) != list(range(len(prompts))):
@@ -806,8 +990,8 @@ def phase_serve():
              f"{eng.n_blocks - 1}")
     steps = st["segments"] * seg_len
     want = {"flash_attention": cfg.n_layers * st["prefills"],
-            "paged_attn": cfg.n_layers * steps}
-    if launches != want or min(launches.values()) <= 0:
+            "paged_attn": cfg.n_layers * steps, "paged_attn_quant": 0}
+    if launches != want or steps <= 0:
         fail(f"launches {launches} != expected {want}")
     ttft = sorted(c.ttft_s for c in comps.values())
     res = {"requests": len(comps), "generated_tokens": st["generated_tokens"],
@@ -821,7 +1005,7 @@ def phase_serve():
            "peak_live_blocks": st["peak_live_blocks"],
            "launches": launches, "logit_err_prefill": errs[0],
            "logit_err_decode": errs[1],
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": peak_gb}
     print("serve " + json.dumps(res))
     phase_profile(params, cfg, prompts[-1], make_engine)
     return launches
@@ -880,6 +1064,288 @@ def phase_profile(params, cfg, prompt, make_engine):
         seg = profile(eng.step)  # no slot free: a decode segment only
     print("profile " + json.dumps({"prefill_1024": pre,
                                    "decode_segment_8_steps": seg}))
+
+
+# ---------------------------------------------------------------------------
+# phase 5a: serve full-width TinyLlama-1.1B from a quantized (int8/fp8) KV pool
+# ---------------------------------------------------------------------------
+
+KV_QUANT = ("int8", "fp8")
+KV_CHECK_STEPS = 8
+# (i) decode logits of the quantized kernel path against the quantized
+# gather path on the same pool (8 steps after a 1024-token prompt).  f32:
+# both dequantize in f32 and differ in summation order only.  bf16: the
+# gather path rounds the dequantized K/V to bf16, the kernel does not,
+# and 22 layers of bf16 activations round at different points, as in the
+# unquantized kernel-vs-plain check (LOGIT_TOL).  Readings on an H100
+# (700 W): f32 1.20e-5 (int8) and 1.66e-5 (fp8), bf16 0.0518 and 0.0547
+# (max |logit| 4.4); limits about 3x the largest.
+KV_F32_PATH_TOL = 5e-5
+KV_BF16_PATH_TOL = 0.16
+# (ii) quantized against unquantized decode logits (bf16 model, kernel
+# paths), relative RMS of the difference: what int8/fp8 storage costs.
+# Readings on an H100 (700 W): int8 0.0147, fp8 0.0252; limits about 3x.
+# A dropped scale puts K/V off by up to qmax/amax (read 0.85 and 0.87);
+# the dropped-scale reading must exceed the limit KV_DROPPED_MARGIN-fold.
+KV_REL_RMS_TOL = {"int8": 0.045, "fp8": 0.075}
+KV_DROPPED_MARGIN = 3.0
+# equal-bytes reading: the bf16 pool of this many blocks (one is the
+# trash block) caps the bytes both runs may hold; 16 slots, so the pool
+# and not the slots bounds how many requests are live
+EQ_BF16_BLOCKS, EQ_SLOTS = 200, 16
+
+
+def _serve_prompts(cfg):
+    """The serve phase's traffic: 16 prompts of 128-1024 tokens (seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = [int(p) for p in np.linspace(128, 1024, 16)]
+    return lens, [rng.integers(0, cfg.vocab_size, (1, p)).astype(np.int32)
+                  for p in lens]
+
+
+def _kv_decode_logits(M, params, cfg, pc, P, feed, policy, *,
+                      dropped=False):
+    """Graft a P-token prefill cache ``pc`` into a fresh paged cache under
+    ``policy`` (quantized once, at the graft), then decode ``feed`` one
+    token a step through it: the (len(feed), V) logits.  ``dropped`` sets
+    every scale of the prompt's rows to 1 (K/V read as raw codes)."""
+    bl = 16
+    n_pb = -(-P // bl)
+    nbt = -(-(P + len(feed)) // bl)
+    cache = M.init_paged_cache(cfg, 1, nbt + 1, bl, device="cuda",
+                               policy=policy)
+    sub = M.prefill_into_cache(
+        cfg, M.init_decode_cache(cfg, 1, n_pb * bl, device="cuda"), pc)
+    M.scatter_prefill_paged(cfg, cache, sub, 0, list(range(1, n_pb + 1)),
+                            [True] * n_pb, block_len=bl)
+    if dropped:
+        for e in cache["blocks"].values():
+            e["k_scale"].fill_(1.0)
+            e["v_scale"].fill_(1.0)
+    bt = torch.arange(1, nbt + 1, dtype=torch.int32, device="cuda")[None]
+    out = []
+    for j in range(len(feed)):
+        logits, _ = M.decode_step(params, cfg, cache, feed[j].reshape(1, 1),
+                                  torch.tensor([P + j], device="cuda"),
+                                  block_tables=bt)
+        out.append(logits[0])
+    return torch.stack(out)
+
+
+def kv_logit_readings(M, params, cfg, prompt):
+    """On one 1024-token prompt and 8 teacher-forced decode steps, in the
+    f32 model and in the bf16 one: (i) quantized kernel path against
+    quantized gather path on the same pool; (ii) quantized against
+    unquantized (kernel paths), and, bf16, with the scales dropped;
+    (iii) greedy top-1 agreement with the unquantized path."""
+    from repro_torch.models import quant
+    from repro_torch.utils.pytree import tree_map
+    toks = torch.as_tensor(prompt, device="cuda")
+    P = toks.shape[1]
+    feed = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, KV_CHECK_STEPS), dtype=torch.int32, device="cuda")
+    res = {"prompt_len": P, "steps": KV_CHECK_STEPS}
+    models = {"f32": (lambda: tree_map(lambda t: t.float(), params),
+                      cfg.replace(dtype="float32")),
+              "bf16": (lambda: params, cfg)}
+    for tag, (get, c) in models.items():
+        p = get()
+        _, pc = M.prefill(p, c, {"tokens": toks})
+        plain = c.replace(use_kernels=False)
+        base = _kv_decode_logits(M, p, c, pc, P, feed, None)
+        res[f"{tag}_max_abs_logit"] = base.abs().max().item()
+        for kv in KV_QUANT:
+            pol = quant.CachePolicy(kv)
+            lk = _kv_decode_logits(M, p, c, pc, P, feed, pol)
+            lg = _kv_decode_logits(M, p, plain, pc, P, feed, pol)
+            res[f"{tag}_{kv}_kernel_vs_gather_max"] = (
+                lk - lg).abs().max().item()
+            res[f"{tag}_{kv}_kernel_vs_gather_rel_rms"] = _rel_rms(lk, lg)
+            res[f"{tag}_{kv}_vs_unquantized_rel_rms"] = _rel_rms(lk, base)
+            res[f"{tag}_{kv}_top1_agreement"] = (
+                lk.argmax(-1) == base.argmax(-1)).float().mean().item()
+            if tag == "bf16":
+                ld = _kv_decode_logits(M, p, c, pc, P, feed, pol,
+                                       dropped=True)
+                res[f"bf16_{kv}_dropped_scale_rel_rms"] = _rel_rms(ld, base)
+        del p, pc
+        torch.cuda.empty_cache()
+    print("serve_kv logits " + json.dumps(res))
+    return res
+
+
+def check_kv_logits(res):
+    if not all(math.isfinite(v) for v in res.values()):
+        fail(f"serve_kv logits: non-finite readings {res}")
+    for kv in KV_QUANT:
+        for tag, tol in (("f32", KV_F32_PATH_TOL),
+                         ("bf16", KV_BF16_PATH_TOL)):
+            d = res[f"{tag}_{kv}_kernel_vs_gather_max"]
+            if d > tol:
+                fail(f"serve_kv (i) {tag} {kv}: kernel-path logits differ "
+                     f"from the gather path by {d} > {tol}")
+        r = res[f"bf16_{kv}_vs_unquantized_rel_rms"]
+        if r > KV_REL_RMS_TOL[kv]:
+            fail(f"serve_kv (ii) {kv}: logits {r:.4f} relative RMS from "
+                 f"the unquantized path (limit {KV_REL_RMS_TOL[kv]})")
+        dr = res[f"bf16_{kv}_dropped_scale_rel_rms"]
+        if not dr > KV_DROPPED_MARGIN * KV_REL_RMS_TOL[kv]:
+            fail(f"serve_kv (ii) {kv}: dropping the scales moves the logits "
+                 f"only {dr:.4f} relative RMS: the limit would not see it")
+
+
+def equal_bytes_reading(M, params, cfg, prompts, max_new, bl, seg_len):
+    """bf16 and int8 pools capped at the bytes of an EQ_BF16_BLOCKS-block
+    bf16 pool, EQ_SLOTS slots: peak live requests and preemptions of
+    each.  A reading, no limit."""
+    from repro_torch.models import quant
+    from repro_torch.serve import PagedServeEngine
+    cap = M.paged_cache_nbytes(cfg, EQ_SLOTS, EQ_BF16_BLOCKS, bl)
+    pol = quant.CachePolicy("int8")
+    per_block = (M.paged_cache_nbytes(cfg, EQ_SLOTS, 2, bl, policy=pol)
+                 - M.paged_cache_nbytes(cfg, EQ_SLOTS, 1, bl, policy=pol))
+    out = {}
+    for kv, nb in (("bf16", EQ_BF16_BLOCKS), ("int8", cap // per_block)):
+        eng = PagedServeEngine(params, cfg, n_slots=EQ_SLOTS, block_len=bl,
+                               seg_len=seg_len, n_blocks=nb,
+                               max_len=max(p.shape[1] for p in prompts)
+                               + max_new, kv_dtype="" if kv == "bf16" else kv,
+                               device="cuda")
+        for p in prompts:
+            eng.submit({"tokens": p}, max_new=max_new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sorted(comps) != list(range(len(prompts))) or any(
+                len(c.tokens) != max_new for c in comps.values()):
+            fail(f"equal-bytes {kv}: completions {sorted(comps)}")
+        st = eng.stats
+        out[kv] = {"n_blocks": nb, "pool_bytes": M.paged_cache_nbytes(
+                       cfg, EQ_SLOTS, nb, bl, policy=eng.policy),
+                   "peak_live_requests": st["peak_live_requests"],
+                   "peak_live_blocks": st["peak_live_blocks"],
+                   "preemptions": st["preemptions"],
+                   "prefills": st["prefills"], "segments": st["segments"],
+                   "wall_s": wall,
+                   "tok_per_s": st["generated_tokens"] / wall}
+    out["cap_bytes"] = cap
+    print("serve_kv equal_bytes " + json.dumps(out))
+    return out
+
+
+def phase_serve_kv():
+    """The serve phase's traffic and engine (8 slots, block_len 16,
+    seg_len 8) with the KV pool in bf16, int8, fp8 and bf16 again, in
+    turns in one phase, so the quantized runs are compared with bf16
+    under the same conditions.  The quantized runs launch the dequant
+    branch of the paged kernel 22 times a decode step and the
+    unquantized branch never.  Reports tok/s, ms per decode step, TTFT,
+    the pool's bytes, peak memory and agreement with the first bf16 run's
+    tokens; then the logit checks, the equal-bytes reading and a profile
+    of an int8 decode segment."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import quant
+    from repro_torch.serve import PagedServeEngine
+
+    cfg = get_config("tinyllama-1.1b", variant="full")
+    torch.cuda.empty_cache()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    lens, prompts = _serve_prompts(cfg)
+    max_new, n_slots, bl, seg_len = 64, 8, 16, 8
+    runs = {}
+    launches = {"paged_attn_quant": 0, "flash_attention": 0}
+    with torch.no_grad():
+        checks = kv_logit_readings(M, params, cfg, prompts[-1])
+        check_kv_logits(checks)
+        for name, kv in (("bf16_first", ""), ("int8", "int8"),
+                         ("fp8", "fp8"), ("bf16_last", "")):
+            eng = PagedServeEngine(params, cfg, n_slots=n_slots,
+                                   block_len=bl, seg_len=seg_len,
+                                   max_len=max(lens) + max_new,
+                                   kv_dtype=kv, device="cuda")
+            for p in prompts:
+                eng.submit({"tokens": p}, max_new=max_new)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa_ops.LAUNCHES = 0
+            pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = 0
+            t0 = time.perf_counter()
+            comps = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {"paged_attn_quant": pa_ops.LAUNCHES_QUANT,
+                   "paged_attn": pa_ops.LAUNCHES,
+                   "flash_attention": fa_ops.LAUNCHES}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            st = eng.stats
+            if sorted(comps) != list(range(len(prompts))):
+                fail(f"serve_kv {name}: completed {sorted(comps)}")
+            for uid, c in comps.items():
+                if len(c.tokens) != max_new or c.prompt_len != lens[uid] \
+                        or (c.tokens < 0).any() \
+                        or (c.tokens >= cfg.vocab_size).any():
+                    fail(f"serve_kv {name} request {uid}: {c.tokens}")
+            if eng.alloc.n_free != eng.n_blocks - 1 or eng._slot_blocks:
+                fail(f"serve_kv {name}: allocator did not drain")
+            steps = st["segments"] * seg_len
+            paged = cfg.n_layers * steps
+            want = {"paged_attn_quant": paged if kv else 0,
+                    "paged_attn": 0 if kv else paged,
+                    "flash_attention": cfg.n_layers * st["prefills"]}
+            if got != want or steps <= 0:
+                fail(f"serve_kv {name}: launches {got} != expected {want}")
+            if kv:
+                launches["paged_attn_quant"] += got["paged_attn_quant"]
+                launches["flash_attention"] += got["flash_attention"]
+            tokens = {u: c.tokens.tolist() for u, c in comps.items()}
+            ref = runs.get("bf16_first", {}).get("tokens", tokens)
+            # how long each request follows the first bf16 run's tokens
+            prefix = [next((i for i, (a, b) in enumerate(zip(t, ref[u]))
+                            if a != b), max_new) for u, t in tokens.items()]
+            ttft = sorted(c.ttft_s for c in comps.values())
+            runs[name] = {
+                "tokens": tokens, "generated_tokens": st["generated_tokens"],
+                "wall_s": wall, "tok_per_s": st["generated_tokens"] / wall,
+                "decode_steps": steps,
+                "ms_per_decode_step": 1e3 * st["decode_s"] / steps,
+                "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+                "pool_bytes": M.paged_cache_nbytes(
+                    cfg, n_slots, eng.n_blocks, bl, policy=eng.policy),
+                "peak_mem_gb": peak_gb, "launches": got,
+                "requests_equal_to_bf16_first": sum(
+                    n == max_new for n in prefix),
+                "tokens_before_first_difference_mean":
+                    sum(prefix) / len(prefix)}
+        bf16_ms = (runs["bf16_first"]["ms_per_decode_step"]
+                   + runs["bf16_last"]["ms_per_decode_step"]) / 2
+        for name in KV_QUANT:
+            runs[name]["ms_per_decode_step_over_bf16"] = (
+                runs[name]["ms_per_decode_step"] / bf16_ms)
+            runs[name]["pool_bytes_over_bf16"] = (
+                runs[name]["pool_bytes"] / runs["bf16_first"]["pool_bytes"])
+        for r in runs.values():
+            del r["tokens"]
+        eq = equal_bytes_reading(M, params, cfg, prompts, max_new, bl,
+                                 seg_len)
+        # where the time goes: one steady int8 decode segment, every slot
+        # live, as the serve phase profiles the bf16 one
+        eng = PagedServeEngine(params, cfg, n_slots=n_slots, block_len=bl,
+                               seg_len=seg_len, max_len=max(lens) + max_new,
+                               kv_dtype="int8", device="cuda")
+        for p in prompts:
+            eng.submit({"tokens": p}, max_new=max_new)
+        eng.step()
+        seg = profile(eng.step, top=12)
+    print("serve_kv " + json.dumps({"runs": runs, "logit_checks": checks,
+                                    "equal_bytes": eq}))
+    print("profile " + json.dumps({"int8_decode_segment_8_steps": seg}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1624,6 +2090,10 @@ KERNELS = {
     "paged_attn": {
         "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:159"},
+    # the same kernel's dequant branch (int8/fp8 pools with scales)
+    "paged_attn_quant": {
+        "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:159"},
     "grouped_ffn": {
         "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
         "replaces": "src/repro/kernels/moe_gemm/kernel.py:136"},
@@ -1656,12 +2126,13 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     serve = phase_serve()
+    serve_kv = phase_serve_kv()
     serve_ssm = phase_serve_ssm()
     train = phase_train()
     tune = phase_tune()
     # launches: the counts of every path run that drives the kernel
     launches = {k: sum(path.get(k, 0)
-                       for path in (serve, serve_ssm, train, tune))
+                       for path in (serve, serve_kv, serve_ssm, train, tune))
                 for k in KERNELS}
     line = []
     for kname in KERNELS:

@@ -21,6 +21,13 @@
 // for Q K^T and for P V) rather than with wgmma on the tensor cores, so
 // it sits far below the bf16 tensor-core bound; tensor cores, TMA and
 // warp specialisation are the next step.
+//
+// Any head dim that is a multiple of 8 up to 256 builds (the instances
+// are listed in dispatch_d).  A thread owns output columns tx + 16 j; where
+// D is not a multiple of 16 (D = 24) the V tile is padded with zero
+// columns up to the next multiple of 16, and the padded outputs are never
+// written.  At D = 256 in f32 the shared tiles take 214.5 KB, under the
+// 227 KB a block may opt in to.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,11 +56,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// output columns per thread, and the V tile's row stride (zero-padded)
 template <int D>
-constexpr size_t smem_bytes() {
-  // sQ, sK (padded rows), sV, sS (padded rows), m, l, corr
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
+__host__ __device__ constexpr int col_tiles() {
+  return (D + 15) / 16;
+}
+template <int D>
+__host__ __device__ constexpr int v_stride() {
+  return 16 * col_tiles<D>();
+}
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // sQ, sK (padded rows), sV (zero-padded columns), sS (padded rows), m,
+  // l, corr
+  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * v_stride<D>() +
+                          BQ * (BK + 1) + 3 * BQ);
 }
 
 template <typename T, int D>
@@ -62,15 +80,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                  int H, int KH, int causal, int window, float softcap,
                  float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(D % 8 == 0 && D <= 256, "head dim: a multiple of 8, <= 256");
+  static_assert(smem_bytes<D>() <= 232448, "shared tiles over 227 KB");
   constexpr int DP = D + 1;   // padded row stride: no bank conflicts
   constexpr int SP = BK + 1;
-  constexpr int DJ = D / 16;  // output columns per thread
+  constexpr int DJ = col_tiles<D>();  // output columns per thread
+  constexpr int DV = v_stride<D>();
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * DP;
   float* sV = sK + BK * DP;
-  float* sS = sV + BK * D;
+  float* sS = sV + BK * DV;
   float* sM = sS + BQ * SP;
   float* sL = sM + BQ;
   float* sC = sL + BQ;
@@ -106,16 +126,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // last tile's P V is done with sK/sV/sS
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i % D, s = k0 + r;
+    for (int i = tid; i < BK * DV; i += NT) {
+      const int r = i / DV, d = i % DV, s = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (s < Sk) {
+      if (s < Sk && d < D) {
         const size_t off = (((size_t)b * Sk + s) * KH + kh) * D + d;
         kv = to_f32(k[off]);
         vv = to_f32(v[off]);
       }
-      sK[r * DP + d] = kv;
-      sV[r * D + d] = vv;
+      if (d < D) sK[r * DP + d] = kv;
+      sV[r * DV + d] = vv;
     }
     __syncthreads();
 
@@ -198,7 +218,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pa[i] = sS[(ty + 16 * i) * SP + c];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) va[j] = sV[c * D + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) va[j] = sV[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -214,7 +234,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(sL[r], 1e-30f);
     T* dst = o + (((size_t)b * Sq + s) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < DJ; ++j)
+      if (tx + 16 * j < D) dst[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
   }
 }
 
@@ -251,19 +272,25 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Sk, int H, int KH, int D,
                        int causal, int window, float softcap, float scale,
                        cudaStream_t stream) {
+#define FLASH_CASE(DIM)                                                   \
+  case DIM:                                                               \
+    return launch<T, DIM>(q, k, v, o, B, Sq, Sk, H, KH, causal, window,  \
+                          softcap, scale, stream);
+  // the head dims the kernel is built for: every one a config of the
+  // repository uses
   switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KH, causal, window,
-                           softcap, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KH, causal, window,
-                           softcap, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KH, causal, window,
-                            softcap, scale, stream);
+    FLASH_CASE(16)
+    FLASH_CASE(24)
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(96)
+    FLASH_CASE(112)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
+#undef FLASH_CASE
 }
 
 }  // namespace

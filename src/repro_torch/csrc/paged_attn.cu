@@ -1,12 +1,15 @@
 // Paged attention over a block-paged KV pool (decode, and C-query chunks).
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attn/kernel.py
-// (paged_attention_bhgd / _paged_kernel), unquantized branch.  Layout is
-// the public one: q (B, C, H, D); pools (n_blocks, block_len, KH, D);
-// block_table (B, nbt) int32; pos (B,) int32, the FIRST query's position
-// (query c sits at pos + c) -> out (B, C, H, D).  Logical position p of
-// slot b lives in pool row block_table[b, p / block_len] at offset
-// p % block_len.
+// (paged_attention_bhgd / _paged_kernel), both branches: f32 or bf16
+// pools, and quantized pools (quantized=True) whose rows are int8 or fp8
+// e4m3 with one f32 scale per (position, kv head).  Layout is the public
+// one: q (B, C, H, D); pools (n_blocks, block_len, KH, D); scales
+// (n_blocks, block_len, KH); block_table (B, nbt) int32; pos (B,) int32,
+// the FIRST query's position (query c sits at pos + c) -> out
+// (B, C, H, D).  Logical position p of slot b lives in pool
+// row block_table[b, p / block_len] at offset p % block_len; its scales
+// ride the same indirection.
 //
 // One thread block per (kv head, slot, chunk of RC = 8 query rows); a query
 // row is one (c, g) pair of the C chunk positions and the G = H / KH
@@ -14,19 +17,32 @@
 // all of them.  The block walks the slot's logical positions in tiles of
 // 64 up to the last query's position only (and from the left edge of the
 // window), gathering each key through the block table into shared
-// memory, so a slot pays for the blocks it has filled and no more.
+// memory, so a slot pays for the blocks it has filled and no more.  A
+// quantized row is converted to f32 and multiplied by its row's scale in
+// registers on the way into shared memory, as the TPU kernel dequantizes
+// the DMA'd rows: scores and P V see f32 values either way.  q and out
+// are f32 or bf16 each, chosen at run time (read once and written once
+// per block); the pool's storage type and D are template parameters.
 // Scores, the running max and denominator and the output accumulator
-// are f32.  Masked (query, key) pairs get probability 0, not exp(0): a
-// query row may have no visible key in a tile yet.
+// are f32.
+// Masked (query, key) pairs get probability 0, not exp(0): a query row
+// may have no visible key in a tile yet.
+//
+// Any head dim that is a multiple of 8 up to 256 builds (the instances
+// are listed in dispatch_d).  Rows are fetched with 16-byte loads where
+// a row is a multiple of 16 bytes, else 8-byte loads (an int8/fp8 row of
+// D = 24 is 24 bytes); the P V phase spreads the RC x D outputs over the
+// threads whatever D is.
 //
 // A decode step reads every visible K/V row once and does ~4*D*G flops
 // per row, far below the H100's flop/byte balance, so the kernel is
-// bound by memory.  With one block per (slot, kv head) a small batch
-// puts few blocks on the card, so each block must keep many loads in
-// flight itself: a tile's K/V rows are fetched with 16-byte loads that
-// are all issued before the first is used.  Most SMs still idle at
-// small batch; splitting the context across blocks (split-K) is the
-// next step.
+// bound by memory: an int8/fp8 pool halves the bytes of a bf16 one, plus
+// 4 bytes of scale per row and kv head.  With one block per (slot, kv
+// head) a small batch puts few blocks on the card, so each block must
+// keep many loads in flight itself: a tile's K/V rows are all requested
+// before the first is used (in passes of 16 loads a thread where a tile
+// needs more).  Most SMs still idle at small batch; splitting the
+// context across blocks (split-K) is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,65 +56,120 @@ constexpr int NT = 128;  // threads per block
 // query rows per block: a decode step's G = 8 query heads of one kv head
 // fill it; wider chunks (C * G > 8) take more blocks along grid.z
 constexpr int RC = 8;
+constexpr int MAX_PER = 16;  // row loads in flight per thread and pool
 constexpr int MAX_DEVICES = 64;
 constexpr float NEG_INF = -1.0e30f;
 constexpr float MASKED = -0.5e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// fp8 e4m3 (no infinities) storage: one byte
+struct fp8_e4m3 {
+  uint8_t bits;
+};
+
+// element i of an f32 (bf16 = 0) or bf16 (bf16 = 1) array
+__device__ __forceinline__ float load_f32(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ void store_f32(void* p, size_t i, int bf16,
+                                          float x) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
+  else
+    static_cast<float*>(p)[i] = x;
 }
 
-// 16 bytes of row data -> f32 (bf16 -> f32 is exact: the high half)
-__device__ __forceinline__ void unpack(const uint4& u, float* dst, float) {
-  dst[0] = __uint_as_float(u.x);
-  dst[1] = __uint_as_float(u.y);
-  dst[2] = __uint_as_float(u.z);
-  dst[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* dst,
-                                       __nv_bfloat16) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    dst[2 * j] = __uint_as_float(w[j] << 16);
-    dst[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+// Element j of a little-endian 32-bit word of pool data, as f32 (exact
+// for every storage type).
+template <typename S> struct Storage;
+template <> struct Storage<float> {
+  static constexpr int PER_WORD = 1;
+  static constexpr bool QUANT = false;
+  __device__ static float get(uint32_t w, int) { return __uint_as_float(w); }
+};
+template <> struct Storage<__nv_bfloat16> {
+  static constexpr int PER_WORD = 2;
+  static constexpr bool QUANT = false;
+  __device__ static float get(uint32_t w, int j) {
+    return __uint_as_float(j ? (w & 0xffff0000u) : (w << 16));
   }
+};
+template <> struct Storage<int8_t> {
+  static constexpr int PER_WORD = 4;
+  static constexpr bool QUANT = true;
+  __device__ static float get(uint32_t w, int j) {
+    return (float)((int)(w << (24 - 8 * j)) >> 24);  // sign-extended byte
+  }
+};
+template <> struct Storage<fp8_e4m3> {
+  static constexpr int PER_WORD = 4;
+  static constexpr bool QUANT = true;
+  // e4m3 magnitude bits placed at an f32's exponent/mantissa, rescaled by
+  // 2^(127 - 7): exact for normals and subnormals.  The NaN code 0x7f
+  // would read 480; quantize clips to +-448 and never writes it.
+  __device__ static float get(uint32_t w, int j) {
+    const uint32_t b = (w >> (8 * j)) & 0xffu;
+    const float mag = __uint_as_float((b & 0x7fu) << 20) * 0x1p120f;
+    return (b & 0x80u) ? -mag : mag;
+  }
+};
+
+template <int VB> struct RowVec;  // one load of VB bytes
+template <> struct RowVec<16> {
+  uint32_t w[4];
+  __device__ void load(const char* p) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  }
+};
+template <> struct RowVec<8> {
+  uint32_t w[2];
+  __device__ void load(const char* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x; w[1] = u.y;
+  }
+};
+
+// bytes of one row load: 16 where a row is a multiple of 16 bytes, else 8
+template <typename S, int D>
+__host__ __device__ constexpr int row_load_bytes() {
+  return (D * (int)sizeof(S)) % 16 == 0 ? 16 : 8;
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  // sQ, sK (padded rows), sV, sS (padded rows), m, l, corr
+__host__ __device__ constexpr size_t smem_bytes() {
+  // sQ, sK (padded rows), sV, sS (padded rows), m, l, corr, the k/v row
+  // scales, then the pool row offset of each key
   return sizeof(float) * (RC * D + TK * (D + 1) + TK * D + RC * (TK + 1) +
-                          3 * RC) +
-         sizeof(long long) * TK;  // pool row offset of each key
+                          3 * RC + 2 * TK) +
+         sizeof(long long) * TK;
 }
 
-template <typename T, int D>
+template <typename S, int D>
 __global__ void __launch_bounds__(NT)
-paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                 const T* __restrict__ vp, const int* __restrict__ bt,
-                 const int* __restrict__ pos, T* __restrict__ o, int C,
-                 int H, int KH, int block_len, int nbt, int window,
-                 float softcap, float scale) {
-  static_assert(NT % D == 0 && D <= NT, "head dim must divide 128");
-  static_assert(RC % (NT / D) == 0 && 4 * RC <= NT && (4 * RC) % 32 == 0,
-                "row split");
-  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
-  constexpr int PER = TK * D / VEC / NT;  // 16-byte loads per thread
-  static_assert(D % VEC == 0 && PER * VEC * NT == TK * D, "tile split");
+paged_fwd_kernel(const void* __restrict__ q, const char* __restrict__ kp,
+                 const char* __restrict__ vp, const float* __restrict__ ks,
+                 const float* __restrict__ vs, const int* __restrict__ bt,
+                 const int* __restrict__ pos, void* __restrict__ o,
+                 int q_bf16, int o_bf16, int C, int H, int KH, int block_len,
+                 int nbt, int window, float softcap, float scale) {
+  using St = Storage<S>;
+  constexpr int ES = sizeof(S);
+  constexpr int VB = row_load_bytes<S, D>();
+  static_assert(D % 8 == 0 && D <= 256, "head dim: a multiple of 8, <= 256");
+  static_assert((D * ES) % VB == 0, "row split");
+  static_assert(4 * RC <= NT && (4 * RC) % 32 == 0 && NT == 2 * TK,
+                "thread split");
+  constexpr int EPV = VB / ES;                 // elements per load
+  constexpr int NW = VB / 4;                   // 32-bit words per load
+  constexpr int RV = D / EPV;                  // loads per row
+  constexpr int NV = TK * RV;                  // loads per tile and pool
+  constexpr int PASS = NV < MAX_PER * NT ? NV : MAX_PER * NT;
+  static_assert(NV % PASS == 0, "load passes");
+  constexpr int PER = (PASS + NT - 1) / NT;    // loads per thread a pass
+  constexpr int NO = (RC * D + NT - 1) / NT;   // outputs per thread
   constexpr int DP = D + 1;
   constexpr int SP = TK + 1;
-  constexpr int NRG = NT / D;      // row groups in the P V phase
-  constexpr int RPT = RC / NRG;    // rows a thread accumulates
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + RC * D;
@@ -107,7 +178,9 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* sM = sS + RC * SP;
   float* sL = sM + RC;
   float* sC = sL + RC;
-  long long* sOff = reinterpret_cast<long long*>(sC + RC);
+  float* sKs = sC + RC;
+  float* sVs = sKs + TK;
+  long long* sOff = reinterpret_cast<long long*>(sVs + TK);
 
   const int tid = threadIdx.x;
   const int kh = blockIdx.x, b = blockIdx.y;
@@ -121,7 +194,8 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     float x = 0.f;
     if (r < nrows) {
       const int row = r0 + r, c = row / G, g = row % G;
-      x = to_f32(q[(((size_t)b * C + c) * H + kh * G + g) * D + d]);
+      x = load_f32(q, (((size_t)b * C + c) * H + kh * G + g) * D + d,
+                   q_bf16);
     }
     sQ[i] = x;
   }
@@ -130,9 +204,17 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     sL[tid] = 0.f;
   }
 
-  float acc[RPT];
+  // this thread's outputs of the P V phase: (row, column) pairs
+  // tid, tid + NT, ... of the row-major RC x D block
+  float acc[NO];
+  int orow[NO], ocol[NO];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NO; ++i) {
+    const int idx = tid + i * NT;
+    acc[i] = 0.f;
+    orow[i] = idx < RC * D ? idx / D : RC;  // RC: no output
+    ocol[i] = idx % D;
+  }
 
   const int k_hi = min(p0 + C, nbt * block_len);  // past the last query
   const int k_lo = window > 0 ? max(0, p0 - window + 1) : 0;
@@ -144,32 +226,60 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (tid < TK) {
       const int p = k0 + tid;
       long long off = -1;
+      float kscale = 0.f, vscale = 0.f;
       if (p < k_hi) {
         const int blk = bt[(size_t)b * nbt + p / block_len];
-        off = (((long long)blk * block_len + p % block_len) * KH + kh) * D;
+        const long long row =
+            ((long long)blk * block_len + p % block_len) * KH + kh;
+        off = row * D;
+        if (St::QUANT) {
+          kscale = ks[row];
+          vscale = vs[row];
+        }
       }
       sOff[tid] = off;
+      sKs[tid] = kscale;
+      sVs[tid] = vscale;
     }
     __syncthreads();
-    {
-      // 16-byte loads, all issued before any is used: with few blocks
-      // per SM, one round trip per tile instead of one per element
-      uint4 kr[PER], vr[PER];
+    for (int base = 0; base < NV; base += PASS) {
+      // all of a pass's loads issued before any is used: with few blocks
+      // per SM, one round trip per pass instead of one per element
+      RowVec<VB> kr[PER], vr[PER];
 #pragma unroll
       for (int u = 0; u < PER; ++u) {
-        const int e = (tid + u * NT) * VEC, r = e / D, d = e % D;
-        const long long off = sOff[r];
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (off >= 0) {
-          kr[u] = *reinterpret_cast<const uint4*>(kp + off + d);
-          vr[u] = *reinterpret_cast<const uint4*>(vp + off + d);
+        const int e = base + tid + u * NT, r = e / RV, c = e % RV;
+#pragma unroll
+        for (int m = 0; m < NW; ++m) kr[u].w[m] = vr[u].w[m] = 0u;
+        if (tid + u * NT < PASS) {
+          const long long off = sOff[r];
+          if (off >= 0) {
+            kr[u].load(kp + off * ES + c * VB);
+            vr[u].load(vp + off * ES + c * VB);
+          }
         }
       }
 #pragma unroll
       for (int u = 0; u < PER; ++u) {
-        const int e = (tid + u * NT) * VEC, r = e / D, d = e % D;
-        unpack(kr[u], sK + r * DP + d, T());
-        unpack(vr[u], sV + r * D + d, T());
+        if (tid + u * NT >= PASS) continue;
+        const int e = base + tid + u * NT, r = e / RV;
+        const int d = (e % RV) * EPV;
+        float* kd = sK + r * DP + d;
+        float* vd = sV + r * D + d;
+        const float kf = sKs[r], vf = sVs[r];
+#pragma unroll
+        for (int m = 0; m < NW; ++m) {
+#pragma unroll
+          for (int j = 0; j < St::PER_WORD; ++j) {
+            float kx = St::get(kr[u].w[m], j), vx = St::get(vr[u].w[m], j);
+            if (St::QUANT) {
+              kx *= kf;
+              vx *= vf;
+            }
+            kd[m * St::PER_WORD + j] = kx;
+            vd[m * St::PER_WORD + j] = vx;
+          }
+        }
       }
     }
     __syncthreads();
@@ -233,41 +343,43 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     __syncthreads();
 
-    // acc = acc * corr + P V: thread owns column tid % D of rows
-    // rg, rg + NRG, ...
-    {
-      const int d = tid % D, rg = tid / D;
+    // acc = acc * corr + P V over this thread's (row, column) pairs
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i] *= sC[rg + NRG * i];
+    for (int i = 0; i < NO; ++i)
+      if (orow[i] < nrows) acc[i] *= sC[orow[i]];
 #pragma unroll 4
-      for (int c = 0; c < TK; ++c) {
-        const float vv = sV[c * D + d];
+    for (int c = 0; c < TK; ++c) {
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
-          if (rg + NRG * i < nrows)
-            acc[i] = fmaf(sS[(rg + NRG * i) * SP + c], vv, acc[i]);
-      }
+      for (int i = 0; i < NO; ++i)
+        if (orow[i] < nrows)
+          acc[i] = fmaf(sS[orow[i] * SP + c], sV[c * D + ocol[i]], acc[i]);
     }
   }
   __syncthreads();
 
-  const int d = tid % D, rg = tid / D;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + NRG * i;
+  for (int i = 0; i < NO; ++i) {
+    const int r = orow[i];
     if (r >= nrows) continue;
     const int row = r0 + r, c = row / G, g = row % G;
     const float inv = 1.f / fmaxf(sL[r], 1e-30f);
-    o[(((size_t)b * C + c) * H + kh * G + g) * D + d] =
-        from_f32<T>(acc[i] * inv);
+    store_f32(o, (((size_t)b * C + c) * H + kh * G + g) * D + ocol[i],
+              o_bf16, acc[i] * inv);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* bt, const int* pos, void* o, int B, int C,
-                   int H, int KH, int block_len, int nbt, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *bt, *pos;
+  void* o;
+  int q_bf16, o_bf16, B, C, H, KH, block_len, nbt, window;
+  float softcap, scale;
+  cudaStream_t stream;
+};
+
+template <typename S, int D>
+cudaError_t launch(const Args& a) {
   constexpr size_t smem = smem_bytes<D>();
   // the shared-memory limit is a per-device attribute of the kernel: set
   // it on the first launch on each device, not on every launch
@@ -277,39 +389,35 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!ready[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(paged_fwd_kernel<T, D>,
+    err = cudaFuncSetAttribute(paged_fwd_kernel<S, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     ready[dev].store(true, std::memory_order_release);
   }
-  const int rows = C * (H / KH);
-  dim3 grid(KH, B, (rows + RC - 1) / RC);
-  paged_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, pos, static_cast<T*>(o), C, H, KH,
-      block_len, nbt, window, softcap, scale);
+  const int rows = a.C * (a.H / a.KH);
+  dim3 grid(a.KH, a.B, (rows + RC - 1) / RC);
+  paged_fwd_kernel<S, D><<<grid, NT, smem, a.stream>>>(
+      a.q, static_cast<const char*>(a.kp), static_cast<const char*>(a.vp),
+      a.ks, a.vs, a.bt, a.pos, a.o, a.q_bf16, a.o_bf16, a.C, a.H, a.KH,
+      a.block_len, a.nbt, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
-                       const int* bt, const int* pos, void* o, int B, int C,
-                       int H, int KH, int D, int block_len, int nbt,
-                       int window, float softcap, float scale,
-                       cudaStream_t stream) {
+// the head dims the kernel is built for: every one a config of the
+// repository uses
+template <typename S>
+cudaError_t dispatch_d(const Args& a, int D) {
   switch (D) {
-    case 32:
-      return launch<T, 32>(q, kp, vp, bt, pos, o, B, C, H, KH, block_len,
-                           nbt, window, softcap, scale, stream);
-    case 64:
-      return launch<T, 64>(q, kp, vp, bt, pos, o, B, C, H, KH, block_len,
-                           nbt, window, softcap, scale, stream);
-    case 128:
-      return launch<T, 128>(q, kp, vp, bt, pos, o, B, C, H, KH, block_len,
-                            nbt, window, softcap, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch<S, 16>(a);
+    case 24: return launch<S, 24>(a);
+    case 32: return launch<S, 32>(a);
+    case 64: return launch<S, 64>(a);
+    case 96: return launch<S, 96>(a);
+    case 112: return launch<S, 112>(a);
+    case 128: return launch<S, 128>(a);
+    case 256: return launch<S, 256>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -317,28 +425,33 @@ cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// q_dtype, out_dtype: 0 = float32, 1 = bfloat16.  kv_dtype (pools):
+// 0 = float32, 1 = bfloat16, or 2 = int8, 3 = fp8 e4m3 with f32
+// k_scale/v_scale (null otherwise).  Returns cudaGetLastError().
 int paged_attention_fwd(const void* q, const void* k_pool,
-                        const void* v_pool, const void* block_table,
-                        const void* pos, void* o, int dtype, int B, int C,
-                        int H, int KH, int D, int block_len, int nbt,
-                        int window, float softcap, float scale,
-                        void* stream) {
+                        const void* v_pool, const void* k_scale,
+                        const void* v_scale, const void* block_table,
+                        const void* pos, void* o, int q_dtype, int kv_dtype,
+                        int out_dtype, int B, int C, int H, int KH, int D,
+                        int block_len, int nbt, int window, float softcap,
+                        float scale, void* stream) {
+  const bool quant = kv_dtype == 2 || kv_dtype == 3;
   if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || block_len <= 0 ||
-      nbt <= 0)
+      nbt <= 0 || q_dtype < 0 || q_dtype > 1 || out_dtype < 0 ||
+      out_dtype > 1 || quant != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* ps = static_cast<const int*>(pos);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(q, k_pool, v_pool, bt, ps, o, B, C, H, KH,
-                                  D, block_len, nbt, window, softcap, scale,
-                                  s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k_pool, v_pool, bt, ps, o, B, C,
-                                          H, KH, D, block_len, nbt, window,
-                                          softcap, scale, s);
-  return (int)cudaErrorInvalidValue;
+  Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(block_table), static_cast<const int*>(pos),
+         o, q_dtype, out_dtype, B, C, H, KH, block_len, nbt, window,
+         softcap, scale, static_cast<cudaStream_t>(stream)};
+  switch (kv_dtype) {
+    case 0: return (int)dispatch_d<float>(a, D);
+    case 1: return (int)dispatch_d<__nv_bfloat16>(a, D);
+    case 2: return (int)dispatch_d<int8_t>(a, D);
+    case 3: return (int)dispatch_d<fp8_e4m3>(a, D);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* paged_attention_error_string(int err) {

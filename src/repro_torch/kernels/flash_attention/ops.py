@@ -28,7 +28,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# the head dims csrc/flash_attention.cu is built for (dispatch_d)
+_HEAD_DIMS = (16, 24, 32, 64, 96, 112, 128, 256)
 _fn = None
 
 

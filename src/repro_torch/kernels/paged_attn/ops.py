@@ -1,20 +1,29 @@
 """Public wrapper of the paged-attention kernel (decode; C-query chunks).
 
 Replaces ``repro.kernels.paged_attn.kernel.paged_attention_bhgd`` (the
-Pallas TPU kernel ``_paged_kernel``, unquantized branch) behind the
-signature of ``repro.kernels.paged_attn.ops.paged_decode_attention``.
-The CUDA source is ``csrc/paged_attn.cu``; its header says what bounds
-it on the H100 (memory: every visible K/V row read once) and what the
-design does about it.
+Pallas TPU kernel ``_paged_kernel``, both branches) behind the signature
+of ``repro.kernels.paged_attn.ops.paged_decode_attention``.  The CUDA
+source is ``csrc/paged_attn.cu``; its header says what bounds it on the
+H100 (memory: every visible K/V row read once) and what the design does
+about it.
 
 ``layers.attention_decode`` calls this after inserting the chunk's k/v
 into the pool.  The engine keeps every table entry a valid pool row
 (trash block 0 for unallocated tail entries) and ``pos + C - 1`` inside
 the table, which ``layers.paged_insert`` checks when it writes.
 
+q, the pools and the output are each float32 or bfloat16 (a ``bf16`` or
+``fp32`` cache policy may differ from the model's dtype).  Quantized
+pools (int8 or fp8 e4m3 rows under a ``quant.CachePolicy``) come with
+their f32 ``k_scale``/``v_scale`` pools (n_blocks, block_len, KH), read
+through the same table; the kernel dequantizes each row in registers.
+``out_dtype`` names the output's dtype: the pools' by default, as in the
+reference, and required for quantized pools.
+
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises — nothing falls back.  ``LAUNCHES``
-counts kernel launches, so a run can show the path went through it.
+counts launches over unquantized pools and ``LAUNCHES_QUANT`` over
+quantized ones, so a run can show which branch the path went through.
 """
 from __future__ import annotations
 
@@ -27,8 +36,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
 LAUNCHES = 0
+LAUNCHES_QUANT = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+_POOL_DTYPES = {**_DTYPES, **_QUANT_DTYPES}
+# the head dims csrc/paged_attn.cu is built for (dispatch_d)
+_HEAD_DIMS = (16, 24, 32, 64, 96, 112, 128, 256)
 _fn = None
 
 
@@ -37,7 +50,7 @@ def _kernel():
     if _fn is None:
         lib = _build.library("paged_attn")
         fn = lib.paged_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
@@ -46,7 +59,10 @@ def _kernel():
     return _fn
 
 
-def _check_inputs(q, k_pool, v_pool, block_table, pos):
+def _check_inputs(q, k_pool, v_pool, block_table, pos, k_scale, v_scale,
+                  out_dtype):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"expected q (B,C,H,D) and pools (n_blocks,bl,KH,D) "
                          f"of one shape, got {tuple(q.shape)}, "
@@ -62,48 +78,88 @@ def _check_inputs(q, k_pool, v_pool, block_table, pos):
                          f"got {tuple(block_table.shape)}, {tuple(pos.shape)}")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("block_table and pos must be int32")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype) \
-            or q.dtype not in _DTYPES:
-        raise TypeError(f"q and the pools must share a float32 or bfloat16 "
-                        f"dtype, got {q.dtype}, {k_pool.dtype}, "
+    if q.dtype not in _DTYPES or out_dtype not in (None, *_DTYPES):
+        raise TypeError(f"q and out_dtype must be float32 or bfloat16, got "
+                        f"{q.dtype}, {out_dtype}")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"the pools differ in dtype: {k_pool.dtype}, "
                         f"{v_pool.dtype}")
-    devs = {t.device for t in (q, k_pool, v_pool, block_table, pos)}
+    ts = [q, k_pool, v_pool, block_table, pos]
+    if k_scale is None:
+        if k_pool.dtype not in _DTYPES:
+            raise TypeError(f"pools without scales must be float32 or "
+                            f"bfloat16, got {k_pool.dtype}")
+    else:
+        if k_pool.dtype not in _QUANT_DTYPES:
+            raise TypeError(f"scaled pools must be int8 or float8_e4m3fn, "
+                            f"got {k_pool.dtype}")
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if s.dtype != torch.float32 or s.shape != k_pool.shape[:3]:
+                raise ValueError(f"{name} must be float32 of shape "
+                                 f"{tuple(k_pool.shape[:3])}, got {s.dtype} "
+                                 f"{tuple(s.shape)}")
+        if out_dtype is None:
+            raise ValueError("out_dtype is required for quantized pools")
+        ts += [k_scale, v_scale]
+    devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"all inputs must lie on one device, got {devs}")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
-                           window: int = 0, softcap: float = 0.0):
+                           window: int = 0, softcap: float = 0.0,
+                           k_scale=None, v_scale=None, out_dtype=None):
     """q: (B, C, H, D); pools: (n_blocks, block_len, KH, D);
     block_table: (B, nbt) int32; pos: (B,) int32 position of the FIRST
-    query (queries are consecutive) -> (B, C, H, D).  Scale 1/sqrt(D).
+    query (queries are consecutive) -> (B, C, H, D) in ``out_dtype``
+    (default: the pools' dtype).  Scale 1/sqrt(D).
+    ``k_scale``/``v_scale``: f32 (n_blocks, block_len, KH) for int8/fp8
+    pools, which need ``out_dtype``.
     """
-    global LAUNCHES
-    _check_inputs(q, k_pool, v_pool, block_table, pos)
+    global LAUNCHES, LAUNCHES_QUANT
+    _check_inputs(q, k_pool, v_pool, block_table, pos, k_scale, v_scale,
+                  out_dtype)
+    quantized = k_scale is not None
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_table, pos,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   k_scale=k_scale, v_scale=v_scale,
+                                   out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
-    ts = (q, k_pool, v_pool, block_table, pos)
+    ts = (q, k_pool, v_pool, block_table, pos) + (
+        (k_scale, v_scale) if quantized else ())
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_decode_attention: the kernel reads pool rows "
-                         "with 16-byte loads; pools must be 16-byte aligned")
     B, C, H, D = q.shape
     bl, KH = k_pool.shape[1], k_pool.shape[2]
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: head dim {D} not in "
                          f"{_HEAD_DIMS}")
+    # the kernel reads a pool row with 16-byte loads, or 8-byte ones
+    # where a row is not a multiple of 16 bytes (csrc: row_load_bytes)
+    row_bytes = D * k_pool.element_size()
+    vb = 16 if row_bytes % 16 == 0 else 8
+    if k_pool.data_ptr() % vb or v_pool.data_ptr() % vb:
+        raise ValueError(f"paged_decode_attention: the kernel reads pool "
+                         f"rows with {vb}-byte loads; pools must be "
+                         f"{vb}-byte aligned")
+    out = torch.empty(q.shape, dtype=out_dtype or v_pool.dtype,
+                      device=q.device)
     fn, err_str = _kernel()
-    out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr() if quantized else None,
+             v_scale.data_ptr() if quantized else None,
              block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], B, C, H, KH, D, bl, block_table.shape[1],
-             int(window), float(softcap), 1.0 / math.sqrt(D),
+             _DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype],
+             _DTYPES[out.dtype], B, C, H, KH, D, bl,
+             block_table.shape[1], int(window), float(softcap),
+             1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention", err_str)
-    LAUNCHES += 1
+    if quantized:
+        LAUNCHES_QUANT += 1
+    else:
+        LAUNCHES += 1
     return out

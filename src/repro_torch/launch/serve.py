@@ -11,6 +11,8 @@ features run; the reference's other flags are accepted and refused with
       --variant reduced --device cpu --mixed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --variant full --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --variant full --paged --kv-dtype int8 --check-unquantized
 """
 from __future__ import annotations
 
@@ -40,8 +42,6 @@ _NOT_PORTED = [
     ("--speculate", {"action": "store_true"}),
     ("--n-draft", {"type": int, "default": 0}),
     ("--check-unspeculated", {"action": "store_true"}),
-    ("--kv-dtype", {"default": ""}),
-    ("--check-unquantized", {"action": "store_true"}),
 ]
 
 
@@ -75,9 +75,18 @@ def parse_args(argv=None):
     ap.add_argument("--eager-blocks", action="store_true",
                     help="paged engine: reserve a request's worst-case "
                          "blocks at admission instead of lazily")
+    ap.add_argument("--kv-dtype", default="",
+                    choices=["", "fp32", "bf16", "fp8", "int8"],
+                    help="KV-cache storage policy: int8/fp8 quantize cache "
+                         "rows with per-position scales (models/quant.py)")
+    ap.add_argument("--check-unquantized", action="store_true",
+                    help="replay the same traffic at full precision and "
+                         "fail unless greedy completions match")
     for flag, kw in _NOT_PORTED:
         ap.add_argument(flag, help="not ported yet", **kw)
     args = ap.parse_args(argv)
+    if args.check_unquantized and args.kv_dtype not in ("int8", "fp8"):
+        ap.error("--check-unquantized requires a quantized --kv-dtype")
     for flag, kw in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) != kw.get("default",
                                                               False):
@@ -101,15 +110,21 @@ def main(argv=None):
     params = M.init_params(cfg, generator=gen)
     kw = dict(n_slots=args.slots, max_len=max_len, sampler=Greedy(),
               seg_len=args.seg_len, device=device)
-    if args.paged:
-        engine = PagedServeEngine(params, cfg, block_len=args.block_len,
-                                  n_blocks=args.blocks or None,
-                                  lazy=not args.eager_blocks, **kw)
-    else:
-        engine = ServeEngine(params, cfg, **kw)
-    for p, g in lengths:
-        engine.submit({"tokens": rng.integers(0, cfg.vocab_size, (1, p))},
-                      max_new=g)
+
+    def make_engine(kv_dtype):
+        if args.paged:
+            eng = PagedServeEngine(params, cfg, block_len=args.block_len,
+                                   n_blocks=args.blocks or None,
+                                   lazy=not args.eager_blocks,
+                                   kv_dtype=kv_dtype, **kw)
+        else:
+            eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, **kw)
+        for prompt, (_, g) in zip(prompts, lengths):
+            eng.submit({"tokens": prompt}, max_new=g)
+        return eng
+
+    prompts = [rng.integers(0, cfg.vocab_size, (1, p)) for p, _ in lengths]
+    engine = make_engine(args.kv_dtype)
     if device.type == "cuda":
         # build (or load) the kernels before the clock starts, so the
         # tok/s below times serving, not nvcc
@@ -138,8 +153,24 @@ def main(argv=None):
               f"preemptions={st['preemptions']} "
               f"(free after drain: {engine.alloc.n_free}, "
               f"read path: {read_path})")
+    if args.kv_dtype:
+        cache_bytes = (M.paged_cache_nbytes(cfg, args.slots, engine.n_blocks,
+                                            engine.block_len,
+                                            policy=engine.policy)
+                       if args.paged else
+                       M.cache_nbytes(cfg, args.slots, max_len,
+                                      policy=engine.policy))
+        print(f"kv-dtype: {args.kv_dtype} cache_bytes={cache_bytes}")
     first = comps[min(comps)]
     print("sample:", first.tokens[:16])
+    if args.check_unquantized:
+        want = {u: c.tokens.tolist() for u, c in make_engine("").run().items()}
+        got = {u: c.tokens.tolist() for u, c in comps.items()}
+        if got != want:
+            raise SystemExit(f"{args.kv_dtype} completions diverged from "
+                             f"full precision: {got} != {want}")
+        print(f"check-unquantized: {args.kv_dtype} completions match full "
+              f"precision")
     return comps
 
 

@@ -1,7 +1,7 @@
 """Core neural layers of the port: norms, RoPE, GQA attention, MLPs.
 
-Counterpart of ``repro.models.layers`` (GQA parts; MLA and the quantized
-KV branch are not ported yet).  Pure functions over explicit parameter
+Counterpart of ``repro.models.layers`` (GQA parts, with the quantized KV
+cache; MLA is not ported yet).  Pure functions over explicit parameter
 dicts with the reference's keys and ``(in, out)`` weight matrices, used
 as ``x @ W``.  Attention has two execution paths:
 
@@ -13,7 +13,11 @@ as ``x @ W``.  Attention has two execution paths:
   attention for the block-paged decode cache.
 
 Where the reference returns an updated cache, the port writes the
-cache tensors in place and returns the same objects.
+cache tensors in place and returns the same objects.  Matrix products go
+through ``mm``, which promotes mixed dtypes as JAX does: a ``bf16`` or
+``fp32`` cache policy other than the model's dtype hands attention
+outputs in the cache's dtype to the output projection, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import quant
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1.0e30
@@ -61,6 +66,15 @@ def embed_init(generator, shape, dtype=torch.float32):
     t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=dev)
     return (t * 0.02).to(dtype)
+
+
+def mm(a, b):
+    """``a @ b``, both operands first promoted to their common dtype
+    (torch refuses mixed dtypes where JAX promotes)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +257,9 @@ def init_attention(generator, cfg: ModelConfig, dtype, lead=()):
 def attention_qkv(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, Dh)
-    k = (x @ p["wk"]).reshape(B, S, KH, Dh)
-    v = (x @ p["wv"]).reshape(B, S, KH, Dh)
+    q = mm(x, p["wq"]).reshape(B, S, H, Dh)
+    k = mm(x, p["wk"]).reshape(B, S, KH, Dh)
+    v = mm(x, p["wv"]).reshape(B, S, KH, Dh)
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q)
         k = apply_norm(p["k_norm"], k)
@@ -270,7 +284,15 @@ def attention_full(p, cfg: ModelConfig, x, positions, *, window: int,
             k_chunk=cfg.attn_chunk_k,
             skip_masked_chunks=cfg.attn_skip_masked_chunks)
     B, S = x.shape[:2]
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    return mm(out.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def paged_rows(block_table, pos, block_len: int):
+    """(block ids, offsets), each (B, C), of logical positions ``pos``
+    (B, C) under (B, nbt) block tables: where ``paged_insert`` writes."""
+    bidx = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    blk = block_table[bidx, torch.div(pos, block_len, rounding_mode="floor")]
+    return blk, pos % block_len
 
 
 def paged_insert(pool, block_table, pos, entry):
@@ -285,10 +307,8 @@ def paged_insert(pool, block_table, pos, entry):
     ``pos // block_len`` must stay inside the table: indexing raises
     there, where the reference's gathers would clamp.  Returns ``pool``.
     """
-    bl = pool.shape[1]
-    bidx = torch.arange(pos.shape[0], device=pos.device)[:, None]
-    blk = block_table[bidx, torch.div(pos, bl, rounding_mode="floor")]
-    pool[blk, pos % bl] = entry.to(pool.dtype)
+    blk, off = paged_rows(block_table, pos, pool.shape[1])
+    pool[blk, off] = entry.to(pool.dtype)
     return pool
 
 
@@ -315,7 +335,13 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
 
     All C k/v entries are written into the cache first, then the C
     queries attend over the updated view with per-query causal (and
-    window) masking.  ``cache`` is the layer's ``{"k", "v"}`` dict.
+    window) masking.  ``cache`` is the layer's ``{"k", "v"}`` dict, plus
+    ``{"k_scale", "v_scale"}`` under a quantized ``CachePolicy``: k/v
+    are then quantized at write time (so the same tokens always give the
+    same block bytes), the gather path dequantizes the attended view to
+    x's dtype, and the kernel takes the scales and dequantizes each row
+    in registers.  Attention over the prompt (prefill) never sees the
+    quantized cache.
 
     Contiguous (``block_table=None``): caches (B,Smax,KH,Dh), written at
     ``pos``.  Paged: caches are block pools (n_blocks,block_len,KH,Dh),
@@ -325,15 +351,29 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
     """
     B, C = x.shape[:2]
     q, k, v = attention_qkv(p, cfg, x, pos)
+    quantized = "k_scale" in cache
+    new = {"k": k, "v": v}
+    if quantized:
+        # k and v in one call (half the launches): the arithmetic is per
+        # row, so codes and scales are those of two calls
+        codes, scales = quant.quantize(torch.stack([k, v]),
+                                       quant.kv_dtype_of_leaf(cache["k"]))
+        new = {"k": codes[0], "v": codes[1], "k_scale": scales[0],
+               "v_scale": scales[1]}
     if block_table is None:
         bidx = torch.arange(B, device=x.device)[:, None]
-        cache["k"][bidx, pos] = k.to(cache["k"].dtype)
-        cache["v"][bidx, pos] = v.to(cache["v"].dtype)
+        for key, val in new.items():
+            cache[key][bidx, pos] = val.to(cache[key].dtype)
         kg, vg = cache["k"], cache["v"]
+        if quantized:
+            kg = quant.dequantize(kg, cache["k_scale"], x.dtype)
+            vg = quant.dequantize(vg, cache["v_scale"], x.dtype)
     else:
         wt = block_table if write_table is None else write_table
-        paged_insert(cache["k"], wt, pos, k)
-        paged_insert(cache["v"], wt, pos, v)
+        # paged_insert for each leaf, the pool rows found once
+        blk, off = paged_rows(wt, pos, cache["k"].shape[1])
+        for key, val in new.items():
+            cache[key][blk, off] = val.to(cache[key].dtype)
         if paged_read_path(cfg) == "kernel":
             # chunk positions are consecutive per slot, so the kernel
             # takes the first query's position and derives the rest
@@ -341,15 +381,22 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
             out = pa_ops.paged_decode_attention(
                 q, cache["k"], cache["v"], block_table,
                 pos[:, 0].contiguous(), window=window,
-                softcap=cfg.attn_logit_softcap)
-            return out.reshape(B, C, -1) @ p["wo"], cache
+                softcap=cfg.attn_logit_softcap,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                out_dtype=x.dtype if quantized else None)
+            return mm(out.reshape(B, C, -1), p["wo"]), cache
         kg = paged_gather(cache["k"], block_table)
         vg = paged_gather(cache["v"], block_table)
+        if quantized:
+            kg = quant.dequantize(
+                kg, paged_gather(cache["k_scale"], block_table), x.dtype)
+            vg = quant.dequantize(
+                vg, paged_gather(cache["v_scale"], block_table), x.dtype)
     Smax = kg.shape[1]
     k_pos = torch.arange(Smax, device=x.device)[None, :].expand(B, Smax)
     out = decode_attention(q, kg, vg, pos, k_pos, window=window,
                            softcap=cfg.attn_logit_softcap)
-    return out.reshape(B, C, -1) @ p["wo"], cache
+    return mm(out.reshape(B, C, -1), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +425,7 @@ def _act(cfg: ModelConfig, x):
 
 def apply_mlp(p, cfg: ModelConfig, x):
     if "wi_gate" in p:
-        h = _act(cfg, x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = _act(cfg, mm(x, p["wi_gate"])) * mm(x, p["wi_up"])
     else:
-        h = _act(cfg, x @ p["wi"])
-    return h @ p["wo"]
+        h = _act(cfg, mm(x, p["wi"]))
+    return mm(h, p["wo"])

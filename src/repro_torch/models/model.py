@@ -29,9 +29,12 @@ and (n_layers, B, K-1, conv_dim).  Paged cache: the sequence-carrying
 leaves as block pools (n_groups, n_blocks, block_len, KH, Dh), where
 block id b is row b of every pool and block 0 is the trash block;
 leaves without a sequence axis (the ssm state and conv tail) keep one
-row per slot.  Decode writes these tensors in place (the reference
-returns new ones); the functions still return the cache so call sites
-read the same.
+row per slot.  Under a quantized ``quant.CachePolicy`` (int8 or fp8) the
+attention leaves are stored at the policy's dtype beside f32
+``k_scale``/``v_scale`` siblings without the head-dim axis; the ssm
+state and conv tail opt out, as in the reference.  Decode writes these
+tensors in place (the reference returns new ones); the functions still
+return the cache so call sites read the same.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -278,9 +281,9 @@ def _embed(params, cfg: ModelConfig, tokens):
 def _head(params, cfg: ModelConfig, h):
     """LM head; logits in f32."""
     if cfg.tie_embeddings:
-        logits = h @ params["embed"].T
+        logits = layers.mm(h, params["embed"].T)
     else:
-        logits = h @ params["lm_head"]
+        logits = layers.mm(h, params["lm_head"])
     logits = logits.float()
     if cfg.final_logit_softcap:
         logits = layers._softcap(logits, cfg.final_logit_softcap)
@@ -410,12 +413,33 @@ def prefill(params, cfg: ModelConfig, batch):
     return _head(params, cfg, h[:, -1:])[:, 0], caches
 
 
-def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device):
+def _attn_cache_struct(cfg: ModelConfig, lead, B: int, S: int, *, device,
+                       policy=None):
+    """One stacked attention cache entry: ``{"k", "v"}`` of shape
+    (*lead, B, S, KH, Dh) at the policy's storage dtype, plus float32
+    ``k_scale``/``v_scale`` of shape (*lead, B, S, KH) under a quantized
+    policy (one scale per written row and kv head)."""
+    pol = policy or quant.CachePolicy()
+    sd = pol.storage_dtype(_dtype(cfg))
+    shape = tuple(lead) + (B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    c = {key: torch.zeros(shape, dtype=sd, device=device)
+         for key in ("k", "v")}
+    if pol.quantized:
+        for key in list(c):
+            c[quant.scale_name(key)] = torch.zeros(
+                shape[:-1], dtype=torch.float32, device=device)
+    return c
+
+
+def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
+                      policy=None):
     """Zeroed contiguous cache for ``decode_step`` (capacity S): per
-    sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh); for the
-    ssm family the recurrent ``state`` (n_layers, B, H, P, N) in f32 and
-    the ``conv`` tail (n_layers, B, K-1, conv_dim), which have no
-    sequence axis."""
+    sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh) (with
+    ``k_scale``/``v_scale`` under a quantized ``policy``); for the ssm
+    family the recurrent ``state`` (n_layers, B, H, P, N) in f32 and the
+    ``conv`` tail (n_layers, B, K-1, conv_dim), which have no sequence
+    axis and ignore the policy: they are read whole every step, so
+    quantizing them buys little and costs accuracy."""
     _check_decode(cfg)
     if cfg.arch_type == "ssm":
         L = cfg.n_layers
@@ -426,10 +450,9 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device):
                                  device=device),
             "conv": torch.zeros((L, B, cfg.ssm_conv - 1, conv_dim),
                                 dtype=_dtype(cfg), device=device)}}
-    shape = (_n_groups(cfg), B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"blocks": {
-        f"sub{i}": {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-                    "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+        f"sub{i}": _attn_cache_struct(cfg, (_n_groups(cfg),), B, S,
+                                      device=device, policy=policy)
         for i in range(cfg.layers_per_scan)}}
 
 
@@ -505,19 +528,25 @@ def _axis_diff(a, b):
     return _map(axis, a, b)
 
 
-def decode_cache_batch_axes(cfg: ModelConfig):
+def decode_cache_batch_axes(cfg: ModelConfig, policy=None):
     """Tree of the batch-axis index of every decode-cache leaf,
-    discovered by diffing two meta caches that differ only in B."""
-    return _axis_diff(init_decode_cache(cfg, 2, 8, device="meta"),
-                      init_decode_cache(cfg, 3, 8, device="meta"))
+    discovered by diffing two meta caches that differ only in B.
+    ``policy`` must be the cache's: quantized policies add scale
+    leaves."""
+    return _axis_diff(init_decode_cache(cfg, 2, 8, device="meta",
+                                        policy=policy),
+                      init_decode_cache(cfg, 3, 8, device="meta",
+                                        policy=policy))
 
 
-def decode_cache_seq_axes(cfg: ModelConfig):
+def decode_cache_seq_axes(cfg: ModelConfig, policy=None):
     """Tree of the sequence-axis index of every decode-cache leaf, or -1
     for leaves with no growing sequence axis (the ssm state and conv
     tail): exactly the leaves that stay slot-resident when paged."""
-    return _axis_diff(init_decode_cache(cfg, 2, 8, device="meta"),
-                      init_decode_cache(cfg, 2, 16, device="meta"))
+    return _axis_diff(init_decode_cache(cfg, 2, 8, device="meta",
+                                        policy=policy),
+                      init_decode_cache(cfg, 2, 16, device="meta",
+                                        policy=policy))
 
 
 def _leaves(tree):
@@ -535,21 +564,54 @@ def has_paged_leaves(cfg: ModelConfig) -> bool:
 
 
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int,
-                     block_len: int, *, device):
+                     block_len: int, *, device, policy=None):
     """Block-paged decode cache.  Sequence-carrying leaves become pools:
     the contiguous (stacked..., B, S, ...) leaf turns into (stacked...,
-    n_blocks, block_len, ...), block id b being row b of every pool.
-    Leaves with no sequence axis (the ssm state and conv tail) keep a
-    batch axis of ``n_slots``.  Block 0 is the trash block: never
-    allocated, it absorbs the writes of finished slots."""
-    pool = init_decode_cache(cfg, n_blocks, block_len, device="meta")
-    slotted = init_decode_cache(cfg, n_slots, block_len, device="meta")
+    n_blocks, block_len, ...), block id b being row b of every pool (the
+    scale leaves of a quantized ``policy`` too).  Leaves with no sequence
+    axis (the ssm state and conv tail) keep a batch axis of ``n_slots``.
+    Block 0 is the trash block: never allocated, it absorbs the writes of
+    finished slots."""
+    pool = init_decode_cache(cfg, n_blocks, block_len, device="meta",
+                             policy=policy)
+    slotted = init_decode_cache(cfg, n_slots, block_len, device="meta",
+                                policy=policy)
 
     def make(p, s, ax):
         t = p if ax >= 0 else s
         return torch.zeros(t.shape, dtype=t.dtype, device=device)
 
-    return _map(make, pool, slotted, decode_cache_seq_axes(cfg))
+    return _map(make, pool, slotted, decode_cache_seq_axes(cfg, policy))
+
+
+def match_cache_policy(template, sub):
+    """Re-structure a full-precision cache ``sub`` to the (possibly
+    quantized) ``template``'s policy: data leaves with a ``_scale``
+    sibling in the template are quantized along their trailing feature
+    axis (write-time scales); everything else passes through.  Returns
+    ``sub`` itself for unquantized templates."""
+    pol = quant.policy_of(template)
+    if not pol.quantized:
+        return sub
+
+    def walk(tmpl, src):
+        if not isinstance(tmpl, dict):
+            return src
+        out = {}
+        for key, tval in tmpl.items():
+            if quant.is_scale_key(key):
+                continue
+            if isinstance(tval, dict):
+                out[key] = walk(tval, src[key])
+            elif quant.scale_name(key) in tmpl:
+                q, s = quant.quantize(src[key], pol.kv_dtype)
+                out[key] = q
+                out[quant.scale_name(key)] = s
+            else:
+                out[key] = src[key]
+        return out
+
+    return walk(template, sub)
 
 
 def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, slot: int,
@@ -559,8 +621,14 @@ def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, slot: int,
     cache, in place: prompt block i lands in pool block ``ids[i]``, and
     slot-resident leaves in batch row ``slot``, overwritten whole.
     ``mask`` is False for blocks whose content is already pooled (prefix
-    sharing); their writes go to the trash block 0 instead."""
+    sharing); their writes go to the trash block 0 instead.
+
+    ``sub`` is always the full-precision graft: under a quantized policy
+    its KV leaves are quantized here, once, so a block's bytes are a pure
+    function of its tokens, which prefix sharing relies on."""
     _check_decode(cfg)
+    pol = quant.policy_of(paged_cache)
+    sub = match_cache_policy(paged_cache, sub)
     ids = torch.as_tensor(ids, dtype=torch.long)
     mask = torch.as_tensor(mask, dtype=torch.bool)
     ids_eff = torch.where(mask, ids, torch.zeros_like(ids))
@@ -576,8 +644,28 @@ def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, slot: int,
         dst[:, ids_eff.to(dst.device)] = s.to(dst.dtype)
         return dst
 
-    return _map(put, paged_cache, sub, decode_cache_batch_axes(cfg),
-                decode_cache_seq_axes(cfg))
+    return _map(put, paged_cache, sub, decode_cache_batch_axes(cfg, pol),
+                decode_cache_seq_axes(cfg, pol))
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def cache_nbytes(cfg: ModelConfig, B: int, S: int, policy=None) -> int:
+    """Bytes of a contiguous (B, S) decode cache, summed per leaf at its
+    own itemsize (a quantized cache mixes int8/fp8 KV with f32 scales).
+    Allocates nothing."""
+    return _nbytes(init_decode_cache(cfg, B, S, device="meta",
+                                     policy=policy))
+
+
+def paged_cache_nbytes(cfg: ModelConfig, n_slots: int, n_blocks: int,
+                       block_len: int, policy=None) -> int:
+    """Bytes of the paged cache: block pools + slot-resident leaves,
+    summed per leaf at its own itemsize.  Allocates nothing."""
+    return _nbytes(init_paged_cache(cfg, n_slots, n_blocks, block_len,
+                                    device="meta", policy=policy))
 
 
 # ---------------------------------------------------------------------------

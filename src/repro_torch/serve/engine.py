@@ -24,11 +24,18 @@ has no paged leaves: the paged engine then keeps no block pool, shares
 no prefix and never preempts, and admission overwrites the slot's state
 and conv tail whole, as in the reference.
 
+``kv_dtype`` (``quant.KV_DTYPES``) is the KV cache's storage policy:
+``""`` keeps the parameters' dtype, ``"bf16"``/``"fp32"`` change it,
+``"int8"``/``"fp8"`` quantize each written row with a per-(position,
+kv-head) f32 scale (``models/quant.py``).  Admission grafts the prefill
+at full precision and quantizes it once; prefix keys carry the policy,
+so a quantized pool never shares blocks written under another dtype.
+The ssm family's recurrent state ignores the policy.
+
 Not ported yet, and refused with ``NotImplementedError``: bucketed
 chunked admission (``chunk_len``/``buckets``), speculative decode,
-quantized KV (``kv_dtype``), sharded serving (``mesh``), MoE
-configurations (their decode takes the reference's ``live`` mask) and
-the families not ported yet.  The
+sharded serving (``mesh``), MoE configurations (their decode takes the
+reference's ``live`` mask) and the families not ported yet.  The
 reference's compiled-executable cache has no counterpart: nothing here
 is compiled.
 """
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import quant
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import paged as pg
 from repro_torch.serve.sampling import Greedy
@@ -110,7 +118,6 @@ class ServeEngine:
         for name, val, default in [("chunk_len", chunk_len, None),
                                    ("buckets", buckets, None),
                                    ("speculate", speculate, 0),
-                                   ("kv_dtype", kv_dtype, ""),
                                    ("mesh", mesh, None)]:
             if val != default:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -125,6 +132,8 @@ class ServeEngine:
             raise ValueError(f"params lie on {leaf_dev}, engine device is "
                              f"{self.device}")
         self.params, self.cfg = params, cfg
+        self.kv_dtype = kv_dtype
+        self.policy = quant.CachePolicy(kv_dtype)
         self.n_slots, self.max_len, self.seg_len = n_slots, max_len, seg_len
         self.sampler = sampler if sampler is not None else Greedy()
         self.eos_id = eos_id
@@ -162,7 +171,8 @@ class ServeEngine:
 
     def _init_cache(self) -> None:
         self.cache = M.init_decode_cache(self.cfg, self.n_slots,
-                                         self.max_len, device=self.device)
+                                         self.max_len, device=self.device,
+                                         policy=self.policy)
 
     # -- request intake ----------------------------------------------------
 
@@ -232,7 +242,10 @@ class ServeEngine:
         sub = M.prefill_into_cache(
             self.cfg, M.init_decode_cache(self.cfg, 1, self.max_len,
                                           device=self.device), pc)
-        _scatter_slot_row(self.cache, sub, slot)
+        # graft at full precision, then quantize the whole slot row to
+        # the cache's policy (adds the scale leaves)
+        _scatter_slot_row(self.cache, M.match_cache_policy(self.cache, sub),
+                          slot)
 
     def _release_slot(self, slot: int) -> None:
         self.slot_uid[slot] = -1
@@ -391,7 +404,8 @@ class PagedServeEngine(ServeEngine):
     def _init_cache(self) -> None:
         self.cache = M.init_paged_cache(self.cfg, self.n_slots,
                                         self.n_blocks, self.block_len,
-                                        device=self.device)
+                                        device=self.device,
+                                        policy=self.policy)
 
     # -- admission ---------------------------------------------------------
 
@@ -420,7 +434,8 @@ class PagedServeEngine(ServeEngine):
         n_pb = -(-pos0 // bl)
         if req.plan_keys is None:
             req.plan_keys = (pg.prefix_keys(req.batch, pos0 // bl, bl,
-                                            M.decode_offset(self.cfg))
+                                            M.decode_offset(self.cfg),
+                                            policy=self.kv_dtype)
                              if self.share_prefix else [])
         keys = req.plan_keys
         # lazy admission claims only the prompt's blocks; the rest are

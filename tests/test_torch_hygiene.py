@@ -59,7 +59,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.moe_dispatch.ops, repro_torch.models.moe, "
             "repro_torch.core.merge, repro_torch.core.tuning, "
             "repro_torch.federated.server, repro_torch.models.ssm, "
-            "repro_torch.kernels.ssd_scan.ops; "
+            "repro_torch.kernels.ssd_scan.ops, repro_torch.models.quant; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -99,8 +99,7 @@ def test_launcher_serves_on_the_cpu_when_asked():
 
 
 @pytest.mark.parametrize("kw", [{"chunk_len": 4}, {"buckets": [8, 16]},
-                                {"speculate": 2}, {"kv_dtype": "int8"},
-                                {"mesh": object()}],
+                                {"speculate": 2}, {"mesh": object()}],
                          ids=lambda kw: next(iter(kw)))
 @pytest.mark.parametrize("cls", [ServeEngine, PagedServeEngine])
 def test_unported_engine_options_raise(small, cls, kw):
@@ -110,8 +109,7 @@ def test_unported_engine_options_raise(small, cls, kw):
 
 
 @pytest.mark.parametrize("flag", [["--bucket"], ["--speculate"],
-                                  ["--kv-dtype", "int8"], ["--sharded"],
-                                  ["--temperature", "0.7"]])
+                                  ["--sharded"], ["--temperature", "0.7"]])
 def test_unported_launcher_flags_raise(flag):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -100,12 +100,119 @@ def test_paged_kernel_matches_plain(cuda, C, window, softcap):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 8, 4, 48, device=cuda)  # head dim 48 not built
+    q = torch.zeros(1, 8, 4, 40, device=cuda)  # head dim 40 not built
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
+    pool = torch.zeros(3, 4, 4, 40, device=cuda)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_decode_attention(q[:, :1], pool, pool, bt, pos)
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros(1, 4, 8, 64, device=cuda).transpose(1, 2)
         fa.flash_attention(x, x, x)
+
+
+HEAD_DIMS = (16, 24, 32, 64, 96, 112, 128, 256)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_kernel_takes_every_head_dim(cuda, D):
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn(2, 90, 8, D, generator=g, device=cuda)
+    k, v = (torch.randn(2, 90, 2, D, generator=g, device=cuda)
+            for _ in range(2))
+    out = fa.flash_attention(q, k, v, window=40)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, window=40),
+                               **TOL)
+
+
+def _paged_inputs(cuda, D, C, seed, spread=0.0):
+    """Pools whose rows are N(0,1) times 2^u, u uniform in
+    [-spread, spread] per (position, kv head), less spread."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B, H, KH, n_blocks, bl, nbt = 3, 8, 2, 30, 8, 8
+
+    def rows():
+        u = (torch.rand(n_blocks, bl, KH, 1, generator=g, device=cuda) * 2
+             - 1) * spread - spread
+        return torch.randn(n_blocks, bl, KH, D, generator=g,
+                           device=cuda) * torch.exp2(u)
+    q = 2 * torch.randn(B, C, H, D, generator=g, device=cuda)
+    bt = torch.randint(0, n_blocks, (B, nbt), generator=g, device=cuda,
+                       dtype=torch.int32)
+    pos = torch.randint(0, nbt * bl - C + 1, (B,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    return q, rows(), rows(), bt, pos
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_paged_kernel_takes_every_head_dim(cuda, D):
+    q, kp, vp, bt, pos = _paged_inputs(cuda, D, 2, D)
+    out = pa.paged_decode_attention(q, kp, vp, bt, pos, softcap=30.0)
+    torch.testing.assert_close(
+        out, paged_attention_ref(q, kp, vp, bt, pos, softcap=30.0), **TOL)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_paged_dequant_branch_matches_plain(cuda, kv, D):
+    """Scales spanning 2^8 across rows and heads; the plain version with
+    permuted scales lands far away, so a misplaced scale would fail."""
+    from repro_torch.models import quant
+    q, kr, vr, bt, pos = _paged_inputs(cuda, D, 3, 100 + D, spread=4.0)
+    kp, ks = quant.quantize(kr, kv)
+    vp, vs = quant.quantize(vr, kv)
+    kw = dict(window=20, out_dtype=torch.float32)
+    n0, n0q = pa.LAUNCHES, pa.LAUNCHES_QUANT
+    out = pa.paged_decode_attention(q, kp, vp, bt, pos, k_scale=ks,
+                                    v_scale=vs, **kw)
+    assert (pa.LAUNCHES, pa.LAUNCHES_QUANT) == (n0, n0q + 1)
+    want = paged_attention_ref(q, kp, vp, bt, pos, k_scale=ks, v_scale=vs,
+                               **kw)
+    torch.testing.assert_close(out, want, **TOL)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for ksc, vsc in ((ks.reshape(-1)[torch.randperm(
+            ks.numel(), generator=g, device=cuda)].reshape(ks.shape), vs),
+                     (ks, vs.reshape(-1)[torch.randperm(
+                         vs.numel(), generator=g, device=cuda)].reshape(
+                             vs.shape))):
+        moved = paged_attention_ref(q, kp, vp, bt, pos, k_scale=ksc,
+                                    v_scale=vsc, **kw)
+        assert ((moved - want).norm() / want.norm()).item() > 0.1
+
+
+def test_paged_kernel_mixed_dtypes(cuda):
+    """A bf16 pool under an f32 model (kv_dtype="bf16"), bf16 output by
+    default, and an f32 pool under bf16 q."""
+    q, kp, vp, bt, pos = _paged_inputs(cuda, 64, 1, 5)
+    for qd, pd in ((torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.float32)):
+        args = (q.to(qd), kp.to(pd), vp.to(pd), bt, pos)
+        out = pa.paged_decode_attention(*args)
+        assert out.dtype == pd
+        torch.testing.assert_close(out.float(),
+                                   paged_attention_ref(*args).float(),
+                                   **BF16_TOL)
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8", "bf16"])
+def test_reduced_quantized_engine_on_card_matches_cpu(cuda, kv):
+    """Reduced TinyLlama (f32) with a quantized or bf16 KV pool, served
+    through the kernels on the card, emits the CPU engine's tokens."""
+    cfg = get_config("tinyllama-1.1b", variant="reduced")
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, P)) for P in (9, 30, 17)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = PagedServeEngine(_to(params, dev), cfg, n_slots=2, max_len=64,
+                               block_len=16, seg_len=4, device=dev,
+                               kv_dtype=kv)
+        for pr in prompts:
+            eng.submit({"tokens": pr}, max_new=12)
+        outs[dev] = {u: c.tokens.tolist() for u, c in eng.run().items()}
+    assert outs["cuda"] == outs["cpu"]
 
 
 def test_reduced_engine_on_card_matches_cpu(cuda):
