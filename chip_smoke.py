@@ -13,6 +13,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    cases (MoE: a drop case, transposed operands, gelu, ragged edges;
    SSD scan: ragged, two groups with h0, f32, odd tiles, each also with
    slow decay, where the far pairs and the carried state must show;
+   the bf16 flash kernel (tensor cores) at every head dim 16-256 with a
+   window, a softcap, ragged S, S < 64, S = 1 and GQA ratios 1, 2 and 8,
+   timed at the serve, train and tune shapes and at D 256;
    flash and paged attention at head dims 16, 24, 96, 112 and 256; the
    paged kernel's int8/fp8 dequant branch with scales that vary by row
    and head, where permuted or dropped scales must move the plain
@@ -30,7 +33,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    tokens, 64 new tokens each.  Checks the completions, the allocator,
    the kernels' launch counts on that run, and the kernel path's logits
    against the plain path's;
-5. profile: torch.profiler over one prefill and one decode segment;
+5. profile: torch.profiler over one 1024-token prefill (flash's share
+   read apart) and one decode segment;
 5a. serve_kv: the same model, traffic and engine with the KV pool in
    bf16, int8, fp8 and bf16 again, in turns.  Checks the completions,
    the dequant branch's launches in the quantized runs (22 per decode
@@ -50,7 +54,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run,
-   the kernel path's loss and gradients against the plain path's, and
+   the kernel path's loss and gradients against the plain path's, every
+   layer's flash output on a real batch (q, k, v caught on the path)
+   against the plain version's by the per-element rule, and
    reports ms per step, tokens/s, MFU, peak memory and a profile;
 7. tune: Phase III on Qwen1.5-MoE-A2.7B at full width, 12 of its 24
    layers (bf16, random weights): K = 4 random base models merged by
@@ -826,6 +832,26 @@ def head_dim_cases(gen):
     return flash, paged, quant
 
 
+# every head dim the flash kernel is built for (csrc/flash_attention.cu)
+FLASH_HEAD_DIMS = (16, 24, 32, 64, 96, 112, 128, 256)
+
+
+def flash_bf16_cases(gen):
+    """The bf16 kernel (tensor cores, split P) at every head dim: a window
+    over GQA 1 and a softcap over GQA 2, both at a ragged S; S < 64 over
+    GQA 8; S = 1; a ragged S over GQA 8 with window and softcap."""
+    bf = torch.bfloat16
+    rows = []
+    for D in FLASH_HEAD_DIMS:
+        rows += [flash_case(gen, 1, 200, 8, 8, D, bf, window=50),
+                 flash_case(gen, 2, 97, 8, 4, D, bf, softcap=30.0),
+                 flash_case(gen, 1, 47, 8, 1, D, bf),
+                 flash_case(gen, 2, 1, 4, 4, D, bf),
+                 flash_case(gen, 1, 300, 16, 2, D, bf, window=100,
+                            softcap=50.0)]
+    return rows
+
+
 def quant_cases(gen):
     """The dequant branch at the serve path's shape (8 slots, ctx
     64-1088, H 32 over KH 4, D 64, block_len 16, bf16 out; timed), C = 4,
@@ -849,7 +875,11 @@ def quant_cases(gen):
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
+    # serve/prefill shape first (the kernels line's row), then the train
+    # step's (TinyLlama, batch 4) and the tune step's (Qwen1.5-MoE heads)
     flash = [flash_case(gen, 1, 1024, 32, 4, 64, bf, timed=True),
+             flash_case(gen, 4, 1024, 32, 4, 64, bf, timed=True),
+             flash_case(gen, 4, 1024, 16, 16, 128, bf, timed=True),
              flash_case(gen, 1, 128, 32, 4, 64, bf, timed=True),
              flash_case(gen, 2, 300, 8, 2, 64, bf, window=100),
              flash_case(gen, 1, 200, 4, 4, 64, bf, softcap=30.0),
@@ -863,6 +893,7 @@ def phase_kernels():
              paged_case(gen, [1, 200], 1, 4, 4, 128, 16, f32)]
     pq = quant_cases(gen)
     hd_flash, hd_paged, hd_quant = head_dim_cases(gen)
+    flash += flash_bf16_cases(gen)
     kd = [kd_case(gen, 2048, 2048, 0, 32000, bf, timed=True),
           kd_case(gen, 2048, 2048, 1024, 32000, bf, tau=2.0, timed=True),
           kd_case(gen, 130, 96, 0, 1000, f32),
@@ -1058,7 +1089,8 @@ def phase_profile(params, cfg, prompt, make_engine):
     from repro_torch.models import model as M
     toks = torch.as_tensor(prompt, device="cuda")
     with torch.no_grad():
-        pre = profile(lambda: M.prefill(params, cfg, {"tokens": toks}))
+        pre = profile(lambda: M.prefill(params, cfg, {"tokens": toks}),
+                      groups={"flash_fwd": ("flash_fwd",)})
         eng = make_engine()
         eng.step()        # admits the first 8 requests, runs a segment
         seg = profile(eng.step)  # no slot free: a decode segment only
@@ -1630,6 +1662,41 @@ def _grad_check(M, cfg, params, batch):
     return res
 
 
+def _flash_on_path(M, cfg, params, batch):
+    """Every layer's flash attention on the real batch: q, k and v caught
+    on their way into the kernel in a kernel-path forward, then the
+    kernel's output held to the plain version's by ``check_close``.  The
+    loss check sees the kernel's error only through 22 layers and a sum
+    whose order moves it; this one sees it element by element.  Returns
+    the worst layer's row."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    seen, kernel = [], fa_ops.flash_attention
+
+    def catch(q, k, v, **kw):
+        seen.append((q.detach().clone(), k.detach().clone(),
+                     v.detach().clone(), kw))
+        return kernel(q, k, v, **kw)
+
+    fa_ops.flash_attention = catch
+    try:
+        with torch.no_grad():
+            M.loss_fn(params, cfg, batch)
+    finally:
+        fa_ops.flash_attention = kernel
+    if len(seen) != cfg.n_layers:
+        fail(f"caught {len(seen)} flash calls, not one a layer")
+    rows = []
+    for i, (q, k, v, kw) in enumerate(seen):
+        shape = "x".join(map(str, q.shape))
+        rows.append(check_close(f"train layer {i} flash (q {shape})",
+                                kernel(q, k, v, **kw),
+                                flash_attention_ref(q, k, v, **kw)))
+    worst = max(rows, key=lambda r: r["err_over_limit"])
+    print("train flash on the path " + json.dumps(worst))
+    return worst
+
+
 def phase_train():
     """``train_device`` on full-width TinyLlama-1.1B (bf16, random weights
     from seed 0): 8 steps at batch 4 x 1024 tokens, lr 1e-3, through the
@@ -1687,6 +1754,7 @@ def phase_train():
     batch = {k: v.cuda() for k, v in corpus.device_batch(
         0, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
     check = _grad_check(M, cfg, params, batch)
+    flash_path = _flash_on_path(M, cfg, params, batch)
 
     # step time: one warm-up step, then synchronised steps
     opt = adamw_init(params)
@@ -1736,7 +1804,9 @@ def phase_train():
            "model_tflop_per_step": model_flops / 1e12,
            "n_params": n_params, "peak_mem_gb": peak_gb,
            "loss_grad_ms": ev[0].elapsed_time(ev[1]),
-           "adamw_ms": ev[1].elapsed_time(ev[2]), **check}
+           "adamw_ms": ev[1].elapsed_time(ev[2]),
+           "flash_on_path_err_over_limit": flash_path["err_over_limit"],
+           **check}
     print("train " + json.dumps(res))
     print("profile " + json.dumps({"train_step": prof}))
     return launches

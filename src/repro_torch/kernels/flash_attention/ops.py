@@ -106,6 +106,13 @@ def _flash_fwd(q, k, v, *, causal, window, softcap):
     Sk, KH = k.shape[1], k.shape[2]
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {_HEAD_DIMS}")
+    # the bf16 kernel copies rows with 16-byte cp.async (csrc: cp_async16)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: the bf16 kernel reads "
+                                 f"rows with 16-byte copies; {name} must be "
+                                 f"16-byte aligned")
     fn, err_str = _kernel()
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -7,6 +7,10 @@ machine with one:
 
 f32 inputs, so the kernels are held to 1e-4 (sums in another order);
 ``chip_smoke.py`` covers bf16 at the serve and train paths' shapes.
+The flash kernel's bf16 instance (tensor cores, split P) is held here at
+every head dim, each element within two bf16 ulps of the plain output +
+1e-4, the rule ``chip_smoke.py`` holds it to: both accumulate in f32
+and round once.
 The kd_loss kernel also takes bf16 here: its products are exact in f32,
 so only the summation order differs and 1e-4 holds for it too.  The MoE
 kernels' bf16 outputs (rounded once from f32, as the plain versions
@@ -125,6 +129,74 @@ def test_flash_kernel_takes_every_head_dim(cuda, D):
     out = fa.flash_attention(q, k, v, window=40)
     torch.testing.assert_close(out, flash_attention_ref(q, k, v, window=40),
                                **TOL)
+
+
+def bf16_err_over_limit(out, want):
+    """Largest |out - want| over its limit, two bf16 ulps of |want| +
+    1e-4: the rule ``chip_smoke.py::check_close`` holds bf16 kernels to
+    (``test_torch_flash_numerics.py`` takes it from here)."""
+    out, ref = out.float(), want.float()
+    _, e = torch.frexp(ref)     # |ref| in [2**(e-1), 2**e)
+    ulp = torch.ldexp(torch.full_like(ref, torch.finfo(torch.bfloat16).eps),
+                      e - 1)
+    return ((out - ref).abs() / (2 * ulp + 1e-4)).max().item()
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("B,S,H,KH,window,softcap", [
+    (1, 200, 8, 8, 50, 0.0),     # GQA 1, ragged S, window
+    (2, 97, 8, 4, 0, 30.0),      # GQA 2, softcap
+    (1, 47, 8, 1, 0, 0.0),       # GQA 8, S < 64
+    (2, 1, 4, 4, 0, 0.0)])       # S = 1
+def test_flash_bf16_kernel_matches_plain(cuda, B, S, H, KH, D, window,
+                                         softcap):
+    g = torch.Generator(device=cuda).manual_seed(D + S)
+    q = torch.randn(B, S, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, KH, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    kw = dict(window=window, softcap=softcap)
+    n0 = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    worst = bf16_err_over_limit(out, flash_attention_ref(q, k, v, **kw))
+    assert torch.isfinite(out).all() and worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_flash_bf16_refuses_unaligned_rows(cuda, name):
+    """The bf16 kernel copies rows 16 bytes at a time: a contiguous view
+    one element into its storage is refused by name, before a launch."""
+    qkv = {n: torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=cuda)
+           for n in "qkv"}
+    qkv[name] = torch.zeros(1 + 8 * 4 * 64, dtype=torch.bfloat16,
+                            device=cuda)[1:].view(1, 8, 4, 64)
+    assert qkv[name].is_contiguous()
+    n0 = fa.LAUNCHES
+    with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+        fa.flash_attention(qkv["q"], qkv["k"], qkv["v"])
+    assert fa.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("H,KH,D", [(8, 8, 64), (8, 2, 64), (4, 4, 128)])
+def test_flash_bf16_gradient_is_the_plain_versions(cuda, H, KH, D):
+    """bf16: the forward goes through the kernel, and the backward
+    differentiates the plain version on the saved inputs, so the
+    gradients are the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(2, 130, n, D, generator=g, device=cuda)
+               .bfloat16() for n in (H, KH, KH))
+    dout = torch.randn(2, 130, H, D, generator=g, device=cuda).bfloat16()
+    grads = []
+    for fn in (fa.flash_attention, flash_attention_ref):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = fa.LAUNCHES
+        fn(*qkv, window=70).backward(dout)
+        assert fa.LAUNCHES == n0 + (fn is fa.flash_attention)
+        grads.append([t.grad for t in qkv])
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
 
 
 def _paged_inputs(cuda, D, C, seed, spread=0.0):
