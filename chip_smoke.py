@@ -79,6 +79,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -187,9 +188,27 @@ def phase_build():
           f"{'cached' if info['cached'] else 'built ' + ','.join(info['built'])}"
           f" -> {_build.build_dir()}")
     for stem, report in sorted(info["ptxas"].items()):
+        fn = ""
         for line in report.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                fn = _kernel_label(entry.group(1))
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}: {line.strip()}")
+                print(f"  ptxas {stem} {fn}: {line.strip()}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """A readable label of a mangled kernel name from the anonymous
+    namespace of a ``csrc`` file: the function's name and its template
+    arguments as mangled (``flash_fwd_tc_kernelILi64EE``)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled[:60]
+    start = m.end() + int(m.group(1))
+    name, rest = mangled[m.end():start], mangled[start:]
+    if rest.startswith("I"):
+        name += rest[:rest.find("EE") + 2]
+    return name
 
 
 # ---------------------------------------------------------------------------
@@ -545,19 +564,26 @@ def gmm_case(gen, E, M, K, N, *, ta=False, tb=False, da=torch.float32,
     return row
 
 
-def ffn_case(gen, E, C, D, Fh, dtype, *, act="silu", timed=False):
-    """The grouped-FFN kernel (both stages) against its plain version."""
+def ffn_case(gen, E, C, D, Fh, dtype, *, act="silu", off=None,
+             timed=False):
+    """The grouped-FFN kernel (both stages) against its plain version.
+    ``off`` names an input made a contiguous view one element into its
+    storage (off 16-byte alignment: the kernel loads it element-wise)."""
     from repro_torch.kernels.moe_gemm import ops, ref
-    x = _randn(gen, (E, C, D), dtype)
-    wg, wu = ((torch.randn((E, D, Fh), generator=gen, device="cuda")
-               / D ** 0.5).to(dtype) for _ in range(2))
-    wo = (torch.randn((E, Fh, D), generator=gen, device="cuda")
-          / Fh ** 0.5).to(dtype)
+
+    def draw(name, shape, scale):
+        n = math.prod(shape) + (name == off)
+        t = (torch.randn(n, generator=gen, device="cuda") * scale).to(dtype)
+        return t[int(name == off):].view(shape)
+    x = draw("x", (E, C, D), 1.0)
+    wg, wu = (draw(n, (E, D, Fh), D ** -0.5) for n in ("wg", "wu"))
+    wo = draw("wo", (E, Fh, D), Fh ** -0.5)
     out = ops.grouped_ffn_fwd(x, wg, wu, wo, act=act)
     want = ref.grouped_ffn_ref(x, wg, wu, wo, act=act)
     torch.cuda.synchronize()
     row = check_close(f"grouped_ffn E={E} C={C} D={D} F={Fh} "
-                      f"{str(dtype)[6:]} {act}", out, want)
+                      f"{str(dtype)[6:]} {act}"
+                      + (f" {off} misaligned" if off else ""), out, want)
     if timed:
         actf = F.silu if act == "silu" else (
             lambda t: F.gelu(t, approximate="tanh"))
@@ -639,10 +665,18 @@ def moe_cases(gen):
     """Kernels 4-6 at the tune path's shapes (timed), and edge cases."""
     bf, f32 = torch.bfloat16, torch.float32
     E, C, D, Fh = MOE_E, MOE_CAP, MOE_D, MOE_F
+    # edges of the bf16 tensor-core instance: C = 1, ragged C and F, F
+    # not a multiple of 32, D or F not a multiple of 8 and F odd (the
+    # element-wise loads and stores), misaligned x and wo
     ffn = [ffn_case(gen, E, C, D, Fh, bf, timed=True),
            ffn_case(gen, 3, 70, 96, 200, bf, act="gelu"),
            ffn_case(gen, 2, 130, 100, 136, bf),
-           ffn_case(gen, 3, 33, 64, 72, f32, act="gelu")]
+           ffn_case(gen, 3, 33, 64, 72, f32, act="gelu"),
+           ffn_case(gen, 2, 1, 256, 200, bf),
+           ffn_case(gen, 2, 33, 64, 90, bf),
+           ffn_case(gen, 2, 33, 72, 45, bf, act="gelu"),
+           ffn_case(gen, 2, 130, 256, 200, bf, off="x"),
+           ffn_case(gen, 2, 130, 256, 200, bf, act="gelu", off="wo")]
     # the backward's products at the path's shapes: g = x @ wg, then
     # dwg = x^T @ dg and dh = dy @ wo^T through transposed views
     gmm = [gmm_case(gen, E, C, D, Fh, da=bf, db=bf, timed=True),
@@ -2096,14 +2130,17 @@ def phase_tune():
     b = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
         TUNE_BATCH, TUNE_SEQ, seed_salt=78).items()}
     prof = profile(lambda: step(params, opt, b, scfg.tune_lr), top=12,
-                   groups={"grouped_matmul_and_ffn_stage_b": ("gmm_kernel",),
-                           "ffn_stage_b": ("gmm_kernel<float, "
-                                           "__nv_bfloat16, __nv_bfloat16>",),
-                           "ffn_stage_a": ("ffn_gate_up",),
+                   groups={"grouped_matmul": ("gmm_kernel",),
+                           "ffn_stage_a": ("ffn_gate_up_tc",),
+                           "ffn_stage_b": ("ffn_down_tc",),
                            "gather_scatter_add": ("gsa_kernel",),
                            "kd_loss": ("kd_partial", "kd_merge"),
                            "flash_fwd": ("flash_fwd",)})
     del opt, step
+    silent = [g for g in ("grouped_matmul", "ffn_stage_a", "ffn_stage_b")
+              if not prof["group_ms"][g] > 0]
+    if silent:
+        fail(f"the tune step's profile shows no device time in {silent}")
     n_params = sum(t.numel() for t in tree_leaves(params))
     trainable = sum(map(bool, tree_leaves(mask)))
 

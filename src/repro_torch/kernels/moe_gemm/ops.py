@@ -6,17 +6,21 @@ of ``repro/kernels/moe_gemm/kernel.py`` are replaced by
 what the design does about it):
 
 * ``grouped_ffn_ecd`` (``_ffn_kernel``) by ``grouped_ffn_fwd``: the
-  gated expert FFN over fixed-capacity (E, C, D) buffers, in two stages
-  (h = act(x@wg)·(x@wu) in f32 scratch, then h@wo);
+  gated expert FFN over fixed-capacity (E, C, D) buffers, in two stages.
+  bf16 inputs run both on the tensor cores: h = act(x@wg)·(x@wu) in f32,
+  stored as two bf16 planes hi = bf16(h), lo = bf16(h - hi) (the bytes
+  of one f32 h), then y = lo@wo + hi@wo in f32, rounded once.  f32
+  inputs keep f32 h in scratch and f32 products on the CUDA cores;
 * ``grouped_matmul`` (``_matmul_kernel``) by ``grouped_matmul``:
   per-expert (E, M, K) @ (E, K, N) in f32, operands in bf16 or f32 read
   through their strides, so transposes are views.
 
 A CPU tensor runs the plain versions in ``ref.py``; a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts each wrapper's kernel
-launches; stage B of the FFN reuses the grouped-matmul code inside the
-same C call and counts under ``grouped_ffn`` only, so
-``LAUNCHES["grouped_matmul"]`` counts the backward's products.
+launches; the FFN's two stages are one C call and count once under
+``grouped_ffn`` (its f32 instance's products reuse the grouped-matmul
+code inside that call), so ``LAUNCHES["grouped_matmul"]`` counts the
+backward's products.
 
 ``grouped_ffn`` is a ``torch.autograd.Function`` whose backward is the
 reference's ``_grouped_ffn_bwd``: it recomputes g, u and h and forms the
@@ -110,7 +114,11 @@ def grouped_matmul(a, b, *, out_dtype=torch.float32):
 
 def grouped_ffn_fwd(x, wg, wu, wo, *, act: str = "silu"):
     """x (E, C, D), wg/wu (E, D, F), wo (E, F, D) -> y (E, C, D) in x's
-    dtype, f32 inside.  No gradient: ``grouped_ffn`` carries it."""
+    dtype, f32 sums inside, one rounding at the end.  The hidden h lies
+    between the stages in a scratch of 4·E·C·F bytes: two bf16 planes
+    (hi, lo) for bf16 inputs, f32 h for f32.  Any alignment and any D
+    and F are taken (a row or pointer unfit for 16-byte copies is read
+    element by element).  No gradient: ``grouped_ffn`` carries it."""
     global LAUNCHES
     E, C, D = x.shape
     Fh = wg.shape[-1]
@@ -133,9 +141,12 @@ def grouped_ffn_fwd(x, wg, wu, wo, *, act: str = "silu"):
     if Fh == 0:
         return y.zero_()
     x, wg, wu, wo = (t.contiguous() for t in ts)
-    f32 = dict(dtype=torch.float32, device=dev)
-    h = torch.empty((E, C, Fh), **f32)
-    u = torch.empty((E, C, Fh), **f32) if x.dtype == torch.float32 else None
+    if x.dtype == torch.bfloat16:
+        h = torch.empty((2, E, C, Fh), dtype=x.dtype, device=dev)  # hi, lo
+        u = None
+    else:
+        h, u = (torch.empty((E, C, Fh), dtype=x.dtype, device=dev)
+                for _ in range(2))
     _, ffn, err_str = _kernels()
     err = ffn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wo.data_ptr(),
               h.data_ptr(), None if u is None else u.data_ptr(), y.data_ptr(),

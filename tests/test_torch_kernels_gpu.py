@@ -16,7 +16,10 @@ so only the summation order differs and 1e-4 holds for it too.  The MoE
 kernels' bf16 outputs (rounded once from f32, as the plain versions
 round) are held to 1e-2 relative (about two bf16 ulps) + 1e-4; the
 dispatch kernel adds rows in the plain version's order and must equal
-it bit for bit.
+it bit for bit.  The grouped FFN's bf16 instance (tensor cores, h as
+two bf16 terms) is also held to the two-ulp rule at its edges: C = 1,
+the tune path's C, D and F, F not a multiple of 32 or of 8, odd F, and
+misaligned views.
 """
 import numpy as np
 import pytest
@@ -445,6 +448,43 @@ def test_grouped_ffn_kernel_matches_plain(cuda, dtype, act, C, D, F):
     want = grouped_ffn_ref(x, wg, wu, wo, act=act)
     torch.testing.assert_close(out, want,
                                **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.parametrize("E,C,D,F,act,off", [
+    (2, 1, 256, 200, "silu", None),        # C = 1
+    (2, 548, 2048, 1408, "silu", None),    # the tune path's C, D and F
+    (3, 70, 96, 200, "gelu", None),        # F not a multiple of 32
+    (2, 33, 64, 90, "silu", None),         # F not a multiple of 8
+    (2, 33, 72, 45, "gelu", None),         # F odd
+    (2, 130, 256, 200, "silu", "x"),       # x off 16-byte alignment
+    (2, 130, 256, 200, "gelu", "wo")])     # wo off 16-byte alignment
+def test_grouped_ffn_bf16_kernel_keeps_the_two_ulp_rule(cuda, monkeypatch, E,
+                                                        C, D, F, act, off):
+    """The tensor-core instance (h carried as two bf16 terms) against the
+    plain version under ``chip_smoke.py``'s rule.  Rows unfit for 16-byte
+    copies and misaligned views are taken by element-wise loads, on the
+    kernel: a CUDA tensor never reaches the plain version."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(gemm, "grouped_ffn_ref", refuse)
+    g = torch.Generator(device=cuda).manual_seed(C + F)
+    shapes = {"x": (E, C, D), "wg": (E, D, F), "wu": (E, D, F),
+              "wo": (E, F, D)}
+    scale = {"x": 1.0, "wg": D ** -0.5, "wu": D ** -0.5, "wo": F ** -0.5}
+    ts = {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape)) + (name == off)
+        flat = (torch.randn(n, generator=g, device=cuda) * scale[name]
+                ).bfloat16()
+        ts[name] = flat[int(name == off):].view(shape)
+    if off:
+        assert ts[off].is_contiguous() and ts[off].data_ptr() % 16
+    n0 = gemm.LAUNCHES["grouped_ffn"]
+    out = gemm.grouped_ffn_fwd(*ts.values(), act=act)
+    assert gemm.LAUNCHES["grouped_ffn"] == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (E, C, D)
+    worst = bf16_err_over_limit(out, grouped_ffn_ref(*ts.values(), act=act))
+    assert torch.isfinite(out).all() and worst <= 1.0, worst
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])
