@@ -19,7 +19,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    flash and paged attention at head dims 16, 24, 96, 112 and 256; the
    paged kernel's int8/fp8 dequant branch with scales that vary by row
    and head, where permuted or dropped scales must move the plain
-   output by QUANT_FAR),
+   output by QUANT_FAR; every paged case launched twice, the two
+   outputs bit-identical (the kernel merges its context's slices in a
+   fixed order); paged also timed at 8 slots x ctx 4096, bf16 and int8),
    each output element within two bf16 ulps of its own value + 1e-4
    (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
    rows whose top two logits are within ``ARGMAX_MARGIN``; kernel, plain
@@ -34,7 +36,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the kernels' launch counts on that run, and the kernel path's logits
    against the plain path's;
 5. profile: torch.profiler over one 1024-token prefill (flash's share
-   read apart) and one decode segment;
+   read apart) and one decode segment (the paged kernel's share read
+   apart, failing at zero; device launches a layer-step);
 5a. serve_kv: the same model, traffic and engine with the KV pool in
    bf16, int8, fp8 and bf16 again, in turns.  Checks the completions,
    the dequant branch's launches in the quantized runs (22 per decode
@@ -43,7 +46,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the unquantized path (and that dropped scales would fail that
    limit), reports speed, pool bytes and peak memory against the bf16
    runs, bf16 against int8 pools of equal bytes (live requests,
-   preemptions), and profiles an int8 decode segment;
+   preemptions), and profiles an int8 decode segment as phase 5 does;
 5b. serve_ssm: full-width, full-depth Mamba2-1.3B (bf16, random weights
    from seed 0) behind ``PagedServeEngine``: 16 greedy requests, prompts
    of 128-1024 tokens, 64 new tokens each.  Checks the completions, the
@@ -195,6 +198,14 @@ def phase_build():
                 fn = _kernel_label(entry.group(1))
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem} {fn}: {line.strip()}")
+    # the paged kernel's shared memory is dynamic, which ptxas does not see
+    from repro_torch.kernels.paged_attn import ops as pa_ops
+    for dt in (torch.float32, torch.bfloat16, torch.int8,
+               torch.float8_e4m3fn):
+        cfg = {D: pa_ops.kernel_config(dt, D) for D in pa_ops._HEAD_DIMS}
+        print(f"  paged_attn {str(dt)[6:]}: shared bytes (keys a tile) by "
+              f"head dim " + ", ".join(f"D{D} {s} ({tk})"
+                                       for D, (tk, s) in cfg.items()))
 
 
 def _kernel_label(mangled: str) -> str:
@@ -268,10 +279,14 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
     out = ops.paged_decode_attention(q, kp, vp, bt, pos, **kw)
     want = ref.paged_attention_ref(q, kp, vp, bt, pos, **kw)
     torch.cuda.synchronize()
-    row = check_close(f"paged slots={B} ctx={min(ctx)}-{max(ctx)} C={C} "
-                      f"H={H} KH={KH} D={D} bl={bl} {str(dtype)[6:]} "
-                      f"window={window} softcap={softcap}", out, want)
+    name = (f"paged slots={B} ctx={min(ctx)}-{max(ctx)} C={C} H={H} KH={KH} "
+            f"D={D} bl={bl} {str(dtype)[6:]} window={window} "
+            f"softcap={softcap}")
+    row = check_close(name, out, want)
+    _check_repeat(name, out, lambda: ops.paged_decode_attention(
+        q, kp, vp, bt, pos, **kw))
     if timed:
+        row["split"] = _split(ops, q, kp, bt)
         # every visible K/V row read once, q read and out written once
         rows = sum(ctx)
         nbytes = (2 * rows * KH * D + 2 * q.numel()) * q.element_size() \
@@ -296,6 +311,22 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
                 qt, kg, vg, attn_mask=mask, enable_gqa=True)))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
     return row
+
+
+def _check_repeat(name, out, again):
+    """The paged kernel merges its context's slices in a fixed order: a
+    second launch on the same inputs must give the same bits."""
+    if not torch.equal(out, again()):
+        fail(f"{name}: a second launch on the same inputs differs")
+
+
+def _split(ops, q, kp, bt):
+    """(tiles per slice, slices) the paged kernel runs at these shapes."""
+    B, C, H, D = q.shape
+    return ops.split_plan(B, C, H, kp.shape[2], D, kp.element_size(),
+                          kp.shape[1], bt.shape[1],
+                          torch.cuda.get_device_properties(
+                              0).multi_processor_count)
 
 
 def _pool_table(gen, ctx, bl):
@@ -370,6 +401,8 @@ def paged_quant_case(gen, ctx, C, H, KH, D, bl, dtype, kv, *, window=0,
             f"H={H} KH={KH} D={D} bl={bl} out={str(dtype)[6:]} "
             f"window={window} softcap={softcap}")
     row = check_close(name, out, want)
+    _check_repeat(name, out, lambda: ops.paged_decode_attention(
+        q, kp, vp, bt, pos, k_scale=ks, v_scale=vs, **kw))
 
     def perm(t):
         idx = torch.randperm(t.numel(), generator=gen, device="cuda")
@@ -391,6 +424,7 @@ def paged_quant_case(gen, ctx, C, H, KH, D, bl, dtype, kv, *, window=0,
         fail(f"{name}: perturbed scales leave the plain output within "
              f"{QUANT_FAR} relative RMS {near}: the check could not see them")
     if timed:
+        row["split"] = _split(ops, q, kp, bt)
         # every visible int8/fp8 K/V row once, plus its 4-byte scale per
         # pool, q read and out written once
         n_rows = sum(ctx)
@@ -886,11 +920,17 @@ def flash_bf16_cases(gen):
     return rows
 
 
+# a context where the paged kernel's bytes, not its launch, should set
+# its time (timed, not the kernels line's row)
+LONG_CTX = 4096
+
+
 def quant_cases(gen):
     """The dequant branch at the serve path's shape (8 slots, ctx
     64-1088, H 32 over KH 4, D 64, block_len 16, bf16 out; timed), C = 4,
     GQA with window and softcap in f32, and D = 24, whose int8/fp8 rows
-    (24 bytes) take 8-byte loads; int8 and fp8 each."""
+    (24 bytes) take 8-byte loads; int8 and fp8 each; int8 timed at 8
+    slots x ctx LONG_CTX."""
     bf, f32 = torch.bfloat16, torch.float32
     ctx = [int(c) for c in np.linspace(64, 1088, 8)]
     rows = []
@@ -903,6 +943,9 @@ def quant_cases(gen):
                  paged_quant_case(gen, [1, 70, 33], 1, 8, 2, 24, 16, bf, kv),
                  paged_quant_case(gen, [9, 130], 2, 6, 3, 24, 8, f32, kv,
                                   window=50)]
+    # where bytes matter: 8 slots x ctx 4096
+    rows.append(paged_quant_case(gen, [LONG_CTX] * 8, 1, 32, 4, 64, 16, bf,
+                                 "int8", timed=True))
     return rows
 
 
@@ -924,7 +967,9 @@ def phase_kernels():
              paged_case(gen, ctx, 4, 32, 4, 64, 16, bf, timed=True),
              paged_case(gen, [5, 40, 17], 3, 8, 2, 32, 4, f32, window=12,
                         softcap=30.0),
-             paged_case(gen, [1, 200], 1, 4, 4, 128, 16, f32)]
+             paged_case(gen, [1, 200], 1, 4, 4, 128, 16, f32),
+             paged_case(gen, [LONG_CTX] * 8, 1, 32, 4, 64, 16, bf,
+                        timed=True)]
     pq = quant_cases(gen)
     hd_flash, hd_paged, hd_quant = head_dim_cases(gen)
     flash += flash_bf16_cases(gen)
@@ -1072,7 +1117,7 @@ def phase_serve():
            "logit_err_decode": errs[1],
            "peak_mem_gb": peak_gb}
     print("serve " + json.dumps(res))
-    phase_profile(params, cfg, prompts[-1], make_engine)
+    phase_profile(params, cfg, prompts[-1], make_engine, seg_len)
     return launches
 
 
@@ -1117,7 +1162,19 @@ def profile(fn, top: int = 8, groups=None):
                     for us, k, n in rows[:top]]}
 
 
-def phase_profile(params, cfg, prompt, make_engine):
+def decode_profile(eng, cfg, seg_len, what):
+    """One steady decode segment of a started engine under the profiler,
+    with the paged kernel's device time (failing if it reads zero) and
+    the device launches a layer-step."""
+    seg = profile(eng.step, top=12, groups={"paged_attn": ("paged_fwd",)})
+    if not seg["group_ms"]["paged_attn"] > 0:
+        fail(f"{what}: the profile shows no device time in the paged kernel")
+    seg["launches_per_layer_step"] = seg["device_launches"] / (
+        cfg.n_layers * seg_len)
+    return seg
+
+
+def phase_profile(params, cfg, prompt, make_engine, seg_len):
     """Where the time goes: one prefill of the longest prompt, and one
     steady decode segment with every slot live."""
     from repro_torch.models import model as M
@@ -1127,7 +1184,8 @@ def phase_profile(params, cfg, prompt, make_engine):
                       groups={"flash_fwd": ("flash_fwd",)})
         eng = make_engine()
         eng.step()        # admits the first 8 requests, runs a segment
-        seg = profile(eng.step)  # no slot free: a decode segment only
+        # no slot free: a decode segment only
+        seg = decode_profile(eng, cfg, seg_len, "serve decode")
     print("profile " + json.dumps({"prefill_1024": pre,
                                    "decode_segment_8_steps": seg}))
 
@@ -1407,7 +1465,7 @@ def phase_serve_kv():
         for p in prompts:
             eng.submit({"tokens": p}, max_new=max_new)
         eng.step()
-        seg = profile(eng.step, top=12)
+        seg = decode_profile(eng, cfg, seg_len, "serve_kv int8 decode")
     print("serve_kv " + json.dumps({"runs": runs, "logit_checks": checks,
                                     "equal_bytes": eq}))
     print("profile " + json.dumps({"int8_decode_segment_8_steps": seg}))

@@ -4,8 +4,15 @@ Replaces ``repro.kernels.paged_attn.kernel.paged_attention_bhgd`` (the
 Pallas TPU kernel ``_paged_kernel``, both branches) behind the signature
 of ``repro.kernels.paged_attn.ops.paged_decode_attention``.  The CUDA
 source is ``csrc/paged_attn.cu``; its header says what bounds it on the
-H100 (memory: every visible K/V row read once) and what the design does
-about it.
+H100 (at decode's shapes the launch and a chain of dependent memory
+round trips; the bytes only at long contexts) and what the design does
+about it: the context is split across blocks and merged in a fixed
+order inside the same launch.  ``split_plan`` picks the split
+from shapes only (never from ``pos``, so a decode step needs no host
+sync); the wrapper hands the kernel f32 scratch for the partials
+(``torch.empty``) and a per-device array of int32 counters, zeroed once
+and grown when needed, which every launch leaves at zero.  Launches
+that share a device run on one stream at a time.
 
 ``layers.attention_decode`` calls this after inserting the chunk's k/v
 into the pool.  The engine keeps every table entry a valid pool row
@@ -40,23 +47,87 @@ LAUNCHES_QUANT = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _POOL_DTYPES = {**_DTYPES, **_QUANT_DTYPES}
-# the head dims csrc/paged_attn.cu is built for (dispatch_d)
+# the head dims csrc/paged_attn.cu is built for (by_dim)
 _HEAD_DIMS = (16, 24, 32, 64, 96, 112, 128, 256)
+ROWS = 8             # query rows a block takes (csrc: RC)
+MAX_SPLITS = 64      # csrc: MAX_SPLITS
+BLOCKS_PER_SM = 2    # what the split aims to put on each SM
 _fn = None
+_COUNTERS = {}       # device index -> int32 counters, all zero between launches
+_SM_COUNT = {}
+
+
+def tile_keys(D: int, elem_size: int) -> int:
+    """Keys per tile of the kernel's instance (csrc: tile_keys): 64, or 32
+    and 16 for pool rows over 256 and 512 bytes."""
+    row = D * elem_size
+    return 64 if row <= 256 else 32 if row <= 512 else 16
+
+
+def _row_groups(B, C, H, KH):
+    """(kv head, slot, ROWS query rows) groups: the blocks of one slice."""
+    return KH * B * -(-C * (H // KH) // ROWS)
+
+
+def split_plan(B, C, H, KH, D, elem_size, block_len, nbt, n_sm):
+    """(tiles_per_split, n_split) from shapes only: the table's logical
+    positions in tiles, cut into the fewest equal slices that put about
+    BLOCKS_PER_SM blocks on each of ``n_sm`` SMs, at most MAX_SPLITS."""
+    tiles = -(-nbt * block_len // tile_keys(D, elem_size))
+    base = _row_groups(B, C, H, KH)
+    tps = max(1, tiles * base // (BLOCKS_PER_SM * n_sm),
+              -(-tiles // MAX_SPLITS))
+    return tps, -(-tiles // tps)
 
 
 def _kernel():
     global _fn
     if _fn is None:
         lib = _build.library("paged_attn")
+        args = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn = lib.paged_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.argtypes = args
         fn.restype = ctypes.c_int
+        split = lib.paged_attention_fwd_split
+        split.argtypes = args + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+        split.restype = ctypes.c_int
+        config = lib.paged_attention_config
+        config.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        config.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.paged_attention_error_string)
+        _fn = (fn, split, config, lib.paged_attention_error_string)
     return _fn
+
+
+def kernel_config(pool_dtype, D):
+    """(keys per tile, dynamic shared memory bytes) of the kernel's
+    instance for a pool dtype and head dim, as the CUDA source has them."""
+    _, _, config, err_str = _kernel()
+    tk, smem = ctypes.c_int(), ctypes.c_int()
+    err = config(_POOL_DTYPES[pool_dtype], D, ctypes.byref(tk),
+                 ctypes.byref(smem))
+    _build.check(err, "paged_attention_config", err_str)
+    return tk.value, smem.value
+
+
+def _counters(device, n):
+    """The device's counters, at least n of them (zeros)."""
+    c = _COUNTERS.get(device.index)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = c
+    return c
+
+
+def _sm_count(device):
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device.index] = n
+    return n
 
 
 def _check_inputs(q, k_pool, v_pool, block_table, pos, k_scale, v_scale,
@@ -147,16 +218,26 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
                          f"{vb}-byte aligned")
     out = torch.empty(q.shape, dtype=out_dtype or v_pool.dtype,
                       device=q.device)
-    fn, err_str = _kernel()
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype],
-             _DTYPES[out.dtype], B, C, H, KH, D, bl,
-             block_table.shape[1], int(window), float(softcap),
-             1.0 / math.sqrt(D),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    nbt = block_table.shape[1]
+    tps, n_split = split_plan(B, C, H, KH, D, k_pool.element_size(), bl, nbt,
+                              _sm_count(q.device))
+    fn, fn_split, _, err_str = _kernel()
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
+            block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype],
+            _DTYPES[out.dtype], B, C, H, KH, D, bl, nbt, int(window),
+            float(softcap), 1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if n_split == 1:
+        err = fn(*args)
+    else:
+        groups = _row_groups(B, C, H, KH)
+        part = torch.empty(groups * n_split * ROWS * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        err = fn_split(*args, part.data_ptr(),
+                       _counters(q.device, groups).data_ptr(), tps, n_split)
     _build.check(err, "paged_decode_attention", err_str)
     if quantized:
         LAUNCHES_QUANT += 1

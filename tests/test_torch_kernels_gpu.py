@@ -20,6 +20,13 @@ it bit for bit.  The grouped FFN's bf16 instance (tensor cores, h as
 two bf16 terms) is also held to the two-ulp rule at its edges: C = 1,
 the tune path's C, D and F, F not a multiple of 32 or of 8, odd F, and
 misaligned views.
+The paged kernel splits each slot's context across blocks and merges the
+slices in a fixed order inside the launch: it is held at every pool
+dtype and head dim and at the split's edges (slices emptied by a window
+or past the last query, ctx 1, the last table position, a table far
+wider than every context, chunks across a slice boundary) to the same
+two-ulp rule in bf16, with a second launch bit-identical, the counters
+back at zero, and the plain version patched to refuse CUDA tensors.
 """
 import numpy as np
 import pytest
@@ -269,6 +276,131 @@ def test_paged_kernel_mixed_dtypes(cuda):
         torch.testing.assert_close(out.float(),
                                    paged_attention_ref(*args).float(),
                                    **BF16_TOL)
+
+
+PAGED_POOLS = ("f32", "bf16", "int8", "fp8")
+
+
+def _split_inputs(cuda, ctx, C, H, KH, D, bl, pool, *, nbt=None, seed=0):
+    """Slots holding ctx[b] positions (their queries the last C), blocks
+    scattered over the pool, table entries past a slot's blocks at block
+    0, as the engine leaves them.  Rows N(0, 1); for int8/fp8 times 2^u,
+    u uniform in [-8, 0] per (position, kv head), quantized.  -> the
+    kernel's arguments and keywords."""
+    from repro_torch.models import quant
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B = len(ctx)
+    nbt = nbt or -(-max(ctx) // bl)
+    need = [-(-c // bl) for c in ctx]
+    n_blocks = 1 + sum(need)
+    perm = torch.randperm(n_blocks - 1, generator=g, device=cuda) + 1
+    bt = torch.zeros(B, nbt, dtype=torch.int32, device=cuda)
+    o = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[o:o + n].int()
+        o += n
+    pos = torch.tensor([c - C for c in ctx], dtype=torch.int32, device=cuda)
+    shape = (n_blocks, bl, KH, D)
+    q = 2 * torch.randn(B, C, H, D, generator=g, device=cuda)
+    if pool in ("f32", "bf16"):
+        dt = torch.float32 if pool == "f32" else torch.bfloat16
+        kp, vp = (torch.randn(shape, generator=g, device=cuda).to(dt)
+                  for _ in range(2))
+        return (q.to(dt), kp, vp, bt, pos), {}
+
+    def rows():
+        u = torch.rand(shape[:3] + (1,), generator=g, device=cuda) * -8
+        return torch.randn(shape, generator=g, device=cuda) * torch.exp2(u)
+    (kp, ks), (vp, vs) = quant.quantize(rows(), pool), quant.quantize(
+        rows(), pool)
+    out = torch.bfloat16 if pool == "int8" else torch.float32
+    return (q.to(out), kp, vp, bt, pos), dict(k_scale=ks, v_scale=vs,
+                                              out_dtype=out)
+
+
+def _hold_split(monkeypatch, args, kw, *, splits=True):
+    """The kernel on one case: no CUDA input reaches the plain version,
+    one launch is counted, the output keeps ``chip_smoke.py``'s rule
+    against the plain version (two bf16 ulps + 1e-4, or 1e-4 in f32), a
+    second launch gives the same bits, and the counters are back at 0."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(pa, "paged_attention_ref", refuse)
+    q, kp, _, bt, _ = args
+    B, C, H, D = q.shape
+    _, n_split = pa.split_plan(B, C, H, kp.shape[2], D, kp.element_size(),
+                               kp.shape[1], bt.shape[1],
+                               torch.cuda.get_device_properties(
+                                   q.device).multi_processor_count)
+    assert (n_split > 1) == splits
+    n0 = pa.LAUNCHES + pa.LAUNCHES_QUANT
+    out = pa.paged_decode_attention(*args, **kw)
+    assert pa.LAUNCHES + pa.LAUNCHES_QUANT == n0 + 1
+    want = paged_attention_ref(*args, **kw)
+    assert out.dtype == want.dtype and torch.isfinite(out).all()
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, want, **TOL)
+    else:
+        worst = bf16_err_over_limit(out, want)
+        assert worst <= 1.0, worst
+    assert torch.equal(out, pa.paged_decode_attention(*args, **kw))
+    if splits:
+        assert not pa._COUNTERS[q.device.index].any()
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("pool", PAGED_POOLS)
+def test_paged_split_kernel_takes_every_pool_and_head_dim(cuda, monkeypatch,
+                                                          pool, D):
+    """Four slots (one at pos 0) over a split context, a chunk of C = 2,
+    GQA 4, a window and a softcap."""
+    args, kw = _split_inputs(cuda, [2, 70, 300, 130], 2, 8, 2, D, 16, pool,
+                             seed=D)
+    _hold_split(monkeypatch, args, dict(window=90, softcap=30.0, **kw))
+
+
+SPLIT_EDGES = {
+    # name: (ctx per slot, C, H, KH, D, block_len, nbt, window)
+    # the leftmost slices of the long slots hold no visible key
+    "window_empties_slices": ([1000, 700, 300], 1, 8, 2, 64, 16, None, 100),
+    "ctx_1": ([1, 1, 50], 1, 8, 2, 64, 16, 20, 0),
+    # slot 0's last query sits at the table's last position
+    "last_table_position": ([256, 100], 3, 8, 2, 64, 16, 16, 0),
+    # a table far wider than every context: the tail slices see trash
+    # entries only
+    "wide_table": ([40, 200, 90], 1, 8, 2, 64, 16, 256, 0),
+    "chunk_across_slices": ([66, 130, 300], 4, 8, 2, 64, 8, None, 0),
+    "serve_shape": ([int(c) for c in np.linspace(64, 1088, 8)], 1, 32, 4,
+                    64, 16, None, 0),
+}
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("name", sorted(SPLIT_EDGES))
+def test_paged_split_kernel_edge_cases(cuda, monkeypatch, name, pool):
+    ctx, C, H, KH, D, bl, nbt, window = SPLIT_EDGES[name]
+    args, kw = _split_inputs(cuda, ctx, C, H, KH, D, bl, pool, nbt=nbt)
+    _hold_split(monkeypatch, args, dict(window=window, **kw))
+
+
+@pytest.mark.parametrize("pool", PAGED_POOLS)
+def test_paged_unsplit_entry_matches_plain(cuda, monkeypatch, pool):
+    """Shapes whose plan has one slice take the entry without scratch:
+    one block per (kv head, slot, 8 query rows) walks the context."""
+    args, kw = _split_inputs(cuda, [40, 64, 9], 2, 8, 2, 64, 16, pool)
+    _hold_split(monkeypatch, args, dict(window=20, **kw), splits=False)
+
+
+def test_paged_tile_keys_match_the_kernel(cuda):
+    """The split plan's tile keys (Python) are the CUDA instances', and
+    every instance fits the 227 KB of shared memory a block may opt in
+    to."""
+    for dt in (torch.float32, torch.bfloat16, torch.int8,
+               torch.float8_e4m3fn):
+        for D in HEAD_DIMS:
+            tk, smem = pa.kernel_config(dt, D)
+            assert tk == pa.tile_keys(D, dt.itemsize), (dt, D)
+            assert 0 < smem <= 232448, (dt, D, smem)
 
 
 @pytest.mark.parametrize("kv", ["int8", "fp8", "bf16"])
