@@ -24,7 +24,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    fixed order); paged also timed at 8 slots x ctx 4096, bf16 and int8),
    each output element within two bf16 ulps of its own value + 1e-4
    (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
-   rows whose top two logits are within ``ARGMAX_MARGIN``; kernel, plain
+   rows whose top two logits are within ``ARGMAX_MARGIN``; kd_loss in
+   each instance (``wgmma`` timed at the train and tune steps' shapes
+   and in KD mode, and on ragged T, V and D; ``general`` for rows or
+   bases TMA cannot take; ``f32``), every case launched twice and
+   bit-identical, planted ties across vocab-tile and split boundaries
+   going to the lower index; kernel, plain
    and library-call times (``scaled_dot_product_attention``, matmul +
    ``cross_entropy``, ``torch.bmm``, ``index_add_``: yardsticks the
    port never calls; none for the SSD scan) from CUDA events
@@ -56,7 +61,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    1024-token prefill and one decode segment;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
-   finite, falling losses and the kernels' launch counts on that run,
+   finite, falling losses and the kernels' launch counts on that run
+   (every kd_loss launch in the wgmma instance),
    the kernel path's loss and gradients against the plain path's, every
    layer's flash output on a real batch (q, k, v caught on the path)
    against the plain version's by the per-element rule, and
@@ -67,7 +73,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``DeepFusionServer.merge_and_tune`` for 6 steps of 4 x 1024 tokens
    with frozen experts at lr 5e-4.  Checks finite losses, frozen experts
    bit-identical and every trainable leaf changed, the MoE kernels'
-   launch counts, the kernel path's loss and gradients against its plain
+   launch counts (every kd_loss launch in the wgmma instance), the
+   kernel path's loss and gradients against its plain
    version in bf16 and in f32 (the dropless plain path reported), and
    reports ms per step, tokens/s, MFU, peak memory, dropped assignments
    per step and a profile.
@@ -471,12 +478,45 @@ def _near_tie_rows(hs, ws, cap, margin):
 ARGMAX_MARGIN = 1e-5
 
 
+# the plain version's logits and their temporaries above this are not
+# timed (the check still runs it once)
+PLAIN_TIMED_BYTES = 4e9
+
+
+def _n_sm():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _tie_columns(T, V, inst, teacher):
+    """Two columns per row for a planted tie: in turn across a vocab-tile
+    boundary inside a split, across a split boundary, and far apart
+    (the tiles and splits ``inst`` runs at these shapes)."""
+    from repro_torch.kernels.kd_loss import ops
+    _, tile_v = ops.tile_shape(inst, teacher)
+    ns, tps = ops.vocab_splits(T, V, _n_sm(), inst, teacher)
+    rows = torch.arange(T, device="cuda")
+    kind = (rows // 2) % 3
+    far_lo, far_hi = rows * 17 % (V // 2), V // 2 + rows * 29 % (V // 2)
+    if ns < 3:
+        return far_lo, far_hi
+    s = 1 + (rows // 6) % (ns - 2)     # neither the first split nor the last
+    split_edge = s * tps * tile_v
+    tile_edge = split_edge + tile_v if tps > 1 else split_edge
+    hi = torch.where(kind == 0, tile_edge,
+                     torch.where(kind == 1, split_edge, far_hi))
+    return torch.where(kind < 2, hi - 1, far_lo), hi
+
+
 def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
-            timed=False, ties=False):
-    """The kd_loss kernel against its plain version.  Hidden states
-    ~N(0,1) and heads ~N(0,1/D), as the model draws them.  ``ties``
-    plants, in integer-valued inputs (exact in any order), a maximum at
-    two columns of every row; the lower index must win."""
+            timed=False, ties=False, inst=None, misalign=False):
+    """The kd_loss kernel against its plain version, launched twice (the
+    splits merge in a fixed order: the two must give the same bits).
+    Hidden states ~N(0,1) and heads ~N(0,1/D), as the model draws them.
+    ``inst`` is the instance the inputs must take (default: ``wgmma`` for
+    bf16, ``f32`` for f32); ``misalign`` puts hs one element off a 16-byte
+    boundary.  ``ties`` plants, in integer-valued inputs (exact in any
+    order), a maximum at two columns of every row, across tile and split
+    boundaries; the lower index must win."""
     from repro_torch.kernels.kd_loss import ops, ref
     hs = _randn(gen, (T, Ds), dtype)
     ws = (torch.randn((Ds, V), generator=gen, device="cuda")
@@ -488,24 +528,35 @@ def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
         ht = _randn(gen, (T, Dt), dtype)
         wt = (torch.randn((Dt, V), generator=gen, device="cuda")
               / Dt ** 0.5).to(dtype)
+    inst = inst or ("f32" if dtype == torch.float32 else "wgmma")
     if ties:
         rows = torch.arange(T, device="cuda")
         hs = torch.eye(T, Ds, device="cuda").to(dtype)
         ws = torch.randint(-3, 4, (Ds, V), generator=gen, device="cuda")
-        lo, hi = rows * 17 % (V // 2), V // 2 + rows * 29 % (V // 2)
+        lo, hi = _tie_columns(T, V, inst, bool(Dt))
         ws[rows, lo] = ws[rows, hi] = 9
         ws = ws.to(dtype)
         lab = torch.where(rows % 2 == 0, lo, hi).to(torch.int32)
+    if misalign:
+        hs = torch.cat([hs.new_zeros(1), hs.flatten()])[1:].view(T, Ds)
+    took = ops.instance(hs, ws, ht, wt)
+    name = (f"kd_loss T={T} Ds={Ds} Dt={Dt} V={V} {str(dtype)[6:]} "
+            f"tau={tau} softcap={cap_s}/{cap_t}{' ties' if ties else ''}"
+            f"{' misaligned' if misalign else ''} [{took}]")
+    if took != inst:
+        fail(f"{name}: took the {took} instance, not {inst}")
     kw = dict(tau=tau, softcap_s=cap_s, softcap_t=cap_t)
     ce, kl, cor = ops.kd_loss_fwd(hs, ws, ht, wt, lab, **kw)
+    again = ops.kd_loss_fwd(hs, ws, ht, wt, lab, **kw)
     if Dt:
         w_ce, w_kl, w_cor = ref.ce_kl_ref(hs, ws, ht, wt, lab, **kw)
     else:
         (w_ce, w_cor), w_kl = ref.ce_ref(hs, ws, lab, softcap=cap_s), None
     torch.cuda.synchronize()
-    name = (f"kd_loss T={T} Ds={Ds} Dt={Dt} V={V} {str(dtype)[6:]} "
-            f"tau={tau} softcap={cap_s}/{cap_t}{' ties' if ties else ''}")
+    if not all(torch.equal(a, b) for a, b in zip((ce, kl, cor), again)):
+        fail(f"{name}: a second launch on the same inputs differs")
     row = check_close(name + " ce", ce, w_ce)
+    row["instance"] = took
     if Dt:
         kl_row = check_close(name + " kl", kl, w_kl)
         row["max_abs_err"] = max(row["max_abs_err"], kl_row["max_abs_err"])
@@ -523,6 +574,7 @@ def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
              f"two logits differ by {ARGMAX_MARGIN} or more")
     row.update(near_tie_rows=int(near.sum()),
                correct_differs_on_near_ties=int(((cor != w_cor) & near).sum()))
+    del w_ce, w_kl, w_cor, again
     if timed:
         lab64 = lab.long()
         if Dt:
@@ -547,11 +599,46 @@ def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
         d_all = Ds + (Dt or 0)
         flops = 2 * T * d_all * V
         nbytes = (T * d_all + d_all * V) * hs.element_size() + 4 * T * 4
+        # f32 copies of the inputs, the f32 logits and one temporary a side
+        plain_bytes = 4 * (T * d_all + d_all * V + 2 * T * V * (1 + bool(Dt)))
         row.update(ms=time_ms(lambda: ops.kd_loss_fwd(hs, ws, ht, wt, lab,
                                                       **kw)),
-                   plain_ms=time_ms(plain), library_ms=time_ms(library))
+                   plain_ms=(time_ms(plain) if plain_bytes <= PLAIN_TIMED_BYTES
+                             else None),
+                   library_ms=time_ms(library))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+        torch.cuda.empty_cache()
     return row
+
+
+def kd_cases(gen):
+    """Timed at the train step's shape (the kernels line's row), in KD mode
+    and at the tune step's vocabulary; the wgmma instance on ragged T, V
+    and D; the general instance (V not a multiple of 8, rows too narrow
+    for TMA, hs off alignment); f32; planted ties in each instance."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [kd_case(gen, 2048, 2048, 0, 32000, bf, timed=True),
+            kd_case(gen, 2048, 2048, 1024, 32000, bf, tau=2.0, timed=True),
+            kd_case(gen, 2048, 2048, 0, 151936, bf, timed=True),
+            kd_case(gen, 130, 136, 0, 4104, bf),
+            kd_case(gen, 2049, 256, 0, 32008, bf, cap_s=15.0),
+            kd_case(gen, 130, 136, 72, 4104, bf, tau=0.5, cap_t=20.0),
+            kd_case(gen, 2049, 136, 200, 32008, bf, tau=2.0, cap_s=30.0),
+            kd_case(gen, 256, 256, 128, 4099, bf, tau=2.0, inst="general"),
+            kd_case(gen, 200, 40, 0, 777, bf, cap_s=15.0, inst="general"),
+            kd_case(gen, 64, 136, 72, 129, bf, tau=0.5, cap_t=20.0,
+                    inst="general"),
+            kd_case(gen, 130, 136, 0, 4104, bf, misalign=True,
+                    inst="general"),
+            kd_case(gen, 130, 96, 0, 1000, f32),
+            kd_case(gen, 77, 64, 48, 333, f32, tau=2.0, cap_s=30.0,
+                    cap_t=50.0),
+            kd_case(gen, 96, 96, 0, 5000, bf, ties=True),
+            kd_case(gen, 256, 256, 0, 32000, bf, ties=True),
+            kd_case(gen, 256, 256, 64, 16000, bf, tau=2.0, ties=True),
+            kd_case(gen, 256, 256, 0, 32000, bf, ties=True, misalign=True,
+                    inst="general"),
+            kd_case(gen, 96, 96, 0, 5000, f32, ties=True)]
 
 
 # the expert layer on the tune path: batch 4 x 1024 tokens of
@@ -973,15 +1060,7 @@ def phase_kernels():
     pq = quant_cases(gen)
     hd_flash, hd_paged, hd_quant = head_dim_cases(gen)
     flash += flash_bf16_cases(gen)
-    kd = [kd_case(gen, 2048, 2048, 0, 32000, bf, timed=True),
-          kd_case(gen, 2048, 2048, 1024, 32000, bf, tau=2.0, timed=True),
-          kd_case(gen, 130, 96, 0, 1000, f32),
-          kd_case(gen, 77, 64, 48, 333, f32, tau=2.0, cap_s=30.0,
-                  cap_t=50.0),
-          kd_case(gen, 200, 40, 0, 777, bf, cap_s=15.0),
-          kd_case(gen, 64, 136, 72, 129, bf, tau=0.5, cap_t=20.0),
-          kd_case(gen, 96, 96, 0, 5000, bf, ties=True),
-          kd_case(gen, 96, 96, 0, 5000, f32, ties=True)]
+    kd = kd_cases(gen)
     ffn, gmm, gsa = moe_cases(gen)
     ssd = ssd_cases(gen)
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
@@ -1789,6 +1868,16 @@ def _flash_on_path(M, cfg, params, batch):
     return worst
 
 
+def _all_wgmma(kd_ops, phase):
+    """Every kd_loss launch of the phase's main path took the wgmma
+    instance (bf16 rows and bases that suit TMA)."""
+    by = dict(kd_ops.LAUNCHES_BY_INSTANCE)
+    print(f"{phase}: kd_loss launches by instance {by}")
+    if by["wgmma"] != kd_ops.LAUNCHES or sum(by.values()) != kd_ops.LAUNCHES:
+        fail(f"{phase}: kd_loss launches {kd_ops.LAUNCHES} by instance {by}: "
+             f"not all took the wgmma instance")
+
+
 def phase_train():
     """``train_device`` on full-width TinyLlama-1.1B (bf16, random weights
     from seed 0): 8 steps at batch 4 x 1024 tokens, lr 1e-3, through the
@@ -1818,6 +1907,8 @@ def phase_train():
     torch.cuda.synchronize()
     fa_ops.LAUNCHES = 0
     kd_ops.LAUNCHES = 0
+    kd_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
+        kd_ops.LAUNCHES_BY_INSTANCE, 0))
     t0 = time.perf_counter()
     up = D.train_device(spec, corpus, **run)
     torch.cuda.synchronize()
@@ -1839,6 +1930,7 @@ def phase_train():
         fail(f"loss did not fall: {losses}")
     if launches != want:
         fail(f"train launches {launches} != expected {want}")
+    _all_wgmma(kd_ops, "train")
 
     # kernel path against plain path on one batch, fresh weights
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1886,7 +1978,7 @@ def phase_train():
     ms = sorted(step_ms)[len(step_ms) // 2]
     prof = profile(lambda: D.train_step(params, opt, cfg, steps[4],
                                         sched(2)),
-                   top=10, groups={"kd_loss": ("kd_partial", "kd_merge"),
+                   top=10, groups={"kd_loss": ("kd_wgmma", "kd_merge"),
                                    "flash_fwd": ("flash_fwd",)})
     res = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "losses": losses, "train_device_wall_s": wall,
@@ -2130,6 +2222,8 @@ def phase_tune():
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
+    kd_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
+        kd_ops.LAUNCHES_BY_INSTANCE, 0))
     mg_ops.LAUNCHES.update(grouped_ffn=0, grouped_matmul=0)
     moe.route = recording_route
     t0 = time.perf_counter()
@@ -2162,6 +2256,7 @@ def phase_tune():
           f"{[round(x, 4) for x in losses]}, launches {launches}")
     if launches != want:
         fail(f"tune launches {launches} != expected {want}")
+    _all_wgmma(kd_ops, "tune")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite tuning loss: {losses}")
 
@@ -2192,7 +2287,7 @@ def phase_tune():
                            "ffn_stage_a": ("ffn_gate_up_tc",),
                            "ffn_stage_b": ("ffn_down_tc",),
                            "gather_scatter_add": ("gsa_kernel",),
-                           "kd_loss": ("kd_partial", "kd_merge"),
+                           "kd_loss": ("kd_wgmma", "kd_merge"),
                            "flash_fwd": ("flash_fwd",)})
     del opt, step
     silent = [g for g in ("grouped_matmul", "ffn_stage_a", "ffn_stage_b")

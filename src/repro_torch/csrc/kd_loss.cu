@@ -1,39 +1,66 @@
 // Fused CE (+ temperature-tau KL) loss straight from hidden states.
 //
-// Replaces the Pallas TPU kernel repro/kernels/kd_loss/kernel.py
+// Replaces the Pallas TPU kernel repro/kernels/kd_loss/kernel.py:163
 // (kd_loss_fwd / _kd_kernel).  Inputs hs (T, Ds), ws (Ds, V) row-major,
 // labels (T,) int32 and, in KD mode, ht (T, Dt), wt (Dt, V); outputs
 // three f32 vectors of length T: ce, kl (0 without a teacher), correct.
-// The (T, V) logits never reach device memory: vocab tiles of 128
-// columns are computed into shared memory and folded into per-row
-// online statistics, as the TPU kernel does:
+// The (T, V) logits never reach device memory: each vocab tile's logits
+// are folded into per-row online statistics, as the TPU kernel does:
 //   raw student logits z_s: m, l (logsumexp), gold logit, first argmax
 //   KD mode, z_s/tau:       m, l
 //           z_t/tau:        m, l, U = sum e^{z_t/tau-m} z_t/tau,
 //                           W = sum e^{z_t/tau-m} z_s/tau
 //   ce = lse_s - z_gold,  kl = tau^2 [(U/l_t - lse_t) - (W/l_t - lse_s)].
 //
-// Parallelism.  The TPU walks the whole vocab of a row tile in series
-// (its grid's vocab axis is sequential).  On the path T = 4 x 512 = 2048
-// rows, so 64-row tiles give only 32 blocks for 132 SMs.  Here the grid
-// is (row tiles, vocab splits): each block walks a contiguous run of
-// vocab tiles and writes its partial statistics per (split, row); a
-// second small kernel merges the splits per row with the same
-// rescale-and-add the online softmax does (l, U, W scaled by
-// e^{m_split - m}), and keeps "lowest vocab index wins" for the argmax by
-// taking splits in vocab order with a strict >, as the TPU kernel takes
-// its tiles.  Inside a tile a thread keeps its first maximum and lanes
-// combine by (value, lower index).
+// Bound.  2*T*D*V flops (D = Ds + Dt in KD mode) on T*D + D*V input
+// bytes: at the train path's shape (T 2048, D 2048, V 32000) 268 GFLOP
+// against 139 MB, at the tune path's (V 151936) 1.27 TFLOP against 631
+// MB, far above the H100's ~295 bf16 flops per byte: the tensor cores
+// bound it (0.271 and 1.29 ms at 989 TFLOP/s).
 //
-// Bound.  2*T*D*V flops on T*D + D*V input bytes: at the path's shape
-// (T=2048, D=2048, V=32000) 268 GFLOP against 139 MB, far above the
-// H100's ~295 flops per byte, so the tensor cores bound it.  bf16 inputs
-// take mma.sync m16n8k16 (bf16 x bf16 products are exact in f32 and are
-// accumulated in f32, so only the summation order differs from the
-// plain version); f32 inputs take f32 FMAs on the CUDA cores.  Global
-// loads of the next K chunk start before the current chunk's
-// products; wgmma, TMA and a deeper pipeline are the next step.
-// Ragged T, V and D are masked here (the TPU wrapper pads instead).
+// Parallelism.  The TPU walks the whole vocab of a row tile in series
+// (its grid's vocab axis is sequential).  Here the grid is (row tiles,
+// vocab splits), blockIdx.x fastest, so the blocks of one split run
+// together and share its ws tiles in L2.  Each block walks a
+// contiguous run of vocab tiles and writes its partial statistics per
+// (split, row); a second small kernel merges the splits per row with
+// the rescale-and-add of the online softmax (l, U, W scaled by
+// e^{m_split - m}) and keeps "lowest vocab index wins" for the argmax
+// by taking splits in vocab order with a strict >, as the TPU kernel
+// takes its tiles.  No atomics: two launches on the same inputs give
+// the same bits.
+//
+// Three instances, chosen by the wrapper from shapes and pointers:
+//
+// wgmma (bf16; Ds, Dt, V multiples of 8 and 16-byte-aligned bases, as
+// TMA needs): kd_wgmma_kernel.  A block of 384 threads owns 128 rows.
+//   * Operands come by TMA (tensor maps built on the host, 128-byte
+//     swizzle, zero fill past the T, K and V edges) into a ring of 4
+//     shared-memory stages of A 128 x 64 and B 64 x 256 (48 KB), each
+//     with a full/empty mbarrier pair.  One producer thread issues the
+//     copies; its warpgroup gives its registers up (setmaxnreg 40).
+//   * Two consumer warpgroups (setmaxnreg 232) each multiply their 64
+//     rows by the shared B tile with wgmma.mma_async m64nNk16, f32
+//     accumulators in registers.  ws is read as it lies, (D, V) row
+//     major: an MN-major B operand (wgmma's transpose bit), never
+//     transposed in memory.  CE mode: N = 256, 128 accumulators a
+//     thread.  KD mode: a student and a teacher tile of N = 128 each,
+//     one K loop over Ds then one over Dt through the same ring, so
+//     both logits of an element are in registers at once.
+//   * The statistics come straight from the accumulators: each thread
+//     holds two rows' columns 8j + 2q + {0,1} and keeps its own m, l,
+//     gold and first argmax per row (and the KD sums); the 4 lanes of a
+//     quad combine by shuffles once, at the end of the split (ties to
+//     the lower index).  No logits tile in shared memory and no
+//     __syncthreads per tile; only a split's last, ragged tile masks
+//     columns v >= V.
+// general (any other bf16 input): kd_partial_kernel.  64-row blocks,
+//   128-column tiles by mma.sync m16n8k16 through a logits tile in
+//   shared memory; operands staged through registers.
+// f32: kd_partial_kernel on CUDA-core FMAs (f32 models only).
+// bf16 x bf16 products are exact in f32 and are summed in f32, so the
+// bf16 instances differ from the plain version only in summation order.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -411,6 +438,575 @@ __global__ void kd_merge_kernel(const float* __restrict__ part,
   }
 }
 
+// The shared-memory limit is a per-device attribute of a kernel: set it
+// on the first launch on each device, not on every launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                       std::atomic<bool> (&ready)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    ready[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// wgmma instance: TMA ring, warp-specialised, statistics from registers
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BM = 128;                 // rows per block (2 x 64)
+constexpr int BK = 64;                  // K per stage: one 128-byte row
+constexpr int BOX_N = 64;               // vocab columns per B box (128 B)
+constexpr int NSTAGE = 4;
+constexpr int A_BYTES = BM * BK * 2;    // 16 KB
+constexpr int BOX_BYTES = BK * BOX_N * 2;               // 8 KB
+constexpr int STAGE_BYTES = A_BYTES + 4 * BOX_BYTES;    // 48 KB
+constexpr int NTHREADS = 384;           // consumers 0-255, producer 256+
+// stages, 1 KB of slack to align them to the swizzle's 1 KB period, and
+// the full/empty barriers
+constexpr size_t SMEM = NSTAGE * STAGE_BYTES + 1024 + 2 * NSTAGE * 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 2-D tensor map (c0 innermost) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of the accumulators above a wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A[64 x 16] . B[16 x 256]: A K-major, B MN-major (transposed), both
+// 128-byte swizzled in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] . B[16 x 128]: A K-major, B MN-major (transposed), both
+// 128-byte swizzled in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  if constexpr (N == 256)
+    wgmma_n256(d, da, db, scale_d);
+  else
+    wgmma_n128(d, da, db, scale_d);
+}
+
+// Position in the ring, kept alike by the producer and each consumer.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == NSTAGE) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// One side's K loop for a consumer warpgroup: acc = A[its 64 rows] . B
+// over nk stages.  A stage is released (one arrival per warpgroup) as
+// soon as the products that read it are done, while the next stage's
+// run.  A is K-major (advance 32 bytes a k16 step inside the swizzled
+// row); B is MN-major: 8-row K groups 1 KB apart (SBO), 64-column boxes
+// 8 KB apart (LBO), a k16 step 16 rows (2 KB) on.
+template <int N>
+__device__ __forceinline__ void mma_side(float (&acc)[N / 2], int nk,
+                                         uint32_t base, uint32_t full,
+                                         uint32_t empty, Ring& ring, int wg,
+                                         bool leader) {
+  int prev = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    mbar_wait(full + 8 * ring.stage, ring.phase);
+    const uint32_t s = base + ring.stage * STAGE_BYTES;
+    const uint32_t a = s + wg * (A_BYTES / 2), b = s + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_n<N>(acc, desc_sw128(a + kk * 32, 16, 1024),
+                 desc_sw128(b + kk * 16 * 128, BOX_BYTES, 1024),
+                 kb > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kb > 0 && leader) mbar_arrive(empty + 8 * prev);
+    prev = ring.stage;
+    ring.next();
+  }
+  wgmma_wait<0>();
+  if (leader) mbar_arrive(empty + 8 * prev);
+  fence_regs(acc);
+}
+
+// A thread's statistics of one row over the columns it holds.
+struct Row {
+  float m = NEG_INF, l = 0.f, gold = 0.f;  // raw student logits
+  int arg = 0;                              // first index of m
+  float l_st = 0.f;                         // student at tau: max m / tau
+  float mt = NEG_INF, l_tt = 0.f;           // teacher: raw max, l at tau
+  float u = 0.f, w = 0.f;  // sum p z_t, sum p z_s (p at tau), raw units
+};
+
+// Fold a CE tile (N = 256) into the rows' statistics.  d[4j + 2h + e] is
+// row h's column 8j + 2q + e of the tile, i.e. vocab index vq + 8j + e;
+// lim = V - vq, lc[h] = label - vq.  Each row: pass 1 masks, keeps the
+// first maximum and the gold logit; pass 2 sums e^{z - m}.
+template <bool RAGGED>
+__device__ __forceinline__ void fold_ce(float (&d)[128], Row (&st)[2],
+                                        const int (&lc)[2], int vq, int lim,
+                                        float cap) {
+  if (cap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = tanhf(d[i] / cap) * cap;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tmx = NEG_INF;
+    int tk = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 8 * j + e, i = 4 * j + 2 * h + e;
+        if (RAGGED && k >= lim) d[i] = NEG_INF;
+        if (d[i] > tmx) {
+          tmx = d[i];
+          tk = k;
+        }
+        if (k == lc[h]) st[h].gold += d[i];
+      }
+    if (tmx > st[h].m) st[h].arg = vq + tk;  // an earlier tile keeps ties
+    const float m_new = fmaxf(st[h].m, tmx);
+    if (m_new > NEG_INF) {  // else this thread has seen no column yet
+      const float mL = m_new * LOG2E;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        s0 += ex2(fmaf(d[4 * j + 2 * h], LOG2E, -mL));
+        s1 += ex2(fmaf(d[4 * j + 2 * h + 1], LOG2E, -mL));
+      }
+      st[h].l = st[h].l * ex2((st[h].m - m_new) * LOG2E) + (s0 + s1);
+    }
+    st[h].m = m_new;
+  }
+}
+
+// Fold a KD tile pair (student ds, teacher dt, N = 128 each; layout as
+// fold_ce's) into the rows' statistics.
+template <bool RAGGED>
+__device__ __forceinline__ void fold_kd(float (&ds)[64], float (&dt)[64],
+                                        Row (&st)[2], const int (&lc)[2],
+                                        int vq, int lim, float cap_s,
+                                        float cap_t, float inv_tau) {
+  if (cap_s > 0.f) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) ds[i] = tanhf(ds[i] / cap_s) * cap_s;
+  }
+  if (cap_t > 0.f) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dt[i] = tanhf(dt[i] / cap_t) * cap_t;
+  }
+  const float Lt = inv_tau * LOG2E;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    Row& r = st[h];
+    float tmx = NEG_INF, tmt = NEG_INF;
+    int tk = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 8 * j + e, i = 4 * j + 2 * h + e;
+        if (RAGGED && k >= lim) ds[i] = dt[i] = NEG_INF;
+        if (ds[i] > tmx) {
+          tmx = ds[i];
+          tk = k;
+        }
+        if (k == lc[h]) r.gold += ds[i];
+        tmt = fmaxf(tmt, dt[i]);
+      }
+    if (tmx > r.m) r.arg = vq + tk;
+    const float m_new = fmaxf(r.m, tmx), mt_new = fmaxf(r.mt, tmt);
+    if (m_new > NEG_INF) {
+      const float mL = m_new * LOG2E, mLt = m_new * Lt, mtLt = mt_new * Lt;
+      float s = 0.f, s_st = 0.f, s_tt = 0.f, s_u = 0.f, s_w = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float z = ds[i], zt = dt[i];
+          s += ex2(fmaf(z, LOG2E, -mL));
+          s_st += ex2(fmaf(z, Lt, -mLt));
+          const float p = ex2(fmaf(zt, Lt, -mtLt));
+          s_tt += p;
+          s_u = fmaf(p, zt, s_u);
+          s_w = fmaf(p, z, s_w);
+        }
+      r.l = r.l * ex2((r.m - m_new) * LOG2E) + s;
+      r.l_st = r.l_st * ex2((r.m - m_new) * Lt) + s_st;
+      const float c = ex2((r.mt - mt_new) * Lt);
+      r.l_tt = r.l_tt * c + s_tt;
+      r.u = r.u * c + s_u;
+      r.w = r.w * c + s_w;
+    }
+    r.m = m_new;
+    r.mt = mt_new;
+  }
+}
+
+// Combine the 4 lanes of each quad (they share rows) and write the
+// split's statistics in the layout the merge kernel reads.
+template <bool KD>
+__device__ __forceinline__ void write_rows(Row (&st)[2], const int (&row)[2],
+                                           int q, int T, int split,
+                                           int n_splits, float inv_tau,
+                                           float* __restrict__ part,
+                                           int* __restrict__ part_arg) {
+  const float Lt = inv_tau * LOG2E;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const Row& r = st[h];
+    const float mq = max4(r.m);
+    const float l = sum4(r.l * ex2((r.m - mq) * LOG2E));
+    const float gold = sum4(r.gold);
+    float bm = r.m;
+    int ba = r.arg;
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, bm, o);
+      const int oa = __shfl_xor_sync(0xffffffffu, ba, o);
+      if (om > bm || (om == bm && oa < ba)) {
+        bm = om;
+        ba = oa;
+      }
+    }
+    float l_st = 0.f, mtq = 0.f, l_tt = 0.f, u = 0.f, w = 0.f;
+    if constexpr (KD) {
+      l_st = sum4(r.l_st * ex2((r.m - mq) * Lt));
+      mtq = max4(r.mt);
+      const float c = ex2((r.mt - mtq) * Lt);
+      l_tt = sum4(r.l_tt * c);
+      u = sum4(r.u * c);
+      w = sum4(r.w * c);
+    }
+    if (q == 0 && row[h] < T) {
+      auto put = [&](Stat s, float x) {
+        part[((size_t)s * n_splits + split) * T + row[h]] = x;
+      };
+      put(M_S, mq); put(L_S, l); put(GOLD, gold); put(BMAX, mq);
+      part_arg[(size_t)split * T + row[h]] = ba;
+      if constexpr (KD) {
+        put(M_ST, mq * inv_tau); put(L_ST, l_st); put(M_TT, mtq * inv_tau);
+        put(L_TT, l_tt); put(U_T, u * inv_tau); put(W_T, w * inv_tau);
+      }
+    }
+  }
+}
+
+// Per (128-row tile, vocab split).  Threads 0-255: two consumer
+// warpgroups of 64 rows; thread 256: the producer.
+template <bool KD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+kd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hs,
+                const __grid_constant__ CUtensorMap tm_ws,
+                const __grid_constant__ CUtensorMap tm_ht,
+                const __grid_constant__ CUtensorMap tm_wt,
+                const int* __restrict__ labels, float* __restrict__ part,
+                int* __restrict__ part_arg, int T, int Ds, int Dt, int V,
+                int tiles_per_split, float tau, float cap_s, float cap_t) {
+  constexpr int BN = KD ? 128 : 256;  // vocab columns a tile (each side)
+  constexpr int NBOX = BN / BOX_N;
+  constexpr uint32_t TX = A_BYTES + NBOX * BOX_BYTES;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
+  const uint32_t full = base + NSTAGE * STAGE_BYTES, empty = full + 8 * NSTAGE;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * BM, split = blockIdx.y;
+  const int n_tiles = (V + BN - 1) / BN;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(n_tiles, tile_lo + tiles_per_split);
+  const int nks = (Ds + BK - 1) / BK, nkt = KD ? (Dt + BK - 1) / BK : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < NSTAGE; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 256) {
+      Ring ring;
+      for (int tile = tile_lo; tile < tile_hi; ++tile) {
+        const int v0 = tile * BN;
+#pragma unroll 1
+        for (int side = 0; side < (KD ? 2 : 1); ++side) {
+          const CUtensorMap* ma = side ? &tm_ht : &tm_hs;
+          const CUtensorMap* mb = side ? &tm_wt : &tm_ws;
+          const int nk = side ? nkt : nks;
+          for (int kb = 0; kb < nk; ++kb) {
+            mbar_wait(empty + 8 * ring.stage, ring.phase ^ 1);
+            const uint32_t f = full + 8 * ring.stage;
+            const uint32_t s = base + ring.stage * STAGE_BYTES;
+            mbar_expect_tx(f, TX);
+            tma_load(s, ma, f, kb * BK, t0);
+#pragma unroll
+            for (int j = 0; j < NBOX; ++j)
+              tma_load(s + A_BYTES + j * BOX_BYTES, mb, f, v0 + j * BOX_N,
+                       kb * BK);
+            ring.next();
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int q = lane & 3;
+    const bool leader = (tid & 127) == 0;
+    int row[2], lab[2];
+    row[0] = t0 + wg * 64 + warp * 16 + (lane >> 2);
+    row[1] = row[0] + 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lab[h] = row[h] < T ? labels[row[h]] : -1;
+    const float inv_tau = 1.f / tau;
+    Row st[2];
+    Ring ring;
+    for (int tile = tile_lo; tile < tile_hi; ++tile) {
+      const int v0 = tile * BN, vq = v0 + 2 * q, lim = V - vq;
+      const int lc[2] = {lab[0] - vq, lab[1] - vq};
+      const bool ragged = v0 + BN > V;
+      if constexpr (KD) {
+        float ds[64], dt[64];
+        mma_side<128>(ds, nks, base, full, empty, ring, wg, leader);
+        mma_side<128>(dt, nkt, base, full, empty, ring, wg, leader);
+        if (ragged)
+          fold_kd<true>(ds, dt, st, lc, vq, lim, cap_s, cap_t, inv_tau);
+        else
+          fold_kd<false>(ds, dt, st, lc, vq, lim, cap_s, cap_t, inv_tau);
+      } else {
+        float d[128];
+        mma_side<256>(d, nks, base, full, empty, ring, wg, leader);
+        if (ragged)
+          fold_ce<true>(d, st, lc, vq, lim, cap_s);
+        else
+          fold_ce<false>(d, st, lc, vq, lim, cap_s);
+      }
+    }
+    write_rows<KD>(st, row, q, T, split, gridDim.y, inv_tau, part, part_arg);
+  }
+}
+
+}  // namespace tc
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime, so the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// codes kd_loss_fwd_wgmma returns besides cudaError_t's
+constexpr int ERR_NO_ENCODE = -1, ERR_ENCODE = -2;
+
+// a row-major (rows, cols) bf16 matrix read in boxes of box_rows x 64
+// columns (128 bytes), swizzled by 128 bytes, zeros past its edges
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* p, int rows,
+              int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)tc::BOX_N, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool KD>
+int launch_wgmma(const void* hs, const void* ws, const void* ht,
+                 const void* wt, const int* labels, float* ce, float* kl,
+                 float* correct, float* part, int* part_arg, int T, int Ds,
+                 int Dt, int V, int n_splits, int tiles_per_split, float tau,
+                 float cap_s, float cap_t, cudaStream_t stream) {
+  static std::atomic<bool> ready[MAX_DEVICES];
+  cudaError_t err = allow_smem(tc::kd_wgmma_kernel<KD>, tc::SMEM, ready);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return ERR_NO_ENCODE;
+  CUtensorMap m_hs, m_ws, m_ht = {}, m_wt = {};
+  if (!make_map(enc, &m_hs, hs, T, Ds, tc::BM) ||
+      !make_map(enc, &m_ws, ws, Ds, V, tc::BK))
+    return ERR_ENCODE;
+  if (KD && (!make_map(enc, &m_ht, ht, T, Dt, tc::BM) ||
+             !make_map(enc, &m_wt, wt, Dt, V, tc::BK)))
+    return ERR_ENCODE;
+  dim3 grid((T + tc::BM - 1) / tc::BM, n_splits);
+  tc::kd_wgmma_kernel<KD><<<grid, tc::NTHREADS, tc::SMEM, stream>>>(
+      m_hs, m_ws, m_ht, m_wt, labels, part, part_arg, T, Ds, Dt, V,
+      tiles_per_split, tau, cap_s, cap_t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kd_merge_kernel<KD><<<(T + 255) / 256, 256, 0, stream>>>(
+      part, part_arg, labels, ce, kl, correct, T, n_splits, tau);
+  return cudaGetLastError();
+}
+
 template <typename Tin, bool KD>
 cudaError_t launch(const void* hs, const void* ws, const void* ht,
                    const void* wt, const int* labels, float* ce, float* kl,
@@ -418,20 +1014,9 @@ cudaError_t launch(const void* hs, const void* ws, const void* ht,
                    int Dt, int V, int n_splits, int tiles_per_split,
                    float tau, float cap_s, float cap_t, cudaStream_t stream) {
   constexpr size_t smem = STAGE_BYTES + TILE_BYTES * (KD ? 2 : 1);
-  // the shared-memory limit is a per-device attribute of the kernel: set
-  // it on the first launch on each device, not on every launch
   static std::atomic<bool> ready[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(kd_partial_kernel<Tin, KD>, smem, ready);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!ready[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kd_partial_kernel<Tin, KD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    ready[dev].store(true, std::memory_order_release);
-  }
   const bool vec_s = Ds % 8 == 0 && reinterpret_cast<uintptr_t>(hs) % 16 == 0;
   const bool vec_t =
       KD && Dt % 8 == 0 && reinterpret_cast<uintptr_t>(ht) % 16 == 0;
@@ -468,6 +1053,7 @@ cudaError_t dispatch(int with_teacher, const void* hs, const void* ws,
 
 extern "C" {
 
+// The general and f32 instances.
 // dtype: 0 = float32, 1 = bfloat16 (hs, ws, ht, wt share it).  part holds
 // NSTAT * n_splits * T floats, part_arg n_splits * T ints; splits cover
 // tiles_per_split vocab tiles of 128 each.  Returns cudaGetLastError().
@@ -499,7 +1085,42 @@ int kd_loss_fwd(const void* hs, const void* ws, const void* ht,
 
 int kd_loss_nstat() { return NSTAT; }
 
+// The wgmma instance: bf16 only; Ds, Dt and V multiples of 8 and every
+// base 16-byte aligned (TMA's strides and addresses); splits cover
+// tiles_per_split vocab tiles of 256 columns (128 with a teacher).  Other
+// arguments as kd_loss_fwd's.  Returns cudaGetLastError(), or
+// ERR_NO_ENCODE / ERR_ENCODE when no tensor map could be made.
+int kd_loss_fwd_wgmma(const void* hs, const void* ws, const void* ht,
+                      const void* wt, const int* labels, float* ce,
+                      float* kl, float* correct, float* part, int* part_arg,
+                      int T, int Ds, int Dt, int V, int n_splits,
+                      int tiles_per_split, int with_teacher, float tau,
+                      float softcap_s, float softcap_t, void* stream) {
+  const int bn = with_teacher ? 128 : 256;
+  const int n_tiles = (V + bn - 1) / bn;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (T <= 0 || Ds <= 0 || V <= 0 || Ds % 8 || V % 8 || n_splits <= 0 ||
+      tiles_per_split <= 0 || (n_splits - 1) * tiles_per_split >= n_tiles ||
+      n_splits * tiles_per_split < n_tiles || !(tau > 0.f) ||
+      !aligned(hs) || !aligned(ws) ||
+      (with_teacher && (Dt <= 0 || Dt % 8 || !aligned(ht) || !aligned(wt))))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (with_teacher)
+    return launch_wgmma<true>(hs, ws, ht, wt, labels, ce, kl, correct, part,
+                              part_arg, T, Ds, Dt, V, n_splits,
+                              tiles_per_split, tau, softcap_s, softcap_t, s);
+  return launch_wgmma<false>(hs, ws, ht, wt, labels, ce, kl, correct, part,
+                             part_arg, T, Ds, Dt, V, n_splits,
+                             tiles_per_split, tau, softcap_s, softcap_t, s);
+}
+
 const char* kd_loss_error_string(int err) {
+  if (err == ERR_NO_ENCODE)
+    return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
+  if (err == ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -5,13 +5,17 @@ kernel ``_kd_kernel``) behind the signatures of
 ``repro.kernels.kd_loss.ops.ce_from_hidden`` / ``ce_kl_from_hidden``.
 The CUDA source is ``csrc/kd_loss.cu``; its header says what bounds it
 on the H100 (arithmetic: 2·T·D·V flops) and what the design does about
-it (vocab split across the grid, a merge kernel, mma.sync for bf16).
+it (vocab split across the grid, a merge kernel, and for bf16 TMA and
+``wgmma`` with the statistics kept in registers).
 
 Forward: a CPU tensor runs the plain version in ``ref.py``; a CUDA
 tensor launches the kernel or raises — nothing falls back.  The kernel
 reads ``ws`` (D, V) row-major: a tied head's ``embed.T`` is a transposed
 view, which the wrapper copies with ``.contiguous()`` (only tied
-families pay it).  ``LAUNCHES`` counts kernel launches.
+families pay it).  ``instance`` picks the kernel's instance from dtypes,
+shapes and pointers alone: ``wgmma`` (bf16 whose rows and bases suit
+TMA), ``general`` (any other bf16), ``f32``.  ``LAUNCHES`` counts kernel
+launches, ``LAUNCHES_BY_INSTANCE`` the same launches by instance.
 
 Backward: ``_ce_bwd`` / ``_ce_kl_bwd`` of the reference, the same on the
 CPU and on the card: two passes over vocab blocks of ``block_v``
@@ -35,8 +39,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.kd_loss.ref import ce_kl_ref, ce_ref
 
 LAUNCHES = 0
+LAUNCHES_BY_INSTANCE = {"wgmma": 0, "general": 0, "f32": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_T, TILE_V = 64, 128   # rows and vocab columns per block (kd_loss.cu)
+# per instance (kd_loss.cu): rows and vocab columns a block's tile (the
+# wgmma instance's KD tiles are half as wide: 128 columns a side), and
+# the blocks an SM its grid is sized for (the wgmma instance: one wave of
+# one block an SM; the others: about four an SM)
+TILES = {"wgmma": (128, 256, 1), "general": (64, 128, 4), "f32": (64, 128, 4)}
 _fn = None
 
 
@@ -48,21 +57,47 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        tc = lib.kd_loss_fwd_wgmma
+        tc.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        tc.restype = ctypes.c_int
         lib.kd_loss_nstat.restype = ctypes.c_int
         lib.kd_loss_error_string.argtypes = [ctypes.c_int]
         lib.kd_loss_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.kd_loss_nstat(), lib.kd_loss_error_string)
+        _fn = (fn, tc, lib.kd_loss_nstat(), lib.kd_loss_error_string)
     return _fn
 
 
-def vocab_splits(T: int, V: int, n_sm: int):
-    """(splits, tiles per split) of the kernel's grid: enough (row tile,
-    vocab split) blocks for about four per SM, every split non-empty."""
-    n_rt = -(-T // TILE_T)
-    n_vt = -(-V // TILE_V)
-    ns = max(1, min(n_vt, -(-4 * n_sm // n_rt)))
+def tile_shape(inst: str, teacher: bool = False):
+    """(rows, vocab columns) of one block's tile in ``inst``."""
+    rows, cols, _ = TILES[inst]
+    return rows, cols // 2 if inst == "wgmma" and teacher else cols
+
+
+def vocab_splits(T: int, V: int, n_sm: int, inst: str = "wgmma",
+                 teacher: bool = False):
+    """(splits, tiles per split) of ``inst``'s grid of (row tile, vocab
+    split) blocks: at most its blocks an SM on ``n_sm`` SMs, at least
+    one split, every split non-empty."""
+    tile_t, tile_v = tile_shape(inst, teacher)
+    n_rt = -(-T // tile_t)
+    n_vt = -(-V // tile_v)
+    ns = max(1, min(n_vt, TILES[inst][2] * n_sm // n_rt))
     tps = -(-n_vt // ns)
     return -(-n_vt // tps), tps
+
+
+def instance(hs, ws, ht=None, wt=None) -> str:
+    """The instance a CUDA launch on these (contiguous) tensors takes:
+    ``wgmma`` for bf16 whose row lengths (Ds, Dt, V) are multiples of 8
+    and whose bases are 16-byte aligned (TMA's strides and addresses),
+    ``general`` for any other bf16, ``f32`` for f32."""
+    if hs.dtype == torch.float32:
+        return "f32"
+    ts = [hs, ws] if ht is None else [hs, ws, ht, wt]
+    if all(t.shape[1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in ts):
+        return "wgmma"
+    return "general"
 
 
 def _check_inputs(hs, ws, ht, wt, labels):
@@ -122,23 +157,29 @@ def kd_loss_fwd(hs, ws, ht, wt, labels, *, tau: float = 1.0,
     if with_teacher:
         ht, wt = ht.contiguous(), wt.contiguous()
     Dt = ht.shape[1] if with_teacher else 0
-    fn, nstat, err_str = _kernel()
+    fn, fn_wgmma, nstat, err_str = _kernel()
+    inst = instance(hs, ws, ht, wt)
     n_sm = torch.cuda.get_device_properties(hs.device).multi_processor_count
-    ns, tps = vocab_splits(T, V, n_sm)
+    ns, tps = vocab_splits(T, V, n_sm, inst, with_teacher)
     f32 = dict(dtype=torch.float32, device=hs.device)
     ce, kl, cor = (torch.empty(T, **f32) for _ in range(3))
     part = torch.empty(nstat * ns * T, **f32)
     part_arg = torch.empty(ns * T, dtype=torch.int32, device=hs.device)
-    err = fn(hs.data_ptr(), ws.data_ptr(),
-             ht.data_ptr() if with_teacher else None,
-             wt.data_ptr() if with_teacher else None,
-             labels.data_ptr(), ce.data_ptr(), kl.data_ptr(), cor.data_ptr(),
-             part.data_ptr(), part_arg.data_ptr(), _DTYPES[hs.dtype], T, Ds,
-             Dt, V, ns, tps, int(with_teacher), float(tau), float(softcap_s),
-             float(softcap_t),
-             torch.cuda.current_stream(hs.device).cuda_stream)
-    _build.check(err, "kd_loss_fwd", err_str)
+    ptrs = (hs.data_ptr(), ws.data_ptr(),
+            ht.data_ptr() if with_teacher else None,
+            wt.data_ptr() if with_teacher else None,
+            labels.data_ptr(), ce.data_ptr(), kl.data_ptr(), cor.data_ptr(),
+            part.data_ptr(), part_arg.data_ptr())
+    rest = (T, Ds, Dt, V, ns, tps, int(with_teacher), float(tau),
+            float(softcap_s), float(softcap_t),
+            torch.cuda.current_stream(hs.device).cuda_stream)
+    if inst == "wgmma":
+        err = fn_wgmma(*ptrs, *rest)
+    else:
+        err = fn(*ptrs, _DTYPES[hs.dtype], *rest)
+    _build.check(err, f"kd_loss_fwd ({inst})", err_str)
     LAUNCHES += 1
+    LAUNCHES_BY_INSTANCE[inst] += 1
     return ce, kl, cor
 
 

@@ -188,10 +188,37 @@ def test_inputs_are_checked():
 
 
 def test_vocab_splits_cover_the_vocab():
-    for T, V, n_sm in [(2048, 32000, 132), (64, 129, 132), (5000, 128, 8),
-                       (1, 1, 132), (130, 1000, 132)]:
-        ns, tps = ops.vocab_splits(T, V, n_sm)
-        n_tiles = -(-V // ops.TILE_V)
-        assert (ns - 1) * tps < n_tiles <= ns * tps
-    # the path's shape: 32 row tiles x 17 splits = 544 blocks on 132 SMs
-    assert ops.vocab_splits(2048, 32000, 132) == (17, 15)
+    for inst in ops.TILES:
+        for teacher in (False, True):
+            _, tile_v = ops.tile_shape(inst, teacher)
+            for T, V, n_sm in [(2048, 32000, 132), (64, 129, 132),
+                               (5000, 128, 8), (1, 1, 132), (130, 1000, 132),
+                               (2048, 151936, 132), (20000, 4104, 132)]:
+                ns, tps = ops.vocab_splits(T, V, n_sm, inst, teacher)
+                n_tiles = -(-V // tile_v)
+                assert (ns - 1) * tps < n_tiles <= ns * tps
+    # the paths' shapes in the wgmma instance: 16 row tiles x 8 splits =
+    # 128 blocks, one wave of 132 SMs at one block an SM
+    assert ops.vocab_splits(2048, 32000, 132) == (8, 16)
+    assert ops.vocab_splits(2048, 151936, 132) == (8, 75)
+    assert ops.vocab_splits(2048, 32000, 132, "wgmma", True) == (8, 32)
+    # the general instance: 32 row tiles x 16 splits, four blocks an SM
+    assert ops.vocab_splits(2048, 32000, 132, "general") == (16, 16)
+
+
+@pytest.mark.parametrize("dtype,Ds,Dt,V,offset,want", [
+    (torch.bfloat16, 2048, 0, 32000, 0, "wgmma"),
+    (torch.bfloat16, 136, 72, 4104, 0, "wgmma"),
+    (torch.bfloat16, 136, 0, 4099, 0, "general"),
+    (torch.bfloat16, 136, 70, 4104, 0, "general"),
+    (torch.bfloat16, 132, 0, 4104, 0, "general"),
+    (torch.bfloat16, 136, 0, 4104, 1, "general"),
+    (torch.float32, 136, 0, 4104, 0, "f32")])
+def test_instance_follows_shapes_and_pointers(dtype, Ds, Dt, V, offset,
+                                              want):
+    T = 3
+    hs = torch.zeros(T * Ds + offset, dtype=dtype)[offset:].view(T, Ds)
+    ws = torch.zeros(Ds, V, dtype=dtype)
+    ht = torch.zeros(T, Dt, dtype=dtype) if Dt else None
+    wt = torch.zeros(Dt, V, dtype=dtype) if Dt else None
+    assert ops.instance(hs, ws, ht, wt) == want

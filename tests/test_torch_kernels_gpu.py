@@ -12,7 +12,11 @@ every head dim, each element within two bf16 ulps of the plain output +
 1e-4, the rule ``chip_smoke.py`` holds it to: both accumulate in f32
 and round once.
 The kd_loss kernel also takes bf16 here: its products are exact in f32,
-so only the summation order differs and 1e-4 holds for it too.  The MoE
+so only the summation order differs and 1e-4 holds for it too.  Its
+instances (``wgmma`` on TMA, ``general``, ``f32``) are held on ragged
+edges, counted per instance, launched twice with the same bits, and at
+T 2048 with V 32000 and 151936 every vocab tile of the split holds some
+row's planted maximum.  The MoE
 kernels' bf16 outputs (rounded once from f32, as the plain versions
 round) are held to 1e-2 relative (about two bf16 ulps) + 1e-4; the
 dispatch kernel adds rows in the plain version's order and must equal
@@ -476,7 +480,13 @@ def _near_ties(hs, ws, cap, margin=1e-4):
     (77, 64, 48, 333, torch.float32, 2.0, 30.0, 50.0),
     (256, 256, 128, 4099, torch.bfloat16, 2.0, 0.0, 0.0),
     (200, 40, 0, 777, torch.bfloat16, 1.0, 15.0, 0.0),
-    (64, 136, 72, 129, torch.bfloat16, 0.5, 0.0, 20.0)])
+    (64, 136, 72, 129, torch.bfloat16, 0.5, 0.0, 20.0),
+    # the wgmma instance on ragged T, V and D
+    (130, 136, 0, 4104, torch.bfloat16, 1.0, 0.0, 0.0),
+    (2049, 256, 0, 32008, torch.bfloat16, 1.0, 15.0, 0.0),
+    (130, 136, 72, 4104, torch.bfloat16, 0.5, 0.0, 20.0),
+    (2049, 136, 200, 32008, torch.bfloat16, 2.0, 30.0, 0.0),
+    (1, 8, 8, 8, torch.bfloat16, 1.0, 0.0, 0.0)])
 def test_kd_loss_kernel_matches_plain(cuda, T, Ds, Dt, V, dtype, tau,
                                       cap_s, cap_t):
     hs, ws, ht, wt, lab = _kd_inputs(cuda, T, Ds, Dt, V, dtype)
@@ -518,6 +528,67 @@ def test_kd_loss_kernel_argmax_ties_take_the_lowest_index(cuda, dtype):
     want_ce, want_cor = ce_ref(hs, ws, lab)
     assert torch.equal(cor, want_cor)
     assert torch.equal(cor, (rows % 2 == 0).float())
+    torch.testing.assert_close(ce, want_ce, **TOL)
+
+
+@pytest.mark.parametrize("T,Ds,Dt,V,misalign,want", [
+    (130, 136, 0, 4104, False, "wgmma"),
+    (130, 136, 72, 4104, False, "wgmma"),
+    (130, 136, 0, 4099, False, "general"),
+    (130, 136, 70, 4104, False, "general"),
+    (130, 132, 0, 4104, False, "general"),
+    (130, 136, 0, 4104, True, "general")])
+def test_kd_loss_counts_launches_by_instance(cuda, T, Ds, Dt, V, misalign,
+                                             want):
+    hs, ws, ht, wt, lab = _kd_inputs(cuda, T, Ds, Dt, V, torch.bfloat16)
+    if misalign:
+        hs = torch.cat([hs.new_zeros(1), hs.flatten()])[1:].view(T, Ds)
+    assert kd.instance(hs, ws, ht, wt) == want
+    before, n0 = dict(kd.LAUNCHES_BY_INSTANCE), kd.LAUNCHES
+    kd.kd_loss_fwd(hs, ws, ht, wt, lab)
+    assert kd.LAUNCHES == n0 + 1
+    assert {k: v - before[k] for k, v in kd.LAUNCHES_BY_INSTANCE.items()} \
+        == {k: int(k == want) for k in before}
+
+
+@pytest.mark.parametrize("T,Ds,Dt,V,dtype", [
+    (2049, 136, 0, 32008, torch.bfloat16),
+    (2049, 136, 200, 32008, torch.bfloat16),
+    (256, 256, 128, 4099, torch.bfloat16),
+    (130, 96, 0, 1000, torch.float32)])
+def test_kd_loss_repeats_bit_identical(cuda, T, Ds, Dt, V, dtype):
+    """The splits merge in a fixed order, without atomics."""
+    x = _kd_inputs(cuda, T, Ds, Dt, V, dtype)
+    one = kd.kd_loss_fwd(*x, tau=2.0)
+    two = kd.kd_loss_fwd(*x, tau=2.0)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("V", [32000, 151936])
+def test_kd_loss_splits_cover_every_tile(cuda, V):
+    """At the train and tune paths' T and V, row r's logits are ws[r]
+    (hs the identity), integers in [-3, 3] with a 9 in vocab tile
+    r % n_tiles: every tile of every split holds some row's maximum, so a
+    tile left out would show in ce and correct."""
+    T = D = 2048
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, tile_v = kd.tile_shape("wgmma")
+    ns, tps = kd.vocab_splits(T, V, n_sm)
+    n_tiles = -(-V // tile_v)
+    assert (ns - 1) * tps < n_tiles <= ns * tps and n_tiles <= T
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rows = torch.arange(T, device=cuda)
+    col = (rows % n_tiles) * tile_v + rows * 7 % tile_v
+    col = torch.minimum(col, torch.full_like(col, V - 1))
+    hs = torch.eye(T, D, device=cuda).bfloat16()
+    ws = torch.randint(-3, 4, (D, V), generator=g, device=cuda)
+    ws[rows, col] = 9
+    ws = ws.bfloat16()
+    lab = col.to(torch.int32)
+    assert kd.instance(hs, ws) == "wgmma"
+    ce, _, cor = kd.kd_loss_fwd(hs, ws, None, None, lab)
+    want_ce, _ = ce_ref(hs, ws, lab)
+    assert (cor == 1).all()
     torch.testing.assert_close(ce, want_ce, **TOL)
 
 
