@@ -29,7 +29,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and in KD mode, and on ragged T, V and D; ``general`` for rows or
    bases TMA cannot take; ``f32``), every case launched twice and
    bit-identical, planted ties across vocab-tile and split boundaries
-   going to the lower index; kernel, plain
+   going to the lower index; the grouped matmul in each instance
+   (``wgmma`` and ``wgmma_split`` timed at the backward's five layouts
+   at the tune path's shapes, f32 operands split on the card; ragged M,
+   N and K, K below one chunk, one expert, odd N; ``general`` for
+   misaligned operands; ``f32``), every case launched twice and
+   bit-identical, and its split pass bit for bit; kernel, plain
    and library-call times (``scaled_dot_product_attention``, matmul +
    ``cross_entropy``, ``torch.bmm``, ``index_add_``: yardsticks the
    port never calls; none for the SSD scan) from CUDA events
@@ -73,7 +78,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``DeepFusionServer.merge_and_tune`` for 6 steps of 4 x 1024 tokens
    with frozen experts at lr 5e-4.  Checks finite losses, frozen experts
    bit-identical and every trainable leaf changed, the MoE kernels'
-   launch counts (every kd_loss launch in the wgmma instance), the
+   launch counts (every kd_loss launch in the wgmma instance, every
+   grouped-matmul launch in a tensor-core instance), the
    kernel path's loss and gradients against its plain
    version in bf16 and in f32 (the dropless plain path reported), and
    reports ms per step, tokens/s, MFU, peak memory, dropped assignments
@@ -222,8 +228,12 @@ def _kernel_label(mangled: str) -> str:
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
     if not m:
         return mangled[:60]
-    start = m.end() + int(m.group(1))
-    name, rest = mangled[m.end():start], mangled[start:]
+    pos, parts = m.start(1), []
+    while d := re.match(r"\d+", mangled[pos:]):  # nested namespaces
+        start = pos + d.end()
+        pos = start + int(d.group())
+        parts.append(mangled[start:pos])
+    name, rest = "::".join(parts), mangled[pos:]
     if rest.startswith("I"):
         name += rest[:rest.find("EE") + 2]
     return name
@@ -652,36 +662,121 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def gmm_case(gen, E, M, K, N, *, ta=False, tb=False, da=torch.float32,
-             db=torch.float32, dc=torch.float32, timed=False):
-    """The grouped-matmul kernel against its plain version (bmm of f32
-    casts).  A ~N(0,1), B ~N(0,1/K), so outputs are O(1).  ``ta``/``tb``
-    hand the kernel transposed views, as the backward does."""
+def _library_gmm(plain):
+    """One PyTorch call computing the same product(s) as ``plain`` [(a,
+    b), ...] (two products as one bmm over K concatenated): where both
+    operands are bf16, torch.bmm with f32 sums and an f32 output
+    (``out_dtype``); else f32 torch.bmm on f32 copies (TF32 off).
+    Returns (the call, its description)."""
+    a = torch.cat([p[0] for p in plain], 2)
+    b = torch.cat([p[1] for p in plain], 1)
+    if a.dtype == b.dtype == torch.bfloat16:
+        return (lambda: torch.bmm(a, b, out_dtype=torch.float32),
+                "torch.bmm(bf16, bf16, out_dtype=float32)")
+    af, bf_ = a.float(), b.float()
+    return (lambda: torch.bmm(af, bf_)), "torch.bmm(float32)"
+
+
+def gmm_case(gen, E, M, K, N, *, inst, ta=False, tb=False, da=torch.float32,
+             db=torch.float32, dc=torch.float32, split=None, two=False,
+             off=None, label="", timed=False):
+    """The grouped-matmul kernel against its plain version on the f32
+    values (bmm of f32 casts).  A ~N(0,1), B ~N(0,1/K), so outputs are
+    O(1).  ``ta``/``tb`` hand the kernel transposed views, as the
+    backward does; ``split`` ("a" or "b") hands it that f32 operand as
+    the two bf16 terms of ``ops.split_f32`` (made on the card, not
+    timed), as the backward does; ``two`` adds a second product of the
+    same kind into the sum (dx); ``off`` ("a" or "b") makes that operand
+    a view one element into its storage (off TMA's 16-byte alignment).
+    Fails unless the launch takes instance ``inst`` and a second launch
+    gives the same bits.  Timed: the bound is the f32 values' bytes (an
+    f32 operand read once as f32) and the products at the bf16 tensor-core
+    rate, the least the card can take for an f32-accurate product of a
+    bf16 operand."""
     from repro_torch.kernels.moe_gemm import ops, ref
-    a = torch.randn((E, K, M) if ta else (E, M, K), generator=gen,
-                    device="cuda").to(da)
-    b = (torch.randn((E, N, K) if tb else (E, K, N), generator=gen,
-                     device="cuda") / K ** 0.5).to(db)
-    a = a.transpose(1, 2) if ta else a
-    b = b.transpose(1, 2) if tb else b
-    out = ops.grouped_matmul(a, b, out_dtype=dc)
-    want = ref.grouped_matmul_ref(a, b, dc)
+
+    def draw(shape, scale, dtype, misalign):
+        n = math.prod(shape) + misalign
+        t = (torch.randn(n, generator=gen, device="cuda") * scale).to(dtype)
+        return t[misalign:].view(shape)
+
+    def split_view(t, transposed):
+        if not transposed:
+            return ops.split_f32(t)
+        return ops.split_f32(t.transpose(1, 2)).transpose(1, 2)
+
+    pairs, plain = [], []
+    for _ in range(2 if two else 1):
+        a = draw((E, K, M) if ta else (E, M, K), 1.0, da, int(off == "a"))
+        b = draw((E, N, K) if tb else (E, K, N), K ** -0.5, db,
+                 int(off == "b"))
+        a = a.transpose(1, 2) if ta else a
+        b = b.transpose(1, 2) if tb else b
+        plain.append((a, b))
+        pairs.append((split_view(a, ta) if split == "a" else a,
+                      split_view(b, tb) if split == "b" else b))
+    plus = pairs[1] if two else None
+    name = (f"grouped_matmul {label + ' ' if label else ''}E={E} M={M} "
+            f"K={K} N={N} a={str(da)[6:]}{'^T' if ta else ''}"
+            f"{' split' if split == 'a' else ''} "
+            f"b={str(db)[6:]}{'^T' if tb else ''}"
+            f"{' split' if split == 'b' else ''}{' x2' if two else ''} "
+            f"out={str(dc)[6:]}{f' {off} misaligned' if off else ''}")
+    got = ops.instance(*pairs[0], plus=plus)
+    if got != inst:
+        fail(f"{name}: takes the {got} instance, expected {inst}")
+
+    def run():
+        return ops.grouped_matmul(*pairs[0], out_dtype=dc, plus=plus)
+
+    def plain_run():
+        return ref.grouped_matmul_ref(*plain[0], dc,
+                                      plain[1] if two else None)
+    n0 = dict(ops.LAUNCHES_BY_INSTANCE)
+    out = run()
+    n0[inst] += 1
+    if ops.LAUNCHES_BY_INSTANCE != n0:
+        fail(f"{name}: launches by instance {ops.LAUNCHES_BY_INSTANCE}, "
+             f"expected {n0}")
+    want = plain_run()
     torch.cuda.synchronize()
-    row = check_close(f"grouped_matmul E={E} M={M} K={K} N={N} "
-                      f"a={str(da)[6:]}{'^T' if ta else ''} "
-                      f"b={str(db)[6:]}{'^T' if tb else ''} "
-                      f"out={str(dc)[6:]}", out, want)
+    row = check_close(name, out, want)
+    _check_repeat(name, out, run)
+    row["instance"] = inst
     if timed:
-        af, bf_ = a.float().contiguous(), b.float().contiguous()
-        row.update(ms=time_ms(lambda: ops.grouped_matmul(a, b, out_dtype=dc)),
-                   plain_ms=time_ms(lambda: ref.grouped_matmul_ref(a, b, dc)),
-                   library_ms=time_ms(lambda: torch.bmm(af, bf_)))
-        # bf16 x bf16 products are exact in f32, so the card's rate for
-        # them is the bf16 tensor-core rate; an f32 operand takes the f32
-        # rate (TF32 would round it)
-        peak = torch.bfloat16 if da == db == torch.bfloat16 else torch.float32
+        library, row["library"] = _library_gmm(plain)
+        row.update(ms=time_ms(run), plain_ms=time_ms(plain_run),
+                   library_ms=time_ms(library))
         row["bound_ms"], row["bound_by"] = bound_ms(
-            _nbytes(a, b, out), 2 * E * M * N * K, peak)
+            sum(_nbytes(x, y) for x, y in plain) + _nbytes(out),
+            2 * E * M * N * K * len(plain), torch.bfloat16)
+    return row
+
+
+def split_case(gen, shape, *, timed=False):
+    """The split pass against its plain version, both terms bit for bit,
+    on values spanning 2^-40 .. 2^40; a second launch equal."""
+    from repro_torch.kernels.moe_gemm import ops, ref
+    t = torch.randn(shape, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-40, 40, shape, generator=gen, device="cuda").float())
+    got = ops.split_f32(t)
+    want = ref.split_f32_ref(t)
+    torch.cuda.synchronize()
+    name = f"split_f32 {'x'.join(map(str, shape))}"
+    if not (torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)):
+        fail(f"{name}: the bf16 terms differ from the plain version's")
+    again = ops.split_f32(t)
+    if not (torch.equal(got.hi, again.hi) and torch.equal(got.lo, again.lo)):
+        fail(f"{name}: a second launch on the same inputs differs")
+    row = {"case": name, "max_abs_err": 0.0, "err_over_limit": 0.0,
+           "equal_to_plain": True}
+    if timed:
+        row.update(ms=time_ms(lambda: ops.split_f32(t)),
+                   plain_ms=time_ms(lambda: ref.split_f32_ref(t)),
+                   library_ms=None)
+        # t read once, both bf16 terms written once
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(t) + _nbytes(got.hi, got.lo), 0, torch.float32)
     return row
 
 
@@ -783,7 +878,8 @@ def gsa_case(gen, direction, T, E, k, D, dtype, *, bias=0.0, timed=False):
 
 
 def moe_cases(gen):
-    """Kernels 4-6 at the tune path's shapes (timed), and edge cases."""
+    """Kernels 4-6 (and kernel 5's split pass) at the tune path's shapes
+    (timed), and edge cases."""
     bf, f32 = torch.bfloat16, torch.float32
     E, C, D, Fh = MOE_E, MOE_CAP, MOE_D, MOE_F
     # edges of the bf16 tensor-core instance: C = 1, ragged C and F, F
@@ -798,18 +894,52 @@ def moe_cases(gen):
            ffn_case(gen, 2, 33, 72, 45, bf, act="gelu"),
            ffn_case(gen, 2, 130, 256, 200, bf, off="x"),
            ffn_case(gen, 2, 130, 256, 200, bf, act="gelu", off="wo")]
-    # the backward's products at the path's shapes: g = x @ wg, then
-    # dwg = x^T @ dg and dh = dy @ wo^T through transposed views
-    gmm = [gmm_case(gen, E, C, D, Fh, da=bf, db=bf, timed=True),
-           gmm_case(gen, E, D, C, Fh, ta=True, da=bf, db=f32, timed=True),
-           gmm_case(gen, E, C, D, Fh, tb=True, da=bf, db=bf),
+    # the backward's seven launches at the path's shapes, as it forms
+    # them (bf16 model; dg, du and h split on the card), then each
+    # instance's edges: ragged M, N and K, K below one 64-deep chunk, odd
+    # N, one expert, bf16 out, misaligned operands (general), f32
+    gmm = [gmm_case(gen, E, C, D, Fh, da=bf, db=bf, inst="wgmma",
+                    label="x@wg", timed=True),
+           gmm_case(gen, E, C, D, Fh, tb=True, da=bf, db=bf, inst="wgmma",
+                    label="dy@wo^T", timed=True),
+           gmm_case(gen, E, C, Fh, D, tb=True, da=f32, db=bf, dc=bf,
+                    split="a", two=True, inst="wgmma_split",
+                    label="dg@wg^T+du@wu^T", timed=True),
+           gmm_case(gen, E, D, C, Fh, ta=True, da=bf, db=f32, dc=bf,
+                    split="b", inst="wgmma_split", label="x^T@dg",
+                    timed=True),
+           gmm_case(gen, E, Fh, C, D, ta=True, da=f32, db=bf, dc=bf,
+                    split="a", inst="wgmma_split", label="h^T@dy",
+                    timed=True),
+           gmm_case(gen, 3, 130, 136, 69, tb=True, da=bf, db=bf, dc=bf,
+                    inst="wgmma"),
+           gmm_case(gen, 3, 136, 37, 200, ta=True, da=bf, db=bf,
+                    inst="wgmma"),
+           gmm_case(gen, 2, 72, 136, 130, ta=True, tb=True, da=bf, db=bf,
+                    dc=bf, two=True, inst="wgmma"),
+           gmm_case(gen, 2, 130, 136, 264, tb=True, da=f32, db=bf,
+                    split="a", two=True, inst="wgmma_split"),
+           gmm_case(gen, 3, 200, 100, 136, ta=True, da=bf, db=f32,
+                    split="b", inst="wgmma_split"),
+           gmm_case(gen, 3, 136, 37, 200, ta=True, da=f32, db=bf,
+                    split="a", inst="wgmma_split"),
+           gmm_case(gen, 1, 130, 72, 200, da=f32, db=bf, dc=bf, split="a",
+                    inst="wgmma_split"),
+           gmm_case(gen, 2, 130, 136, 200, da=bf, db=bf, off="a",
+                    inst="general"),
+           gmm_case(gen, 2, 130, 136, 200, da=f32, db=bf, split="a",
+                    off="b", two=True, inst="general"),
            gmm_case(gen, 3, 130, 37, 70, ta=True, tb=True, da=f32, db=bf,
-                    dc=bf)]
+                    dc=bf, inst="general"),
+           gmm_case(gen, 3, 130, 37, 70, ta=True, da=f32, db=f32, two=True,
+                    inst="f32")]
+    split = [split_case(gen, (E, C, Fh), timed=True),
+             split_case(gen, (3, 130, 37))]
     gsa = [gsa_case(gen, "dispatch", MOE_T, E, MOE_K, D, bf, timed=True),
            gsa_case(gen, "combine", MOE_T, E, MOE_K, D, bf, timed=True),
            gsa_case(gen, "dispatch", MOE_T, E, MOE_K, D, bf, bias=4.0),
            gsa_case(gen, "combine", 300, 8, 2, 2100, f32, bias=3.0)]
-    return ffn, gmm, gsa
+    return ffn, gmm, split, gsa
 
 
 # SSD scan outputs: bf16 y within two bf16 ulps of the case's largest |y|
@@ -1061,15 +1191,16 @@ def phase_kernels():
     hd_flash, hd_paged, hd_quant = head_dim_cases(gen)
     flash += flash_bf16_cases(gen)
     kd = kd_cases(gen)
-    ffn, gmm, gsa = moe_cases(gen)
+    ffn, gmm, split, gsa = moe_cases(gen)
     ssd = ssd_cases(gen)
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
-                + ffn + gmm + gsa + ssd):
+                + ffn + gmm + split + gsa + ssd):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0],
             "grouped_ffn": ffn[0],
-            "grouped_matmul": gmm[0], "gather_scatter_add": gsa[0],
+            "grouped_matmul": gmm[0], "split_f32": split[0],
+            "gather_scatter_add": gsa[0],
             "ssd_scan": ssd[0]}
 
 
@@ -1997,6 +2128,21 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+def _gmm_on_tensor_cores(mg_ops, layer_steps, phase):
+    """The bf16 backward's grouped products all took a tensor-core
+    instance: per layer and step three of two bf16 operands (g, u, dh:
+    wgmma) and four with a split f32 operand (dx's pair, dwg, dwu, dwo:
+    wgmma_split), none on the CUDA cores (an f32 dy would have sent dh
+    and dwo there)."""
+    by = dict(mg_ops.LAUNCHES_BY_INSTANCE)
+    want = {"wgmma": 3 * layer_steps, "wgmma_split": 4 * layer_steps,
+            "general": 0, "f32": 0}
+    print(f"{phase}: grouped_matmul launches by instance {by}")
+    if by != want:
+        fail(f"{phase}: grouped_matmul launches by instance {by}, "
+             f"expected {want}")
+
+
 # phase 7: Phase III on Qwen1.5-MoE-A2.7B, full width, 12 of 24 layers
 # ---------------------------------------------------------------------------
 
@@ -2224,7 +2370,9 @@ def phase_tune():
     fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
     kd_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
         kd_ops.LAUNCHES_BY_INSTANCE, 0))
-    mg_ops.LAUNCHES.update(grouped_ffn=0, grouped_matmul=0)
+    mg_ops.LAUNCHES.update(dict.fromkeys(mg_ops.LAUNCHES, 0))
+    mg_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
+        mg_ops.LAUNCHES_BY_INSTANCE, 0))
     moe.route = recording_route
     t0 = time.perf_counter()
     try:
@@ -2238,16 +2386,18 @@ def phase_tune():
                 "kd_loss": kd_ops.LAUNCHES,
                 "gather_scatter_add": md_ops.LAUNCHES,
                 "grouped_ffn": mg_ops.LAUNCHES["grouped_ffn"],
-                "grouped_matmul": mg_ops.LAUNCHES["grouped_matmul"]}
+                "grouped_matmul": mg_ops.LAUNCHES["grouped_matmul"],
+                "split_f32": mg_ops.LAUNCHES["split_f32"]}
     L, n = cfg.n_layers, TUNE_STEPS
     # per layer and step, with each group rematerialised: dispatch and
     # combine forward twice plus their two backward movements; the FFN
-    # forward twice; the backward's eight grouped products; flash twice;
-    # kd_loss twice per loss chunk
+    # forward twice; the backward's eight grouped products in seven
+    # launches (dx's two in one) after three splits (dg, du, h); flash
+    # twice; kd_loss twice per loss chunk
     want = {"flash_attention": 2 * L * n,
             "kd_loss": 2 * (TUNE_SEQ // cfg.loss_chunk) * n,
             "gather_scatter_add": 6 * L * n, "grouped_ffn": 2 * L * n,
-            "grouped_matmul": 8 * L * n}
+            "grouped_matmul": 7 * L * n, "split_f32": 3 * L * n}
     # each layer routes twice a step: the forward and remat's recompute
     drops = [sum(_dropped(i, cfg.n_experts) for i in c) / 2
              for c in step_choices]
@@ -2257,6 +2407,7 @@ def phase_tune():
     if launches != want:
         fail(f"tune launches {launches} != expected {want}")
     _all_wgmma(kd_ops, "tune")
+    _gmm_on_tensor_cores(mg_ops, L * n, "tune")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite tuning loss: {losses}")
 
@@ -2283,15 +2434,17 @@ def phase_tune():
     b = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
         TUNE_BATCH, TUNE_SEQ, seed_salt=78).items()}
     prof = profile(lambda: step(params, opt, b, scfg.tune_lr), top=12,
-                   groups={"grouped_matmul": ("gmm_kernel",),
+                   groups={"grouped_matmul": ("gmm_wgmma_kernel",
+                                              "gmm_kernel"),
+                           "split_f32": ("split_kernel",),
                            "ffn_stage_a": ("ffn_gate_up_tc",),
                            "ffn_stage_b": ("ffn_down_tc",),
                            "gather_scatter_add": ("gsa_kernel",),
                            "kd_loss": ("kd_wgmma", "kd_merge"),
                            "flash_fwd": ("flash_fwd",)})
     del opt, step
-    silent = [g for g in ("grouped_matmul", "ffn_stage_a", "ffn_stage_b")
-              if not prof["group_ms"][g] > 0]
+    silent = [g for g in ("grouped_matmul", "split_f32", "ffn_stage_a",
+                          "ffn_stage_b") if not prof["group_ms"][g] > 0]
     if silent:
         fail(f"the tune step's profile shows no device time in {silent}")
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -2358,6 +2511,10 @@ KERNELS = {
         "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
         "replaces": "src/repro/kernels/moe_gemm/kernel.py:136"},
     "grouped_matmul": {
+        "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm/kernel.py:103"},
+    # the same kernel's f32 operands as two bf16 terms, one pass a tensor
+    "split_f32": {
         "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
         "replaces": "src/repro/kernels/moe_gemm/kernel.py:103"},
     "gather_scatter_add": {

@@ -60,12 +60,16 @@
 // f32: kd_partial_kernel on CUDA-core FMAs (f32 models only).
 // bf16 x bf16 products are exact in f32 and are summed in f32, so the
 // bf16 instances differ from the plain version only in summation order.
+// The mbarrier, TMA and wgmma helpers and the host's tensor-map encoder
+// are shared with moe_gemm.cu (tma_wgmma.cuh).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -475,165 +479,11 @@ constexpr int NTHREADS = 384;           // consumers 0-255, producer 256+
 constexpr size_t SMEM = NSTAGE * STAGE_BYTES + 1024 + 2 * NSTAGE * 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 2-D tensor map (c0 innermost) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of the accumulators above a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
-
-// d (+)= A[64 x 16] . B[16 x 256]: A K-major, B MN-major (transposed), both
-// 128-byte swizzled in shared memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A[64 x 16] . B[16 x 128]: A K-major, B MN-major (transposed), both
-// 128-byte swizzled in shared memory; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da,
-                                       uint64_t db, int scale_d) {
-  if constexpr (N == 256)
-    wgmma_n256(d, da, db, scale_d);
-  else
-    wgmma_n128(d, da, db, scale_d);
-}
-
-// Position in the ring, kept alike by the producer and each consumer.
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++stage == NSTAGE) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
 
 // One side's K loop for a consumer warpgroup: acc = A[its 64 rows] . B
 // over nk stages.  A stage is released (one arrival per warpgroup) as
@@ -644,8 +494,8 @@ struct Ring {
 template <int N>
 __device__ __forceinline__ void mma_side(float (&acc)[N / 2], int nk,
                                          uint32_t base, uint32_t full,
-                                         uint32_t empty, Ring& ring, int wg,
-                                         bool leader) {
+                                         uint32_t empty, Ring<NSTAGE>& ring,
+                                         int wg, bool leader) {
   int prev = 0;
   for (int kb = 0; kb < nk; ++kb) {
     mbar_wait(full + 8 * ring.stage, ring.phase);
@@ -654,7 +504,7 @@ __device__ __forceinline__ void mma_side(float (&acc)[N / 2], int nk,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_n<N>(acc, desc_sw128(a + kk * 32, 16, 1024),
+      wgmma_n<N, 0, 1>(acc, desc_sw128(a + kk * 32, 16, 1024),
                  desc_sw128(b + kk * 16 * 128, BOX_BYTES, 1024),
                  kb > 0 || kk > 0);
     wgmma_commit();
@@ -849,8 +699,7 @@ kd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hs,
   constexpr int NBOX = BN / BOX_N;
   constexpr uint32_t TX = A_BYTES + NBOX * BOX_BYTES;
   extern __shared__ __align__(1024) uint8_t smem[];
-  const uint32_t base =
-      (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t full = base + NSTAGE * STAGE_BYTES, empty = full + 8 * NSTAGE;
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * BM, split = blockIdx.y;
@@ -871,7 +720,7 @@ kd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hs,
   if (tid >= 256) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (tid == 256) {
-      Ring ring;
+      Ring<NSTAGE> ring;
       for (int tile = tile_lo; tile < tile_hi; ++tile) {
         const int v0 = tile * BN;
 #pragma unroll 1
@@ -906,7 +755,7 @@ kd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hs,
     for (int h = 0; h < 2; ++h) lab[h] = row[h] < T ? labels[row[h]] : -1;
     const float inv_tau = 1.f / tau;
     Row st[2];
-    Ring ring;
+    Ring<NSTAGE> ring;
     for (int tile = tile_lo; tile < tile_hi; ++tile) {
       const int v0 = tile * BN, vq = v0 + 2 * q, lim = V - vq;
       const int lc[2] = {lab[0] - vq, lab[1] - vq};
@@ -934,48 +783,11 @@ kd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_hs,
 
 }  // namespace tc
 
-// libcuda's cuTensorMapEncodeTiled, found through the runtime, so the
-// library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// codes kd_loss_fwd_wgmma returns besides cudaError_t's
-constexpr int ERR_NO_ENCODE = -1, ERR_ENCODE = -2;
-
-// a row-major (rows, cols) bf16 matrix read in boxes of box_rows x 64
-// columns (128 bytes), swizzled by 128 bytes, zeros past its edges
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* p, int rows,
-              int cols, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)tc::BOX_N, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// a row-major (rows, cols) bf16 matrix in boxes of box_rows x 64 columns
+bool make_map2(EncodeTiled enc, CUtensorMap* map, const void* p, int rows,
+               int cols, int box_rows) {
+  const int64_t dims[2] = {cols, rows}, strides[1] = {cols};
+  return make_map(enc, map, p, 2, dims, strides, box_rows);
 }
 
 template <bool KD>
@@ -987,14 +799,15 @@ int launch_wgmma(const void* hs, const void* ws, const void* ht,
   static std::atomic<bool> ready[MAX_DEVICES];
   cudaError_t err = allow_smem(tc::kd_wgmma_kernel<KD>, tc::SMEM, ready);
   if (err != cudaSuccess) return err;
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return ERR_NO_ENCODE;
+  EncodeTiled enc;
+  const int status = tma_encoder(&enc);
+  if (status != 0) return status;
   CUtensorMap m_hs, m_ws, m_ht = {}, m_wt = {};
-  if (!make_map(enc, &m_hs, hs, T, Ds, tc::BM) ||
-      !make_map(enc, &m_ws, ws, Ds, V, tc::BK))
+  if (!make_map2(enc, &m_hs, hs, T, Ds, tc::BM) ||
+      !make_map2(enc, &m_ws, ws, Ds, V, tc::BK))
     return ERR_ENCODE;
-  if (KD && (!make_map(enc, &m_ht, ht, T, Dt, tc::BM) ||
-             !make_map(enc, &m_wt, wt, Dt, V, tc::BK)))
+  if (KD && (!make_map2(enc, &m_ht, ht, T, Dt, tc::BM) ||
+             !make_map2(enc, &m_wt, wt, Dt, V, tc::BK)))
     return ERR_ENCODE;
   dim3 grid((T + tc::BM - 1) / tc::BM, n_splits);
   tc::kd_wgmma_kernel<KD><<<grid, tc::NTHREADS, tc::SMEM, stream>>>(
@@ -1117,11 +930,6 @@ int kd_loss_fwd_wgmma(const void* hs, const void* ws, const void* ht,
                              tiles_per_split, tau, softcap_s, softcap_t, s);
 }
 
-const char* kd_loss_error_string(int err) {
-  if (err == ERR_NO_ENCODE)
-    return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
-  if (err == ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* kd_loss_error_string(int err) { return tma_error_string(err); }
 
 }  // extern "C"

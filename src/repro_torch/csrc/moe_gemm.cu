@@ -2,28 +2,80 @@
 //
 // Two kernels of repro/kernels/moe_gemm/kernel.py are replaced here:
 //
-// * grouped_matmul (_matmul_kernel): per-expert (E, M, K) @ (E, K, N)
-//   with f32 accumulation, the building block of the grouped FFN's
-//   backward (eight products per layer, every operand in f32 in the
-//   reference).  Entry point: grouped_matmul.
+// * grouped_matmul (_matmul_kernel, pallas_call at :103): per-expert
+//   (E, M, K) @ (E, K, N) with f32 sums, the building block of the
+//   grouped FFN's backward (eight products per layer, every operand in
+//   f32 in the reference).  Entry points: grouped_matmul_wgmma,
+//   grouped_matmul, split_f32.
 // * grouped_ffn_ecd (_ffn_kernel): per-expert gated FFN
 //   y[e] = (act(x[e] @ wg[e]) * (x[e] @ wu[e])) @ wo[e] over
 //   fixed-capacity (E, C, D) buffers, f32 inside, output in x's dtype.
 //   Entry point: grouped_ffn_fwd.
 //
-// grouped_matmul.  A and B are read through strides, in bf16 or f32,
-// and converted to f32 on load (exactly), so the backward passes the
-// bf16 expert weights and their transposes as they lie instead of f32,
-// transposed copies (three 692 MB tensors per layer on the path).  The
-// arithmetic is f32 on the CUDA cores, as the reference's f32 products
-// are: TF32 tensor cores would change the numbers.  128 x 128 output
-// tiles, 16-deep K chunks staged through shared memory (the next chunk's
-// global loads issued before the current chunk's products), 8 x 8
-// outputs per thread.  Loads are coalesced along whichever of A's (m, k)
-// or B's (k, n) axes has stride 1.  Bound on the path: one product is
-// 2 * 32880 * 2048 * 1408 = 190 GFLOP, 2.8 ms at the card's 67 TFLOP/s
-// f32 rate; the fast route (split-bf16 or TF32x3 tensor-core products
-// that keep f32 accuracy, wgmma, TMA) is later work.
+// grouped_matmul.  Every product computes f32 sums of exact products,
+// rounds once to the output dtype, and reads each operand as it lies
+// (transposed views included, never a transposed copy).  One launch may
+// sum two products, a @ b + a2 @ b2, into one accumulator (dx of the
+// backward).  Bound on the tune path (E 60, C 548, D 2048, F 1408): one
+// product is 2 * 60 * 548 * 2048 * 1408 = 190 GFLOP, 0.19 ms at the
+// card's 989 TFLOP/s bf16 rate, above its 0.2-0.3 ms of bytes only by a
+// little: the tensor cores bound it.  Three instances:
+//
+// wgmma (both operands bf16) and wgmma_split (one operand an f32 value
+// carried as two bf16 terms): gmm_wgmma_kernel.
+//   * Persistent: one block of 384 threads an SM walks the (expert,
+//     128-row, BN-column) output tiles in order, blockIdx.x, + gridDim.x,
+//     ...; no atomics, so two launches give the same bits.
+//   * Thread 256 (the producer; its warpgroup drops to 40 registers)
+//     feeds a ring of shared-memory stages by TMA, each stage one 64-deep
+//     K chunk of every plane of A (128 x 64) and B (64 x BN), with a
+//     full/empty mbarrier pair.  Two consumer warpgroups (232 registers)
+//     each multiply their 64 rows by the stage's B with
+//     wgmma.mma_async m64nBNk16 into f32 accumulators in registers,
+//     releasing a stage as soon as the products that read it are done,
+//     and store their rows straight from the registers (columns 8j + 2q
+//     of two rows a thread, pairs of 8 or 4 bytes), f32 or bf16.
+//   * Tensor maps are 3-D, (E, rows, cols) with a box of one expert, so a
+//     ragged K (C = 548 in the weight gradients) or M zero-fills past the
+//     expert's own edge: a flattened (E * rows, cols) map would add the
+//     next expert's first rows into the last K chunk.  128-byte swizzle.
+//   * Layouts: an operand whose K axis has stride 1 is K-major (A tile
+//     128 rows of 128 bytes; a k16 step 32 bytes on in the swizzled row),
+//     one whose M (N) axis has stride 1 is MN-major, read with wgmma's
+//     transpose bit (64 x 64 boxes 8 KB apart: LBO; 8-row K groups 1 KB
+//     apart: SBO; a k16 step 2 KB on).  x @ wg: A K-major, B MN-major;
+//     dy @ wo^T and dg @ wg^T: both K-major; x^T @ dg and h^T @ dy: both
+//     MN-major.
+//   * An f32 operand v enters as two bf16 planes hi = bf16(v), lo =
+//     bf16(v - hi) (v - hi is exact in f32; hi + lo is v to about
+//     2^-17 |v|, and exactly an f32 value).  Each k16 step multiplies the
+//     other operand's tile by lo, then by hi, into the same accumulator
+//     (the smaller term first, as the grouped FFN's stage B does).  One
+//     term alone breaks the per-element rule the products are held to
+//     (tests/test_torch_gmm_numerics.py).  Design: the planes are made
+//     by one elementwise pass per f32 tensor (split_kernel: dg, du and h,
+//     three passes a backward, each feeding one or two products) and
+//     enter the ring by TMA like any bf16 tile, as A or as B.  Splitting
+//     in registers instead would force the f32 operand into A (wgmma's
+//     register operand), so x^T @ dg would become dg^T @ x with a
+//     transposed store, and each product would split its operand again;
+//     the pass costs about 0.11 ms of traffic per tensor.
+//   * Tiles: 128 x 256 with 4 stages of 48 KB (bf16 x bf16), 128 x 256
+//     with 3 stages of 64 KB (A split), 128 x 128 with 4 stages of 48 KB
+//     (B split).  TMA needs row strides and bases that are multiples of
+//     16 bytes; the wrapper picks this instance only for such operands.
+//   * The mbarrier, TMA and wgmma helpers and the host's tensor-map
+//     encoder (which makes the device's context current on the calling
+//     thread first) are shared with kd_loss.cu (tma_wgmma.cuh).
+// general (anything TMA cannot take: a row stride or base off 16 bytes,
+//   no unit-stride axis, an f32 operand beside a bf16 one unsplit) and
+//   f32 (both operands f32: the f32 models, held to f32 limits):
+//   gmm_kernel, f32 FMAs on the CUDA cores.  Operands in bf16 or f32
+//   through element strides, a split operand as hi + lo (exact in f32),
+//   converted to f32 on load; 128 x 128 output tiles, 16-deep K chunks
+//   staged through shared memory (the next chunk's loads issued before
+//   the current chunk's products), 8 x 8 outputs a thread, loads
+//   coalesced along whichever axis has stride 1.
 //
 // grouped_ffn_ecd.  The TPU kernel keeps a (Bc, D) f32 accumulator in
 // VMEM across a sequential F axis; at Bc = 128, D = 2048 that is 1 MB,
@@ -65,16 +117,20 @@
 // padding.  The h planes add 185 MB written and read again (about 0.11
 // ms at 3.35 TB/s).  wgmma, TMA and warp specialisation are the next
 // design for both stages.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
+
+#include "tma_wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// grouped matmul, f32 on the CUDA cores
+// grouped matmul, general and f32 instances: f32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128, BN = 128, BK = 16, NT = 256;
@@ -88,76 +144,40 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+// element i of an operand, plus its second bf16 term where it has one
+// (hi + lo is exact in f32)
+template <typename T>
+__device__ __forceinline__ float ld(const T* p, const T* lo, int64_t i) {
+  return lo ? to_f(p[i]) + to_f(lo[i]) : to_f(p[i]);
+}
 
-// C[e] (M, N, contiguous) = A[e] @ B[e]; A[e][m][k] at a + e*sAe + m*sAm +
-// k*sAk, B[e][k][n] at b + e*sBe + k*sBk + n*sBn.  grid (N/BN, M/BM, E).
+// One product a @ b: A[e][m][k] at a + e*sAe + m*sAm + k*sAk, B[e][k][n]
+// at b + e*sBe + k*sBk + n*sBn; a_lo / b_lo: a split operand's second
+// term (the same strides), or null.
+struct Pair {
+  const void* a;
+  const void* a_lo;
+  int64_t sAe, sAm, sAk;
+  const void* b;
+  const void* b_lo;
+  int64_t sBe, sBk, sBn;
+  int K;
+};
+struct Pairs {
+  Pair p[2];
+  int n;  // 1, or 2: a @ b + a2 @ b2 into one sum
+};
+
+// C[e] (M, N, contiguous) = sum over the pairs of A[e] @ B[e].
+// grid (N/BN, M/BM, E).
 template <typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(NT)
-    gmm_kernel(const TA* __restrict__ a, int64_t sAe, int64_t sAm,
-               int64_t sAk, const TB* __restrict__ b, int64_t sBe,
-               int64_t sBk, int64_t sBn, TC* __restrict__ c, int M, int N,
-               int K) {
+    gmm_kernel(const Pairs ps, TC* __restrict__ c, int M, int N) {
   __shared__ __align__(16) float As[BK][LDS];
   __shared__ __align__(16) float Bs[BK][LDS];
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  a += e * sAe;
-  b += e * sBe;
   const int tid = threadIdx.x;
-  const bool a_kc = (sAk == 1);  // A row-major: coalesce along k
-  const bool b_nc = (sBn == 1);  // B row-major: coalesce along n
-  float ra[8], rb[8];
-
-  // each thread stages 8 A and 8 B values per K chunk
-  auto load = [&](int k0) {
-    if (a_kc) {
-      const int k = k0 + (tid & 15), mm = tid >> 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + mm + 16 * i;
-        ra[i] = (m < M && k < K) ? to_f(a[m * sAm + k]) : 0.f;
-      }
-    } else {
-      const int m = m0 + (tid & 127), kk = tid >> 7;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + kk + 2 * i;
-        ra[i] = (m < M && k < K) ? to_f(a[m * sAm + k * sAk]) : 0.f;
-      }
-    }
-    if (b_nc) {
-      const int n = n0 + (tid & 127), kk = tid >> 7;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + kk + 2 * i;
-        rb[i] = (n < N && k < K) ? to_f(b[k * sBk + n]) : 0.f;
-      }
-    } else {
-      const int k = k0 + (tid & 15), nn = tid >> 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int n = n0 + nn + 16 * i;
-        rb[i] = (n < N && k < K) ? to_f(b[k * sBk + n * sBn]) : 0.f;
-      }
-    }
-  };
-  auto stage = [&]() {
-    if (a_kc) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) As[tid & 15][(tid >> 4) + 16 * i] = ra[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) As[(tid >> 7) + 2 * i][tid & 127] = ra[i];
-    }
-    if (b_nc) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Bs[(tid >> 7) + 2 * i][tid & 127] = rb[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Bs[tid & 15][(tid >> 4) + 16 * i] = rb[i];
-    }
-  };
-
   // thread (ty, tx) owns rows ty*4.. and 64+ty*4.., columns tx*4.. and
   // 64+tx*4..: float4 reads of the staged tiles without bank conflicts
   const int ty = tid >> 4, tx = tid & 15;
@@ -167,26 +187,92 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // the last chunk's products are done with As/Bs
-    stage();
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);  // in flight during the products
+  for (int pi = 0; pi < ps.n; ++pi) {
+    const Pair P = ps.p[pi];
+    const TA* a = static_cast<const TA*>(P.a) + e * P.sAe;
+    const TA* alo =
+        P.a_lo ? static_cast<const TA*>(P.a_lo) + e * P.sAe : nullptr;
+    const TB* b = static_cast<const TB*>(P.b) + e * P.sBe;
+    const TB* blo =
+        P.b_lo ? static_cast<const TB*>(P.b_lo) + e * P.sBe : nullptr;
+    const int64_t sAm = P.sAm, sAk = P.sAk, sBk = P.sBk, sBn = P.sBn;
+    const int K = P.K;
+    const bool a_kc = (sAk == 1);  // A row-major: coalesce along k
+    const bool b_nc = (sBn == 1);  // B row-major: coalesce along n
+    float ra[8], rb[8];
+
+    // each thread stages 8 A and 8 B values per K chunk
+    auto load = [&](int k0) {
+      if (a_kc) {
+        const int k = k0 + (tid & 15), mm = tid >> 4;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        for (int i = 0; i < 8; ++i) {
+          const int m = m0 + mm + 16 * i;
+          ra[i] = (m < M && k < K) ? ld(a, alo, m * sAm + k) : 0.f;
+        }
+      } else {
+        const int m = m0 + (tid & 127), kk = tid >> 7;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const int k = k0 + kk + 2 * i;
+          ra[i] = (m < M && k < K) ? ld(a, alo, m * sAm + k * sAk) : 0.f;
+        }
+      }
+      if (b_nc) {
+        const int n = n0 + (tid & 127), kk = tid >> 7;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int i = 0; i < 8; ++i) {
+          const int k = k0 + kk + 2 * i;
+          rb[i] = (n < N && k < K) ? ld(b, blo, k * sBk + n) : 0.f;
+        }
+      } else {
+        const int k = k0 + (tid & 15), nn = tid >> 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int n = n0 + nn + 16 * i;
+          rb[i] = (n < N && k < K) ? ld(b, blo, k * sBk + n * sBn) : 0.f;
+        }
+      }
+    };
+    auto stage = [&]() {
+      if (a_kc) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) As[tid & 15][(tid >> 4) + 16 * i] = ra[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) As[(tid >> 7) + 2 * i][tid & 127] = ra[i];
+      }
+      if (b_nc) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) Bs[(tid >> 7) + 2 * i][tid & 127] = rb[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) Bs[tid & 15][(tid >> 4) + 16 * i] = rb[i];
+      }
+    };
+
+    load(0);
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      __syncthreads();  // the last chunk's products are done with As/Bs
+      stage();
+      __syncthreads();
+      if (k0 + BK < K) load(k0 + BK);  // in flight during the products
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
   }
   TC* ce = c + (int64_t)e * M * N;
@@ -203,55 +289,45 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <typename TA, typename TB, typename TC>
+cudaError_t gmm(const Pairs& ps, void* c, int E, int M, int N,
+                cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+  gmm_kernel<TA, TB, TC><<<grid, NT, 0, s>>>(ps, static_cast<TC*>(c), M, N);
+  return cudaGetLastError();
+}
+
+// one product of unsplit operands (the f32 grouped FFN's)
+template <typename TA, typename TB, typename TC>
 cudaError_t gmm(const void* a, int64_t sAe, int64_t sAm, int64_t sAk,
                 const void* b, int64_t sBe, int64_t sBk, int64_t sBn,
                 void* c, int E, int M, int N, int K, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  gmm_kernel<TA, TB, TC><<<grid, NT, 0, s>>>(
-      static_cast<const TA*>(a), sAe, sAm, sAk, static_cast<const TB*>(b),
-      sBe, sBk, sBn, static_cast<TC*>(c), M, N, K);
-  return cudaGetLastError();
+  Pairs ps = {};
+  ps.p[0] = Pair{a, nullptr, sAe, sAm, sAk, b, nullptr, sBe, sBk, sBn, K};
+  ps.n = 1;
+  return gmm<TA, TB, TC>(ps, c, E, M, N, s);
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16
 template <typename TA, typename TB>
-cudaError_t gmm_c(int dc, const void* a, int64_t sAe, int64_t sAm,
-                  int64_t sAk, const void* b, int64_t sBe, int64_t sBk,
-                  int64_t sBn, void* c, int E, int M, int N, int K,
+cudaError_t gmm_c(int dc, const Pairs& ps, void* c, int E, int M, int N,
                   cudaStream_t s) {
-  if (dc == 0)
-    return gmm<TA, TB, float>(a, sAe, sAm, sAk, b, sBe, sBk, sBn, c, E, M, N,
-                              K, s);
-  if (dc == 1)
-    return gmm<TA, TB, __nv_bfloat16>(a, sAe, sAm, sAk, b, sBe, sBk, sBn, c,
-                                      E, M, N, K, s);
+  if (dc == 0) return gmm<TA, TB, float>(ps, c, E, M, N, s);
+  if (dc == 1) return gmm<TA, TB, __nv_bfloat16>(ps, c, E, M, N, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename TA>
-cudaError_t gmm_b(int db, int dc, const void* a, int64_t sAe, int64_t sAm,
-                  int64_t sAk, const void* b, int64_t sBe, int64_t sBk,
-                  int64_t sBn, void* c, int E, int M, int N, int K,
-                  cudaStream_t s) {
-  if (db == 0)
-    return gmm_c<TA, float>(dc, a, sAe, sAm, sAk, b, sBe, sBk, sBn, c, E, M,
-                            N, K, s);
-  if (db == 1)
-    return gmm_c<TA, __nv_bfloat16>(dc, a, sAe, sAm, sAk, b, sBe, sBk, sBn, c,
-                                    E, M, N, K, s);
+cudaError_t gmm_b(int db, int dc, const Pairs& ps, void* c, int E, int M,
+                  int N, cudaStream_t s) {
+  if (db == 0) return gmm_c<TA, float>(dc, ps, c, E, M, N, s);
+  if (db == 1) return gmm_c<TA, __nv_bfloat16>(dc, ps, c, E, M, N, s);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t gmm_any(int da, int db, int dc, const void* a, int64_t sAe,
-                    int64_t sAm, int64_t sAk, const void* b, int64_t sBe,
-                    int64_t sBk, int64_t sBn, void* c, int E, int M, int N,
-                    int K, cudaStream_t s) {
-  if (da == 0)
-    return gmm_b<float>(db, dc, a, sAe, sAm, sAk, b, sBe, sBk, sBn, c, E, M,
-                        N, K, s);
-  if (da == 1)
-    return gmm_b<__nv_bfloat16>(db, dc, a, sAe, sAm, sAk, b, sBe, sBk, sBn, c,
-                                E, M, N, K, s);
+cudaError_t gmm_any(int da, int db, int dc, const Pairs& ps, void* c, int E,
+                    int M, int N, cudaStream_t s) {
+  if (da == 0) return gmm_b<float>(db, dc, ps, c, E, M, N, s);
+  if (da == 1) return gmm_b<__nv_bfloat16>(db, dc, ps, c, E, M, N, s);
   return cudaErrorInvalidValue;
 }
 
@@ -646,22 +722,417 @@ __global__ void gate_kernel(float* __restrict__ h, const float* __restrict__ u,
     h[i] = gated(h[i], u[i], act);
 }
 
+
+// ---------------------------------------------------------------------------
+// grouped matmul: an f32 tensor as two bf16 planes
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void split1(float v, __nv_bfloat16& hi,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  lo = __float2bfloat16_rn(v - __bfloat162float(hi));  // v - hi is exact
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 x, __nv_bfloat16 y) {
+  return (uint32_t)__bfloat16_as_ushort(x) |
+         ((uint32_t)__bfloat16_as_ushort(y) << 16);
+}
+
+// hi[i] = bf16(t[i]), lo[i] = bf16(t[i] - hi[i]) for i < n.  vec: t
+// 16-byte aligned, hi and lo 8-byte aligned (4 elements a step).
+__global__ void split_kernel(const float* __restrict__ t,
+                             __nv_bfloat16* __restrict__ hi,
+                             __nv_bfloat16* __restrict__ lo, int64_t n,
+                             bool vec) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (vec) {
+    const int64_t n4 = n / 4;
+    for (int64_t j = i; j < n4; j += stride) {
+      const float4 v = reinterpret_cast<const float4*>(t)[j];
+      __nv_bfloat16 h[4], l[4];
+      split1(v.x, h[0], l[0]);
+      split1(v.y, h[1], l[1]);
+      split1(v.z, h[2], l[2]);
+      split1(v.w, h[3], l[3]);
+      *reinterpret_cast<uint2*>(hi + 4 * j) =
+          make_uint2(pack(h[0], h[1]), pack(h[2], h[3]));
+      *reinterpret_cast<uint2*>(lo + 4 * j) =
+          make_uint2(pack(l[0], l[1]), pack(l[2], l[3]));
+    }
+    done = 4 * n4;
+  }
+  for (int64_t j = done + i; j < n; j += stride) split1(t[j], hi[j], lo[j]);
+}
+
+// ---------------------------------------------------------------------------
+// grouped matmul, wgmma and wgmma_split instances: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BM = 128;     // rows a tile: two consumer warpgroups of 64
+constexpr int BK = 64;      // K a stage: one 128-byte swizzled row
+constexpr int HALF = 8192;  // 64 rows of 128 bytes: a warpgroup's A rows
+                            // (K-major), one 64 x 64 box (MN-major)
+constexpr int A_PLANE = 2 * HALF;  // one plane of A: 128 x 64 bf16
+constexpr int NTHREADS = 384;      // consumers 0-255, producer 256+
+constexpr int RING_BYTES = 196608;  // 192 KB of stages
+
+// a ring for BN columns, NA planes of A and NB of B
+template <int BN, int NA, int NB>
+struct Shape {
+  static constexpr int B_PLANE = BN * BK * 2;
+  static constexpr int STAGE = NA * A_PLANE + NB * B_PLANE;
+  static constexpr int NSTAGE = RING_BYTES / STAGE;
+  // stages, 1 KB of slack to align them to the swizzle's 1 KB period,
+  // the full/empty barriers
+  static constexpr size_t SMEM = (size_t)NSTAGE * STAGE + 1024 + 16 * NSTAGE;
+  static_assert(NSTAGE >= 3 && SMEM <= 232448, "ring over 227 KB");
+};
+
+// [pair][term]: term 0 is the operand (a split operand's hi), 1 its lo
+struct Maps {
+  CUtensorMap a[2][2];
+  CUtensorMap b[2][2];
+};
+
+// an operand tile's descriptor at k16 step kk: K-major (MN = 0), a step
+// 32 bytes on in the swizzled row; MN-major (MN = 1), 64 x 64 boxes 8 KB
+// apart, 8-row K groups 1 KB apart, a step 16 rows (2 KB) on
+template <int MN>
+__device__ __forceinline__ uint64_t desc(uint32_t tile, int kk) {
+  return MN ? desc_sw128(tile + kk * 2048, HALF, 1024)
+            : desc_sw128(tile + kk * 32, 16, 1024);
+}
+
+// stores the pair (v0, v1) at columns col, col + 1 of a row of length n:
+// one 8- (f32) or 4-byte (bf16) store where n is even (col is), else one
+// by one
+__device__ __forceinline__ void put(float* row, int col, int n, float v0,
+                                    float v1) {
+  if (n % 2 == 0) {
+    if (col < n) *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+  } else {
+    if (col < n) row[col] = v0;
+    if (col + 1 < n) row[col + 1] = v1;
+  }
+}
+__device__ __forceinline__ void put(__nv_bfloat16* row, int col, int n,
+                                    float v0, float v1) {
+  if (n % 2 == 0) {
+    if (col < n)
+      *reinterpret_cast<__nv_bfloat162*>(row + col) =
+          __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (col < n) row[col] = __float2bfloat16_rn(v0);
+    if (col + 1 < n) row[col + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// a consumer thread's rows of the tile into C (E, M, N) contiguous:
+// d[4j + 2h + x] is row 16 * warp + lane / 4 + 8h of its warpgroup's 64,
+// column 8j + 2 (lane % 4) + x
+template <int BN, typename T>
+__device__ __forceinline__ void store_tile(const float (&d)[BN / 2], T* c,
+                                           int e, int M, int N, int r0,
+                                           int n0, int lane) {
+  const int q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (lane >> 2) + 8 * h;
+    if (r >= M) continue;
+    T* row = c + ((int64_t)e * M + r) * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      put(row, n0 + 8 * j + 2 * q, N, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+}
+
+// C = A @ B (+ A2 @ B2), persistent over the (expert, 128-row, BN-column)
+// tiles.  NA / NB: planes of A / B (2: a split operand, lo then hi at
+// each k16 step); TA / TB: A / B MN-major.  Threads 0-255: two consumer
+// warpgroups of 64 rows; thread 256: the producer.
+template <int BN, int NA, int NB, int TA, int TB>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    gmm_wgmma_kernel(const __grid_constant__ Maps maps, void* __restrict__ c,
+                     int bf16_out, int E, int M, int N, int K0, int K1,
+                     int npairs) {
+  using S = Shape<BN, NA, NB>;
+  static_assert(NA == 1 || NB == 1, "one split operand at most");
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t full = base + S::NSTAGE * S::STAGE;
+  const uint32_t empty = full + 8 * S::NSTAGE;
+  const int tid = threadIdx.x;
+  const int tm = (M + BM - 1) / BM, tn = (N + BN - 1) / BN;
+  const int tiles = E * tm * tn;
+
+  if (tid == 0) {
+    for (int i = 0; i < S::NSTAGE; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 256) {
+      Ring<S::NSTAGE> ring;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int e = t / (tm * tn), r = t % (tm * tn);
+        const int m0 = r / tn * BM, n0 = r % tn * BN;
+        for (int p = 0; p < npairs; ++p) {
+          const int nk = ((p ? K1 : K0) + BK - 1) / BK;
+          for (int kb = 0; kb < nk; ++kb) {
+            mbar_wait(empty + 8 * ring.stage, ring.phase ^ 1);
+            const uint32_t f = full + 8 * ring.stage;
+            const uint32_t s = base + ring.stage * S::STAGE;
+            const int k0 = kb * BK;
+            mbar_expect_tx(f, S::STAGE);
+#pragma unroll
+            for (int i = 0; i < NA; ++i) {
+              const CUtensorMap* m = &maps.a[p][i];
+              const uint32_t d = s + i * A_PLANE;
+              if (TA) {  // (m, k) boxes of 64 x 64, m innermost
+                tma_load3(d, m, f, m0, k0, e);
+                tma_load3(d + HALF, m, f, m0 + 64, k0, e);
+              } else {   // one (k, m) box of 64 x 128
+                tma_load3(d, m, f, k0, m0, e);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < NB; ++i) {
+              const CUtensorMap* m = &maps.b[p][i];
+              const uint32_t d = s + NA * A_PLANE + i * S::B_PLANE;
+              if (TB) {  // (n, k) boxes of 64 x 64, n innermost
+#pragma unroll
+                for (int j = 0; j < BN / 64; ++j)
+                  tma_load3(d + j * HALF, m, f, n0 + 64 * j, k0, e);
+              } else {   // one (k, n) box of 64 x BN
+                tma_load3(d, m, f, k0, n0, e);
+              }
+            }
+            ring.next();
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const bool leader = (tid & 127) == 0;
+    Ring<S::NSTAGE> ring;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int e = t / (tm * tn), r = t % (tm * tn);
+      const int m0 = r / tn * BM, n0 = r % tn * BN;
+      float d[BN / 2];
+      int prev = 0;
+      bool held = false;  // d holds this tile's earlier stages
+      for (int p = 0; p < npairs; ++p) {
+        const int nk = ((p ? K1 : K0) + BK - 1) / BK;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(full + 8 * ring.stage, ring.phase);
+          const uint32_t s = base + ring.stage * S::STAGE;
+          const uint32_t a = s + wg * HALF, b = s + NA * A_PLANE;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const int acc = held || kk > 0;
+            if (NA == 2) {  // lo, then hi, of A
+              wgmma_n<BN, TA, TB>(d, desc<TA>(a + A_PLANE, kk),
+                                  desc<TB>(b, kk), acc);
+              wgmma_n<BN, TA, TB>(d, desc<TA>(a, kk), desc<TB>(b, kk), 1);
+            } else if (NB == 2) {  // lo, then hi, of B
+              wgmma_n<BN, TA, TB>(d, desc<TA>(a, kk),
+                                  desc<TB>(b + S::B_PLANE, kk), acc);
+              wgmma_n<BN, TA, TB>(d, desc<TA>(a, kk), desc<TB>(b, kk), 1);
+            } else {
+              wgmma_n<BN, TA, TB>(d, desc<TA>(a, kk), desc<TB>(b, kk), acc);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's products are done
+          if (held && leader) mbar_arrive(empty + 8 * prev);
+          prev = ring.stage;
+          held = true;
+          ring.next();
+        }
+      }
+      wgmma_wait<0>();
+      if (leader) mbar_arrive(empty + 8 * prev);
+      fence_regs(d);
+      const int r0 = m0 + wg * 64 + warp * 16;
+      if (bf16_out)
+        store_tile<BN>(d, static_cast<__nv_bfloat16*>(c), e, M, N, r0, n0,
+                       lane);
+      else
+        store_tile<BN>(d, static_cast<float*>(c), e, M, N, r0, n0, lane);
+    }
+  }
+}
+
+}  // namespace tc
+
+// a bf16 (E, outer, inner) tensor, inner contiguous, strides in elements,
+// in boxes of 64 x box_rows x one expert: zeros past every edge of the
+// expert's own matrix
+bool make_map3(EncodeTiled enc, CUtensorMap* map, int64_t p, int64_t inner,
+               int64_t outer, int E, int64_t s_outer, int64_t s_e,
+               int box_rows) {
+  const int64_t dims[3] = {inner, outer, E}, strides[2] = {s_outer, s_e};
+  return make_map(enc, map, reinterpret_cast<const void*>(p), 3, dims,
+                  strides, box_rows);
+}
+
+template <int BN, int NA, int NB, int TA, int TB>
+cudaError_t launch_wgmma(const tc::Maps& maps, void* c, int bf16_out, int E,
+                         int M, int N, int K0, int K1, int npairs,
+                         cudaStream_t s) {
+  using S = tc::Shape<BN, NA, NB>;
+  static std::atomic<bool> ready[MAX_DEVICES];
+  auto kernel = tc::gmm_wgmma_kernel<BN, NA, NB, TA, TB>;
+  cudaError_t err = opt_in_smem(kernel, S::SMEM, ready);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (int64_t)E * ((M + tc::BM - 1) / tc::BM) *
+                        ((N + BN - 1) / BN);
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, tc::NTHREADS, S::SMEM, s>>>(maps, c, bf16_out, E, M, N, K0,
+                                            K1, npairs);
+  return cudaGetLastError();
+}
+
+template <int NA, int NB>
+cudaError_t by_layout(int ta, int tb, const tc::Maps& maps, void* c,
+                      int bf16_out, int E, int M, int N, int K0, int K1,
+                      int npairs, cudaStream_t s) {
+  constexpr int BN = NB == 2 ? 128 : 256;
+  if (ta)
+    return tb ? launch_wgmma<BN, NA, NB, 1, 1>(maps, c, bf16_out, E, M, N, K0,
+                                               K1, npairs, s)
+              : launch_wgmma<BN, NA, NB, 1, 0>(maps, c, bf16_out, E, M, N, K0,
+                                               K1, npairs, s);
+  return tb ? launch_wgmma<BN, NA, NB, 0, 1>(maps, c, bf16_out, E, M, N, K0,
+                                             K1, npairs, s)
+            : launch_wgmma<BN, NA, NB, 0, 0>(maps, c, bf16_out, E, M, N, K0,
+                                             K1, npairs, s);
+}
+
+// ops: for each pair, A then B, each {pointer, second bf16 term's
+// pointer or 0, element strides along e, then along the matrix's two
+// axes ((m, k) for A, (k, n) for B)}
+constexpr int OP = 5;
+
+bool valid_shape(int npairs, int E, int M, int N, int K0, int K1) {
+  return E > 0 && M > 0 && N > 0 && K0 > 0 &&
+         (npairs == 1 || (npairs == 2 && K1 > 0));
+}
+
 }  // namespace
 
 extern "C" {
 
-// C[e] = A[e] @ B[e] for e < E: A (E, M, K) and B (E, K, N) through
-// element strides, C (E, M, N) contiguous.  dtypes: 0 = float32,
-// 1 = bfloat16, each of A, B, C on its own.  Returns cudaGetLastError().
-int grouped_matmul(const void* a, int da, int64_t sAe, int64_t sAm,
-                   int64_t sAk, const void* b, int db, int64_t sBe,
-                   int64_t sBk, int64_t sBn, void* c, int dc, int E, int M,
-                   int N, int K, void* stream) {
-  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || E > 65535 ||
+// C[e] = A[e] @ B[e] (+ A2[e] @ B2[e]) for e < E on the CUDA cores (the
+// general and f32 instances): A (E, M, K0), B (E, K0, N), A2 (E, M, K1),
+// B2 (E, K1, N) as ``ops`` describes them (npairs of A, B), C (E, M, N)
+// contiguous.  dtypes: 0 = float32, 1 = bfloat16, each of A (and A2), B
+// (and B2), C on its own; an operand with a second term is bf16.
+// Returns cudaGetLastError().
+int grouped_matmul(const int64_t* ops, int npairs, int da, int db, void* c,
+                   int dc, int E, int M, int N, int K0, int K1,
+                   void* stream) {
+  if (!valid_shape(npairs, E, M, N, K0, K1) || E > 65535 ||
       (M + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)gmm_any(da, db, dc, a, sAe, sAm, sAk, b, sBe, sBk, sBn, c, E, M,
-                      N, K, static_cast<cudaStream_t>(stream));
+  Pairs ps = {};
+  ps.n = npairs;
+  for (int p = 0; p < npairs; ++p) {
+    const int64_t* a = ops + 2 * OP * p;
+    const int64_t* b = a + OP;
+    ps.p[p] = Pair{reinterpret_cast<const void*>(a[0]),
+                   reinterpret_cast<const void*>(a[1]), a[2], a[3], a[4],
+                   reinterpret_cast<const void*>(b[0]),
+                   reinterpret_cast<const void*>(b[1]), b[2], b[3], b[4],
+                   p ? K1 : K0};
+  }
+  return (int)gmm_any(da, db, dc, ps, c, E, M, N,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The same product on the tensor cores (the wgmma and wgmma_split
+// instances): every operand bf16 (a split operand as its two planes),
+// at most one operand of a pair split, and every pair alike in which
+// operand is split and in layout.  ta / tb: A / B MN-major (its M / N
+// axis has stride 1), else K-major (K has stride 1).  Bases 16-byte
+// aligned, strides other than the unit one multiples of 8 elements (TMA).
+// dc: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError(), or
+// ERR_NO_ENCODE / ERR_ENCODE when no tensor map could be made.
+int grouped_matmul_wgmma(const int64_t* ops, int npairs, int ta, int tb,
+                         void* c, int dc, int E, int M, int N, int K0, int K1,
+                         void* stream) {
+  if (!valid_shape(npairs, E, M, N, K0, K1) || (dc != 0 && dc != 1))
+    return (int)cudaErrorInvalidValue;
+  const int na = ops[1] ? 2 : 1, nb = ops[OP + 1] ? 2 : 1;
+  if (na == 2 && nb == 2) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc;
+  const int status = tma_encoder(&enc);
+  if (status != 0) return status;
+  const int bn = nb == 2 ? 128 : 256;
+  tc::Maps maps = {};
+  for (int p = 0; p < npairs; ++p) {
+    const int64_t* a = ops + 2 * OP * p;
+    const int64_t* b = a + OP;
+    if ((a[1] != 0) != (na == 2) || (b[1] != 0) != (nb == 2))
+      return (int)cudaErrorInvalidValue;
+    const int K = p ? K1 : K0;
+    for (int i = 0; i < na; ++i) {
+      const bool ok =
+          ta ? make_map3(enc, &maps.a[p][i], a[i], M, K, E, a[4], a[2], 64)
+             : make_map3(enc, &maps.a[p][i], a[i], K, M, E, a[3], a[2],
+                         tc::BM);
+      if (!ok) return ERR_ENCODE;
+    }
+    for (int i = 0; i < nb; ++i) {
+      const bool ok =
+          tb ? make_map3(enc, &maps.b[p][i], b[i], N, K, E, b[3], b[2], 64)
+             : make_map3(enc, &maps.b[p][i], b[i], K, N, E, b[4], b[2], bn);
+      if (!ok) return ERR_ENCODE;
+    }
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (na == 2)
+    err = by_layout<2, 1>(ta, tb, maps, c, dc, E, M, N, K0, K1, npairs, s);
+  else if (nb == 2)
+    err = by_layout<1, 2>(ta, tb, maps, c, dc, E, M, N, K0, K1, npairs, s);
+  else
+    err = by_layout<1, 1>(ta, tb, maps, c, dc, E, M, N, K0, K1, npairs, s);
+  return (int)err;
+}
+
+// hi[i] = bf16(t[i]), lo[i] = bf16(t[i] - hi[i]) for i < n: an f32 tensor
+// as the two bf16 terms the wgmma_split instance reads.  Returns
+// cudaGetLastError().
+int split_f32(const float* t, void* hi, void* lo, int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(t) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(hi) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(lo) % 8 == 0;
+  const int64_t want = (n / 4 + 255) / 256 + 1;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  split_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<__nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(lo), n,
+      vec);
+  return cudaGetLastError();
 }
 
 // y (E, C, D) = grouped FFN of x (E, C, D), wg / wu (E, D, F), wo (E, F, D),
@@ -697,8 +1168,6 @@ int grouped_ffn_fwd(const void* x, const void* wg, const void* wu,
   return (int)err;
 }
 
-const char* moe_gemm_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* moe_gemm_error_string(int err) { return tma_error_string(err); }
 
 }  // extern "C"

@@ -5,8 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  All
 sources are compiled together, one ``nvcc`` process each, the first
 time any kernel is asked for.  Libraries land in ``build/repro_torch/``
-at the root of the checkout, named by a hash of their source and flags,
-so an unchanged source is never rebuilt.
+at the root of the checkout, named by a hash of their source, the
+headers it includes and the flags, so an unchanged source is never
+rebuilt.
 
 C entry points take device pointers and sizes, launch on the stream
 they are given and return ``cudaGetLastError()``; ``check`` turns a
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -47,8 +49,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _sources(src: pathlib.Path) -> list:
+    """``src`` and every header it includes with quotes, recursively, in
+    the order they are first met."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop(0)
+        if f not in seen:
+            seen.append(f)
+            todo += [f.parent / n.decode()
+                     for n in _INCLUDE.findall(f.read_bytes())]
+    return seen
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes())
+    """The library's path, named by a hash of the source, the headers it
+    includes and the flags: a changed header rebuilds every source that
+    includes it."""
+    h = hashlib.sha256()
+    for f in _sources(src):
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -2,6 +2,8 @@
 (``csrc/moe_gemm.cu``), counterparts of ``repro.kernels.moe_gemm.ref``."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -16,10 +18,42 @@ def gated_act(act: str, g, u):
     return a * u
 
 
-def grouped_matmul_ref(a, b, out_dtype=None):
-    """a (E, M, K) @ b (E, K, N) -> (E, M, N), f32 products, output in
-    ``out_dtype`` (default ``a.dtype``)."""
+class Split(NamedTuple):
+    """An f32 value v carried as two bf16 terms of one shape and strides:
+    hi = bf16(v) and lo = bf16(v - hi) (v - hi is exact in f32), so
+    hi + lo is itself an f32 value, v to about 2^-17·|v|.  Transposes
+    as a tensor does; ``float()`` is hi + lo."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.hi.shape
+
+    def dim(self):
+        return self.hi.dim()
+
+    def transpose(self, d0, d1):
+        return Split(self.hi.transpose(d0, d1), self.lo.transpose(d0, d1))
+
+    def float(self):
+        return self.hi.float() + self.lo.float()
+
+
+def split_f32_ref(t):
+    """f32 t -> Split(hi, lo), both rounded to nearest even."""
+    hi = t.to(torch.bfloat16)
+    return Split(hi, (t - hi.float()).to(torch.bfloat16))
+
+
+def grouped_matmul_ref(a, b, out_dtype=None, plus=None):
+    """a (E, M, K) @ b (E, K, N) [+ a2 (E, M, K2) @ b2 (E, K2, N) for
+    ``plus=(a2, b2)``] -> (E, M, N), f32 products summed in f32, output
+    in ``out_dtype`` (default ``a.dtype``).  A ``Split`` operand enters
+    as hi + lo."""
     out = torch.bmm(a.float(), b.float())
+    if plus is not None:
+        out = out + torch.bmm(plus[0].float(), plus[1].float())
     return out.to(out_dtype or a.dtype)
 
 

@@ -134,6 +134,12 @@ def ssd_chunked(xh, dt, A, Bh, Ch, *, chunk: int, init_state=None,
     return y, h
 
 
+def skip(y, xs, D):
+    """y + D * x per head (xs (..., H, P), D (H,) f32): the skip term in
+    f32, as the reference adds it."""
+    return y + xs.float() * D[:, None]
+
+
 def ssm_forward(p, cfg: ModelConfig, x, *, conv_cache=None, init_state=None,
                 return_cache: bool = False):
     """Full-sequence Mamba-2 block.  x: (B, S, D) -> (B, S, D); with
@@ -162,8 +168,7 @@ def ssm_forward(p, cfg: ModelConfig, x, *, conv_cache=None, init_state=None,
                                  init_state=init_state,
                                  compute_dtype=getattr(
                                      torch, cfg.ssm_compute_dtype))
-    y = y + xs.float() * p["D"][None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = skip(y, xs, p["D"]).reshape(B, S, d_inner).to(x.dtype)
     y = layers.apply_norm(p["norm"], y * F.silu(z))
     out = y @ p["out_proj"]
     if return_cache:
@@ -214,8 +219,7 @@ def ssm_decode(p, cfg: ModelConfig, x, cache):
     h_new = (h * dec[:, :, None, None]
              + torch.einsum("bh,bhn,bhp->bhpn", dt1, Bs.float(), xs.float()))
     y = torch.einsum("bhn,bhpn->bhp", Cs.float(), h_new)
-    y = y + xs.float() * p["D"][None, :, None]
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = skip(y, xs, p["D"]).reshape(B, 1, d_inner).to(x.dtype)
     y = layers.apply_norm(p["norm"], y * F.silu(z))
     out = y @ p["out_proj"]
     return out, {"state": h_new, "conv": conv_in[:, -(K - 1):]}

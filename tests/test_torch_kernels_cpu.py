@@ -120,3 +120,29 @@ def test_ops_reject_bad_inputs():
         pa.paged_decode_attention(*args[:3], args[3].long(), args[4])
     with pytest.raises(ValueError):
         pa.paged_decode_attention(*args[:3], args[3][:1], args[4])
+
+
+def test_build_target_hashes_included_headers(tmp_path):
+    """A library is named by its source and every header it includes, so
+    an edit to a shared header rebuilds each source that uses it."""
+    from repro_torch.kernels import _build
+    (tmp_path / "a.cu").write_text('#include <cuda.h>\n#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h;\n')
+    (tmp_path / "g.cuh").write_text("int g;\n")
+    src = tmp_path / "a.cu"
+    assert [f.name for f in _build._sources(src)] == ["a.cu", "h.cuh", "g.cuh"]
+    before = _build._target(src)
+    (tmp_path / "g.cuh").write_text("int g2;\n")
+    after = _build._target(src)
+    assert after != before and after.stem.startswith("a-")
+
+
+@pytest.mark.parametrize("name", ["kd_loss", "moe_gemm"])
+def test_wgmma_sources_share_one_header(name):
+    """Both wgmma kernels take their TMA, mbarrier and wgmma helpers and
+    the tensor-map encoder from one header, which their hash covers."""
+    from repro_torch.kernels import _build
+    names = [f.name for f in _build._sources(_build.CSRC / f"{name}.cu")]
+    assert names == [f"{name}.cu", "tma_wgmma.cuh"]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert "tma_encoder(&enc)" in text and "cuTensorMapEncodeTiled\"" not in text

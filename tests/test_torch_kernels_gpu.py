@@ -24,6 +24,10 @@ it bit for bit.  The grouped FFN's bf16 instance (tensor cores, h as
 two bf16 terms) is also held to the two-ulp rule at its edges: C = 1,
 the tune path's C, D and F, F not a multiple of 32 or of 8, odd F, and
 misaligned views.
+The grouped matmul is held at each instance (``wgmma``, ``wgmma_split``
+with an f32 operand split on the card, ``general``, ``f32``) on every
+layout and ragged edge, the instance it takes counted, a second launch
+bit-identical; the split pass equals its plain version bit for bit.
 The paged kernel splits each slot's context across blocks and merges the
 slices in a fixed order inside the launch: it is held at every pool
 dtype and head dim and at the split's edges (slices emptied by a window
@@ -592,6 +596,19 @@ def test_kd_loss_splits_cover_every_tile(cuda, V):
     torch.testing.assert_close(ce, want_ce, **TOL)
 
 
+@pytest.mark.parametrize("Dt", [0, 72])
+def test_kd_loss_wgmma_on_a_fresh_thread(cuda, Dt):
+    """kd_loss is recomputed in the backward, on autograd's thread: its
+    tensor maps are encoded on a thread with no current context."""
+    hs, ws, ht, wt, lab = _kd_inputs(cuda, 130, 136, Dt, 4104,
+                                     torch.bfloat16)
+    assert kd.instance(hs, ws, ht, wt) == "wgmma"
+    got = _on_a_fresh_thread(
+        lambda: kd.kd_loss_fwd(hs, ws, ht, wt, lab, tau=2.0))
+    want = kd.kd_loss_fwd(hs, ws, ht, wt, lab, tau=2.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_kd_loss_refuses_what_it_does_not_take(cuda):
     hs = torch.zeros(4, 8, device=cuda)
     ws = torch.zeros(8, 16, device=cuda)
@@ -607,28 +624,123 @@ def test_kd_loss_refuses_what_it_does_not_take(cuda):
 # MoE kernels: grouped matmul (5), grouped FFN (4), gather/scatter-add (6)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("ta,tb,da,db,dc", [
-    (False, False, torch.float32, torch.float32, torch.float32),
-    (True, False, torch.bfloat16, torch.float32, torch.float32),
-    (False, True, torch.float32, torch.bfloat16, torch.float32),
-    (True, True, torch.bfloat16, torch.bfloat16, torch.bfloat16)])
-def test_grouped_matmul_kernel_matches_plain(cuda, ta, tb, da, db, dc):
-    """Transposed operands (views), mixed operand dtypes, ragged M, N and
-    K (none a multiple of the 128 x 128 x 16 tile)."""
+_bf, _f32 = torch.bfloat16, torch.float32
+# instance: (A transposed view, B transposed view, A dtype, B dtype, out
+# dtype, split operand, two products, (E, M, K, N)).  M, N and K ragged
+# against the 128 x 256 (x 128) x 64 tiles; K-major operands' rows a
+# multiple of 8 elements where TMA must take them.
+GMM_CASES = [
+    ("wgmma", False, False, _bf, _bf, _f32, None, False, (3, 130, 136, 200)),
+    ("wgmma", False, True, _bf, _bf, _bf, None, False, (3, 130, 136, 69)),
+    ("wgmma", True, False, _bf, _bf, _f32, None, False, (3, 136, 37, 200)),
+    ("wgmma", True, True, _bf, _bf, _bf, None, True, (2, 72, 136, 130)),
+    ("wgmma_split", False, True, _f32, _bf, _bf, "a", True,
+     (2, 130, 136, 264)),
+    ("wgmma_split", True, False, _f32, _bf, _f32, "a", False,
+     (3, 136, 37, 200)),
+    ("wgmma_split", True, False, _bf, _f32, _bf, "b", False,
+     (3, 200, 100, 136)),
+    ("wgmma_split", False, False, _f32, _bf, _f32, "a", False,
+     (2, 130, 72, 200)),
+    ("general", False, False, _bf, _bf, _f32, None, False, (3, 130, 37, 70)),
+    ("general", True, False, _bf, _f32, _f32, None, False, (3, 130, 37, 70)),
+    ("general", False, True, _f32, _bf, _bf, "a", True, (2, 130, 37, 70)),
+    ("f32", False, False, _f32, _f32, _f32, None, False, (3, 130, 37, 70)),
+    ("f32", True, True, _f32, _f32, _f32, None, True, (2, 130, 37, 70)),
+    # an unsplit f32 operand beside a bf16 one (gmm_kernel<float, bf16,
+    # float>), and bf16 transposed views whose rows TMA cannot take
+    ("general", False, True, _f32, _bf, _f32, None, False, (3, 130, 37, 70)),
+    ("general", True, True, _bf, _bf, _bf, None, False, (3, 130, 37, 70)),
+]
+
+
+@pytest.mark.parametrize(
+    "inst,ta,tb,da,db,dc,split,two,size", GMM_CASES,
+    ids=[f"{c[0]}-{i}" for i, c in enumerate(GMM_CASES)])
+def test_grouped_matmul_kernel_matches_plain(cuda, inst, ta, tb, da, db, dc,
+                                             split, two, size):
+    """Every instance on transposed views, ragged M, N and K (K below one
+    tile too), one or two products, f32 or bf16 out; an f32 operand split
+    on the card where ``split`` names it.  The instance taken is counted
+    and asserted, the output held to the plain version on the f32 values,
+    and a second launch gives the same bits."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    E, M, K, N = 3, 130, 37, 70
-    a = torch.randn((E, K, M) if ta else (E, M, K), generator=g,
-                    device=cuda).to(da)
-    b = torch.randn((E, N, K) if tb else (E, K, N), generator=g,
-                    device=cuda).to(db)
-    a = a.transpose(1, 2) if ta else a
-    b = b.transpose(1, 2) if tb else b
-    n0 = gemm.LAUNCHES["grouped_matmul"]
-    out = gemm.grouped_matmul(a, b, out_dtype=dc)
-    assert gemm.LAUNCHES["grouped_matmul"] == n0 + 1
-    want = grouped_matmul_ref(a, b, dc)
+    E, M, K, N = size
+    pairs, plain = [], []
+    for _ in range(2 if two else 1):
+        a = torch.randn((E, K, M) if ta else (E, M, K), generator=g,
+                        device=cuda).to(da)
+        b = (torch.randn((E, N, K) if tb else (E, K, N), generator=g,
+                         device=cuda) / K ** 0.5).to(db)
+        a = a.transpose(1, 2) if ta else a
+        b = b.transpose(1, 2) if tb else b
+        plain.append((a, b))
+        if split == "a":
+            a = gemm.split_f32(a.transpose(1, 2)).transpose(1, 2) if ta \
+                else gemm.split_f32(a)
+        if split == "b":
+            b = gemm.split_f32(b.transpose(1, 2)).transpose(1, 2) if tb \
+                else gemm.split_f32(b)
+        pairs.append((a, b))
+    plus = pairs[1] if two else None
+    assert gemm.instance(*pairs[0], plus=plus) == inst
+    n0 = dict(gemm.LAUNCHES_BY_INSTANCE)
+    out = gemm.grouped_matmul(*pairs[0], out_dtype=dc, plus=plus)
+    assert gemm.LAUNCHES_BY_INSTANCE[inst] == n0[inst] + 1
+    assert sum(gemm.LAUNCHES_BY_INSTANCE.values()) == sum(n0.values()) + 1
+    want = grouped_matmul_ref(*plain[0], dc,
+                              plain[1] if two else None)
     torch.testing.assert_close(out, want,
                                **(TOL if dc == torch.float32 else BF16_TOL))
+    assert torch.equal(out, gemm.grouped_matmul(*pairs[0], out_dtype=dc,
+                                                plus=plus))
+
+
+def _on_a_fresh_thread(fn):
+    """fn() run on a new thread, after one call on this one (so the
+    kernel's one-time set-up, which would make the context current, is
+    done).  Autograd runs the backward on a thread of its own, where the
+    runtime has not yet made the device's context current."""
+    import threading
+    fn()
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(fn())
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    return got[0]
+
+
+def test_grouped_matmul_wgmma_on_a_fresh_thread(cuda):
+    """The tensor maps are encoded on a thread with no current context."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(2, 130, 136, generator=g, device=cuda).bfloat16()
+    b = torch.randn(2, 136, 200, generator=g, device=cuda).bfloat16()
+    assert gemm.instance(a, b) == "wgmma"
+    got = _on_a_fresh_thread(lambda: gemm.grouped_matmul(a, b))
+    want = grouped_matmul_ref(a, b, torch.float32)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_split_f32_kernel_equals_plain(cuda):
+    """Both bf16 terms bit for bit, on a length the vector path does not
+    divide (a scalar tail) and on an offset view (scalar only)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    t = torch.randn(3, 130, 37, generator=g, device=cuda) * 1e3
+    for v in (t, t.reshape(-1)[1:]):
+        n0 = gemm.LAUNCHES["split_f32"]
+        got = gemm.split_f32(v)
+        assert gemm.LAUNCHES["split_f32"] == n0 + 1
+        want = gemm.split_f32(v.cpu())
+        assert torch.equal(got.hi.cpu(), want.hi)
+        assert torch.equal(got.lo.cpu(), want.lo)
 
 
 @pytest.mark.parametrize("dtype,act,C,D,F", [
@@ -690,24 +802,40 @@ def test_grouped_ffn_bf16_kernel_keeps_the_two_ulp_rule(cuda, monkeypatch, E,
     assert torch.isfinite(out).all() and worst <= 1.0, worst
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
-def test_grouped_ffn_gradient_matches_plain(cuda, act):
+def test_grouped_ffn_gradient_matches_plain(cuda, act, dtype):
     """The backward's eight products through the grouped-matmul kernel
-    against the explicit-chain plain backward."""
+    (seven launches: dx's two products in one) against the explicit-chain
+    plain backward in f32.  f32: the f32 instance, to 1e-4.  bf16: three
+    wgmma and four wgmma_split launches after three splits, each
+    gradient rounded once to bf16, to two bf16 ulps + 1e-4."""
     g = torch.Generator(device=cuda).manual_seed(7)
     E, C, D, F = 2, 50, 64, 72
-    x = torch.randn(E, C, D, generator=g, device=cuda)
-    wg, wu = (torch.randn(E, D, F, generator=g, device=cuda) / 8
+    x = torch.randn(E, C, D, generator=g, device=cuda).to(dtype)
+    wg, wu = (torch.randn(E, D, F, generator=g, device=cuda).div(8).to(dtype)
               for _ in range(2))
-    wo = torch.randn(E, F, D, generator=g, device=cuda) / 8
-    dy = torch.randn(E, C, D, generator=g, device=cuda)
+    wo = torch.randn(E, F, D, generator=g, device=cuda).div(8).to(dtype)
+    dy = torch.randn(E, C, D, generator=g, device=cuda).to(dtype)
     args = [t.clone().requires_grad_(True) for t in (x, wg, wu, wo)]
-    n0 = gemm.LAUNCHES["grouped_matmul"]
+    n0 = dict(gemm.LAUNCHES)
+    by0 = dict(gemm.LAUNCHES_BY_INSTANCE)
     gemm.grouped_ffn(*args, act=act).backward(dy)
-    assert gemm.LAUNCHES["grouped_matmul"] == n0 + 8
+    assert gemm.LAUNCHES["grouped_matmul"] == n0["grouped_matmul"] + 7
+    by = {k: v - by0[k] for k, v in gemm.LAUNCHES_BY_INSTANCE.items()}
+    if dtype == torch.float32:
+        assert by == {"wgmma": 0, "wgmma_split": 0, "general": 0, "f32": 7}
+        assert gemm.LAUNCHES["split_f32"] == n0["split_f32"]
+    else:
+        assert by == {"wgmma": 3, "wgmma_split": 4, "general": 0, "f32": 0}
+        assert gemm.LAUNCHES["split_f32"] == n0["split_f32"] + 3
     for got, want in zip([t.grad for t in args],
                          grouped_ffn_bwd_ref(x, wg, wu, wo, dy, act=act)):
-        torch.testing.assert_close(got, want, **TOL)
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **TOL)
+        else:
+            assert bf16_err_over_limit(got, want.to(dtype)) <= 1.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
