@@ -11,8 +11,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serve, train and tune paths' shapes plus small edge
    cases (MoE: a drop case, transposed operands, gelu, ragged edges;
-   SSD scan: ragged, two groups with h0, f32, odd tiles, each also with
-   slow decay, where the far pairs and the carried state must show;
+   SSD scan: ragged, two groups with h0, odd tiles, an odd row stride,
+   f32, each in the instance ``ops.instance`` must pick (``tc``:
+   tensor cores, W, h_in and B∘w as two bf16 terms; ``general``; ``f32``),
+   launched twice and bit-identical, bf16 y also by the per-element rule,
+   each also with slow decay, where the far pairs and the carried state
+   must show;
    the bf16 flash kernel (tensor cores) at every head dim 16-256 with a
    window, a softcap, ragged S, S < 64, S = 1 and GQA ratios 1, 2 and 8,
    timed at the serve, train and tune shapes and at D 256;
@@ -60,10 +64,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5b. serve_ssm: full-width, full-depth Mamba2-1.3B (bf16, random weights
    from seed 0) behind ``PagedServeEngine``: 16 greedy requests, prompts
    of 128-1024 tokens, 64 new tokens each.  Checks the completions, the
-   SSD kernel's launches (48 per prefill), logits on two prompts (f32
-   kernel path against the plain version; bf16 paths against the f32
-   model; prefill + decode against one prefill), and profiles one
-   1024-token prefill and one decode segment;
+   SSD kernel's launches (48 per prefill, all ``tc``), logits on two
+   prompts (f32 kernel path against the plain version; bf16 paths
+   against the f32 model; prefill + decode against one prefill), and
+   profiles one 1024-token prefill (the scan's three launches read
+   apart) and one decode segment;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run
@@ -943,7 +948,11 @@ def moe_cases(gen):
 
 
 # SSD scan outputs: bf16 y within two bf16 ulps of the case's largest |y|
-# (kernel and plain version both round once from f32).  f32 y and the
+# (kernel and plain version both round once from f32), and each element
+# within check_close's rule (two bf16 ulps of itself + 1e-4): the tc
+# instance carries W, h_in and B∘w as two bf16 terms each, and one term
+# breaks that rule 28-58x where the largest-|y| rule lets it through
+# (tests/test_torch_ssd_numerics.py).  f32 y and the
 # final state (f32 in every case): sums and the in-chunk cumsum run in
 # other orders, so a limit relative to the case's largest value.
 # Readings on an H100 (700 W): y 7.2e-6 of the largest |y| (f32, fast
@@ -953,32 +962,39 @@ SSD_FAR = 64          # "far" pairs: more than 64 rows (a quarter chunk) apart
 SSD_MIN_SHARE = 0.10  # each term a slow-decay case must show
 
 
-def _ssd_inputs(gen, B, S, H, P, N, G, dtype, with_h0, slow):
-    """x, B, C ~ N(0,1) (B/C x 0.3); fast decay as the reference's init
-    (A = -1, dt = softplus(N(0,1)), about 0.75 a row), or slow decay
-    (dt * |A| <= 0.01: exp(cum) over a 256-row chunk >= e^-2.56)."""
+def _ssd_inputs(gen, B, S, H, P, N, G, dtype, with_h0, slow, pad=0):
+    """x, B, C ~ N(0,1) (B/C x 0.3), views of one (B, S, H*P + 2*G*N +
+    pad) conv output as the model passes them; fast decay as the
+    reference's init (A = -1, dt = softplus(N(0,1)), about 0.75 a row),
+    or slow decay (dt * |A| <= 0.01: exp(cum) over a 256-row chunk >=
+    e^-2.56)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    x = rnd(B, S, H, P).to(dtype)
+    conv = rnd(B, S, H * P + 2 * G * N + pad)
+    conv[..., H * P:] *= 0.3
+    conv = conv.to(dtype)
+    x = conv[..., :H * P].reshape(B, S, H, P)
+    b = conv[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    c = conv[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
     if slow:
         dt = 0.02 + 0.08 * torch.rand((B, S, H), generator=gen, device="cuda")
         A = -(0.02 + 0.08 * torch.rand((H,), generator=gen, device="cuda"))
     else:
         dt = F.softplus(rnd(B, S, H))
         A = -torch.ones(H, device="cuda")
-    b = (0.3 * rnd(B, S, G, N)).to(dtype)
-    c = (0.3 * rnd(B, S, G, N)).to(dtype)
     h0 = 0.5 * rnd(B, H, P, N) if with_h0 else None
     return x, dt, A, b, c, h0
 
 
 def ssd_bound_ms(B, S, H, P, N, G, Q, dtype, with_h0):
     """Least time for the scan on these shapes: per chunk of Qc rows the
-    causal triangle of C·Bᵀ (operands in x's dtype: the bf16 tensor-core
-    rate for bf16) and of (C·Bᵀ∘L)(x∘dt), the carried-state term where a
-    state enters (chunks after the first, or h0), and the state update
-    (f32 operands: the f32 rate); bytes: each input read once (B/C once
-    per group), y and the final state written once."""
+    causal triangle of C·Bᵀ and of (C·Bᵀ∘L)(x∘dt), the carried-state
+    term where a state enters (chunks after the first, or h0), and the
+    state update, every product counted once at the rate of the inputs'
+    dtype (bf16: the tensor cores; an f32 operand the bf16 kernel carries
+    as two bf16 terms is not credited twice, as grouped_matmul's bound);
+    bytes: each input read once (B/C once per group), y and the final
+    state written once."""
     xs = torch.finfo(dtype).bits // 8
     cb = wx = inter = upd = 0.0
     for c in range(-(-S // Q)):
@@ -989,21 +1005,22 @@ def ssd_bound_ms(B, S, H, P, N, G, Q, dtype, with_h0):
         if c > 0 or with_h0:
             inter += 2 * qc * N * P
         upd += 2 * qc * N * P
-    bh = B * H
-    t_ops = (bh * cb / PEAK_FLOPS[dtype]
-             + bh * (wx + inter + upd) / PEAK_FLOPS[torch.float32])
+    flops = B * H * (cb + wx + inter + upd)
     nbytes = (2 * B * S * H * P * xs + B * S * H * 4 + H * 4
               + 2 * B * S * G * N * xs
               + B * H * P * N * 4 * (2 if with_h0 else 1))
-    t_b = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_b) * 1e3, "bytes" if t_b >= t_ops else "operations",
-            (bh * (cb + wx + inter + upd)) / 1e9)
+    ms, by = bound_ms(nbytes, flops, dtype)
+    return ms, by, flops / 1e9
 
 
-def ssd_case(gen, B, S, H, P, N, G, dtype, *, chunk=256, with_h0=False,
-             slow=False, timed=False):
+def ssd_case(gen, B, S, H, P, N, G, dtype, *, inst, chunk=256,
+             with_h0=False, slow=False, timed=False, views=True):
     """The SSD scan kernel against its plain version, y and the final
-    state.  A slow-decay case also reports, from the plain version, the
+    state, launched twice (bit-identical) in the instance ``inst`` (which
+    ``ops.instance`` must pick).  x, B and C are views of one conv output
+    as the model passes them (``views``), or, with ``views=False``, of
+    one a column wider, whose odd row stride only the CUDA-core kernel
+    takes.  A slow-decay case also reports, from the plain version, the
     share of the intra-chunk term from pairs more than SSD_FAR rows (at
     most a quarter of the chunk) apart, and the carried-state term's
     share of |y| over the chunks after the first (with h0, also over the
@@ -1011,14 +1028,24 @@ def ssd_case(gen, B, S, H, P, N, G, dtype, *, chunk=256, with_h0=False,
     can see each term."""
     from repro_torch.kernels.ssd_scan import ops, ref
     x, dt, A, b, c, h0 = _ssd_inputs(gen, B, S, H, P, N, G, dtype, with_h0,
-                                     slow)
+                                     slow, pad=0 if views else 1)
     kw = dict(chunk=chunk, init_state=h0)
-    y, h = ops.ssd(x, dt, A, b, c, **kw)
-    wy, wh = ref.ssd_scan_ref(x, dt, A, b, c, **kw)
-    torch.cuda.synchronize()
     name = (f"ssd_scan B={B} S={S} H={H} P={P} N={N} G={G} chunk={chunk} "
             f"{str(dtype)[6:]} h0={with_h0} {'slow' if slow else 'fast'} "
             f"decay")
+    picked = ops.instance(x, b, c)
+    if picked != inst:
+        fail(f"{name}: ops.instance picks {picked}, expected {inst}")
+    n0 = dict(ops.LAUNCHES_BY_INSTANCE)
+    y, h = ops.ssd(x, dt, A, b, c, **kw)
+    y2, h2 = ops.ssd(x, dt, A, b, c, **kw)
+    wy, wh = ref.ssd_scan_ref(x, dt, A, b, c, **kw)
+    torch.cuda.synchronize()
+    if ops.LAUNCHES_BY_INSTANCE[inst] != n0[inst] + 2:
+        fail(f"{name}: launches by instance {ops.LAUNCHES_BY_INSTANCE}, "
+             f"before {n0}: not two in {inst}")
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        fail(f"{name}: a second launch gave other bits")
     err_y = (y.float() - wy.float()).abs().max().item()
     max_y = wy.float().abs().max().item()
     if dtype == torch.float32:
@@ -1028,13 +1055,15 @@ def ssd_case(gen, B, S, H, P, N, G, dtype, *, chunk=256, with_h0=False,
         lim_y = 2 * ulp
     err_h = (h - wh).abs().max().item()
     lim_h = SSD_F32_REL * wh.abs().max().item()
-    row = {"case": name, "max_abs_err": err_y, "limit": lim_y,
-           "max_abs_want": max_y, "state_max_abs_err": err_h,
-           "state_limit": lim_h}
+    row = {"case": name, "instance": inst, "max_abs_err": err_y,
+           "limit": lim_y, "max_abs_want": max_y, "state_max_abs_err": err_h,
+           "state_limit": lim_h, "repeat_bit_identical": True}
     if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()) \
             or not (err_y <= lim_y and err_h <= lim_h):
         fail(f"{name}: y error {err_y} (limit {lim_y}), state error {err_h} "
              f"(limit {lim_h})")
+    if dtype != torch.float32:   # and each element by check_close's rule
+        row["err_over_limit"] = check_close(name, y, wy)["err_over_limit"]
     if slow:
         Q = min(chunk, S)
         near, far, inter = ref.ssd_terms(x, dt, A, b, c,
@@ -1065,21 +1094,32 @@ def ssd_case(gen, B, S, H, P, N, G, dtype, *, chunk=256, with_h0=False,
 
 def ssd_cases(gen):
     """Kernel 7 at the ssm serve path's shape (one 1024-token prompt of
-    Mamba2-1.3B: B*H = 64, P 64, N 128, chunk 256, bf16; timed), a
-    ragged prompt, two groups with h0, f32, odd tile edges; each case
-    also with slow decay."""
+    Mamba2-1.3B: B*H = 64, P 64, N 128, chunk 256, bf16, the tc
+    instance; timed), a ragged prompt, two groups with h0, P 80 with N
+    64 and an odd chunk (tc); the path's shape with an odd row stride, N
+    200 (general); f32; each case also with slow decay."""
     bf, f32 = torch.bfloat16, torch.float32
     rows = []
     for slow in (False, True):
         rows += [ssd_case(gen, 1, 1024, 64, 64, 128, 1, bf, slow=slow,
-                          timed=not slow),
-                 ssd_case(gen, 1, 777, 64, 64, 128, 1, bf, slow=slow),
+                          timed=not slow, inst="tc"),
+                 ssd_case(gen, 1, 777, 64, 64, 128, 1, bf, slow=slow,
+                          inst="tc"),
                  ssd_case(gen, 2, 300, 8, 64, 128, 2, bf, with_h0=True,
-                          slow=slow),
+                          slow=slow, inst="tc"),
+                 ssd_case(gen, 1, 200, 6, 80, 64, 3, bf, chunk=100,
+                          with_h0=True, slow=slow, inst="tc"),
+                 ssd_case(gen, 1, 1024, 64, 64, 128, 1, bf, slow=slow,
+                          inst="general", views=False),
+                 ssd_case(gen, 1, 200, 6, 80, 200, 3, bf, chunk=100,
+                          with_h0=True, slow=slow, inst="general"),
                  ssd_case(gen, 1, 1024, 64, 64, 128, 1, f32, with_h0=True,
-                          slow=slow),
+                          slow=slow, inst="f32"),
                  ssd_case(gen, 1, 200, 6, 80, 200, 3, f32, chunk=100,
-                          with_h0=True, slow=slow)]
+                          with_h0=True, slow=slow, inst="f32")]
+    from repro_torch.kernels.ssd_scan import ops
+    print("ssd_scan tc dynamic shared bytes (chunk state, outputs) at "
+          f"chunk 256, N 128: {ops.tc_smem_bytes(256, 128)}")
     print("ssd_scan library_ms: null -- no single PyTorch call computes the "
           "chunked scan (its plain version is einsum, cumsum and a loop "
           "over chunks)")
@@ -1806,13 +1846,25 @@ def check_ssm_logits(res):
              f"{SSM_F32_DECODE_TOL}")
 
 
+def _ssd_on_tensor_cores(by_instance, n):
+    """Every scan launch of the serve_ssm run took the tc instance: the
+    model's bf16 views of its conv output (row stride 4352 elements, B
+    and C at byte offsets 8192 and 8448), none on the CUDA cores."""
+    want = {"tc": n, "general": 0, "f32": 0}
+    print(f"serve_ssm: ssd_scan launches by instance {by_instance}")
+    if by_instance != want:
+        fail(f"serve_ssm: ssd_scan launches by instance {by_instance}, "
+             f"expected {want}")
+
+
 def phase_serve_ssm():
     """Full-width, full-depth Mamba2-1.3B (bf16, random weights from seed
     0) behind ``PagedServeEngine`` with 8 slots: 16 greedy requests of
     128-1024 prompt tokens, 64 new tokens each, after a warm-up run.
     Checks the completions, the SSD kernel's launches on that run (48 per
-    prefill), the logit checks (i)-(iii) on two prompts, and profiles one
-    1024-token prefill and one decode segment."""
+    prefill, every one in the tc instance), the logit checks (i)-(iii) on
+    two prompts, and profiles one 1024-token prefill and one decode
+    segment."""
     from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -1858,11 +1910,14 @@ def phase_serve_ssm():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ssd_ops.LAUNCHES = 0
+        ssd_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
+            ssd_ops.LAUNCHES_BY_INSTANCE, 0))
         t0 = time.perf_counter()
         comps = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"ssd_scan": ssd_ops.LAUNCHES}
+        by_instance = dict(ssd_ops.LAUNCHES_BY_INSTANCE)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     st = eng.stats
@@ -1881,6 +1936,7 @@ def phase_serve_ssm():
     if launches != want or st["prefills"] != len(prompts):
         fail(f"ssm launches {launches} != expected {want} "
              f"({st['prefills']} prefills)")
+    _ssd_on_tensor_cores(by_instance, want["ssd_scan"])
     steps = st["segments"] * seg_len
     ttft = sorted(c.ttft_s for c in comps.values())
     res = {"requests": len(comps), "prompt_lens": lens,
@@ -1891,18 +1947,25 @@ def phase_serve_ssm():
            "admit_s": st["admit_s"], "decode_s": st["decode_s"],
            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
            "ttft_min_s": ttft[0], "prefills": st["prefills"],
-           "launches": launches, "peak_mem_gb": peak_gb,
+           "launches": launches, "launches_by_instance": by_instance,
+           "peak_mem_gb": peak_gb,
            "n_params": n_params, "logit_checks": checks}
     print("serve_ssm " + json.dumps(res))
 
     toks = torch.as_tensor(prompts[-1], device="cuda")
-    groups = {"ssd_scan": ("ssd_chunk", "ssd_state")}
+    groups = {"ssd_scan": ("ssd_chunk", "ssd_state"),
+              "ssd_chunk_state": ("ssd_chunk_state",),
+              "ssd_state_pass": ("ssd_state_pass",),
+              "ssd_chunk_out": ("ssd_chunk_out",)}
     with torch.no_grad():
         pre = profile(lambda: M.prefill(params, cfg, {"tokens": toks}),
                       top=10, groups=groups)
         eng = make_engine()
         eng.step()        # admits the first 8 requests, runs a segment
         seg = profile(eng.step, top=10)  # no slot free: a decode segment
+    print("ssd_scan per-launch split (device ms over the prefill's 48 "
+          "layers): " + json.dumps({k: v for k, v in pre["group_ms"].items()
+                                    if k != "ssd_scan"}))
     print("profile " + json.dumps({"ssm_prefill_1024": pre,
                                    "ssm_decode_segment_8_steps": seg}))
     return launches

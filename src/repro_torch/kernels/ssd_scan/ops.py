@@ -4,19 +4,33 @@ Replaces ``repro.kernels.ssd_scan.kernel.ssd_scan_bh`` (the Pallas TPU
 kernel ``_ssd_kernel``) behind the signature of
 ``repro.kernels.ssd_scan.ops.ssd``, in the model's layout.  The CUDA
 source is ``csrc/ssd_scan.cu``; its header says what bounds it on the
-H100 and what the design does about it.
+H100 (bytes: at the ssm prefill's shape about 20 MB against 5 GFLOP
+counted once at the bf16 tensor-core rate) and how the design meets it.
 
 The kernel reads x, B and C through their strides, so the model hands it
 views of its conv output, and B/C once per group: ``Bh``/``Ch`` may be
 (B, S, H, N) or (B, S, G, N) with G dividing H (head h reads group
 h // (H / G)), where the reference repeats each group to H heads first.
 
+``instance`` picks the kernel's instance from dtypes, shapes, strides
+and pointers alone, before the launch:
+
+- ``tc``: bf16 with P and N multiples of 16, N <= ``TC_MAX_N``, every
+  stride of x, B and C a multiple of 8 elements and their bases 16-byte
+  aligned (the model's views of its conv output qualify).  C·Bᵀ, the
+  intra-chunk product, the carried-state term and the state update run
+  on the tensor cores (``mma.sync``, ``cp.async``); the f32 operands W,
+  h_in and B∘w enter them as two bf16 terms each;
+- ``general``: any other bf16, f32 FMAs on the CUDA cores;
+- ``f32``: f32, the same CUDA-core kernel in f32.
+
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises — nothing falls back.  ``LAUNCHES`` counts
 the calls that launch the kernel (three CUDA launches on one stream
-each), so a run can show the path went through it.  The kernel has no
-backward (the reference's ``ssd`` has no VJP either): a call that would
-need one raises.
+each), ``LAUNCHES_BY_INSTANCE`` the same calls by instance, so a run can
+show the path went through it.  The kernel has no backward (the
+reference's ``ssd`` has no VJP either): a call that would need one
+raises.
 """
 from __future__ import annotations
 
@@ -28,8 +42,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 LAUNCHES = 0
+LAUNCHES_BY_INSTANCE = {"tc": 0, "general": 0, "f32": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 1024
+TC_MAX_N = 256   # csrc/ssd_scan.cu: the tc instance's shared tiles
 _fn = None
 
 
@@ -38,7 +54,7 @@ class _Args(ctypes.Structure):
     elements)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("x", "dt", "A", "b", "c", "h0", "y", "hout", "hbuf",
-                  "clast")]
+                  "clast", "hin_hi", "hin_lo", "cumdt")]
                 + [(n, ctypes.c_int) for n in
                    ("batch", "S", "H", "G", "P", "N", "Q", "nC", "dtype")]
                 + [(n, ctypes.c_longlong) for n in
@@ -50,13 +66,42 @@ def _kernel():
     global _fn
     if _fn is None:
         lib = _build.library("ssd_scan")
-        fn = lib.ssd_scan_fwd
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fns = {}
+        for inst, name in (("cuda_cores", "ssd_scan_fwd"),
+                           ("tc", "ssd_scan_fwd_tc")):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[inst] = fn
+        lib.ssd_scan_tc_smem.argtypes = [ctypes.c_int] * 3
+        lib.ssd_scan_tc_smem.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.ssd_scan_error_string)
+        _fn = (fns, lib.ssd_scan_tc_smem, lib.ssd_scan_error_string)
     return _fn
+
+
+def tc_smem_bytes(chunk: int, N: int):
+    """(chunk-state, outputs) dynamic shared memory bytes of the tc
+    instance's blocks at this chunk and N, as the CUDA source has them."""
+    _, smem, _ = _kernel()
+    return smem(chunk, N, 0), smem(chunk, N, 1)
+
+
+def instance(xh, Bh, Ch) -> str:
+    """The instance a CUDA launch on these tensors takes: ``tc`` for bf16
+    with P and N multiples of 16, N <= TC_MAX_N, and every stride of x, B
+    and C a multiple of 8 elements with 16-byte-aligned bases (cp.async's
+    16-byte copies), ``general`` for any other bf16, ``f32`` for f32."""
+    if xh.dtype == torch.float32:
+        return "f32"
+    P, N = xh.shape[3], Bh.shape[3]
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(st % 8 == 0 for st in t.stride()[:3])
+                  for t in (xh, Bh, Ch))
+    if P % 16 == 0 and N % 16 == 0 and N <= TC_MAX_N and aligned:
+        return "tc"
+    return "general"
 
 
 def _check_inputs(xh, dt, A, Bh, Ch, init_state):
@@ -119,21 +164,35 @@ def ssd(xh, dt, A, Bh, Ch, *, chunk: int = 128, init_state=None):
         raise ValueError(f"ssd: chunk {Q} not in [1, {MAX_CHUNK}]")
     nC = -(-S // Q)
     dev = xh.device
+    inst = instance(xh, Bh, Ch)
     y = torch.empty((Bsz, S, H, P), dtype=xh.dtype, device=dev)
     hout = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-    # chunk states, then in place the state entering each chunk
+    # chunk states; in general/f32 then in place the state entering each
+    # chunk, in tc that state as two bf16 planes (hi, lo)
     hbuf = torch.empty((Bsz * H, nC, P, N), dtype=torch.float32, device=dev)
     clast = torch.empty((Bsz * H, nC), dtype=torch.float32, device=dev)
+    tc = inst == "tc"
+    planes = (torch.empty((2, Bsz * H, nC, P, N), dtype=torch.bfloat16,
+                          device=dev) if tc else None)
+    # tc: each chunk's cumsum and dt, rows padded to 4 floats (16 bytes)
+    cumdt = (torch.empty((Bsz * H, nC, 2, -(-Q // 4) * 4),
+                         dtype=torch.float32, device=dev) if tc else None)
     a = _Args(xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bh.data_ptr(),
               Ch.data_ptr(),
               0 if init_state is None else init_state.data_ptr(),
               y.data_ptr(), hout.data_ptr(), hbuf.data_ptr(),
-              clast.data_ptr(), Bsz, S, H, G, P, N, Q, nC,
+              clast.data_ptr(),
+              0 if planes is None else planes[0].data_ptr(),
+              0 if planes is None else planes[1].data_ptr(),
+              0 if cumdt is None else cumdt.data_ptr(),
+              Bsz, S, H, G, P, N, Q, nC,
               _DTYPES[xh.dtype],
               *xh.stride()[:3], *dt.stride(), *Bh.stride()[:3],
               *Ch.stride()[:3])
-    fn, err_str = _kernel()
+    fns, _, err_str = _kernel()
+    fn = fns["tc" if tc else "cuda_cores"]
     err = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ssd", err_str)
+    _build.check(err, f"ssd ({inst})", err_str)
     LAUNCHES += 1
+    LAUNCHES_BY_INSTANCE[inst] += 1
     return y, hout

@@ -35,6 +35,12 @@ or past the last query, ctx 1, the last table position, a table far
 wider than every context, chunks across a slice boundary) to the same
 two-ulp rule in bf16, with a second launch bit-identical, the counters
 back at zero, and the plain version patched to refuse CUDA tensors.
+The SSD scan is held in each instance (``tc``: tensor cores with W, h_in
+and B∘w as two bf16 terms; ``general``; ``f32``), bf16 y by the two-ulp
+rule of each element as well as of the case's largest |y|, a second
+launch bit-identical, and the instance ``ops.instance`` picks checked
+on the model's strided views, an odd row stride, P or N not a multiple
+of 16, and f32.
 """
 import numpy as np
 import pytest
@@ -937,6 +943,8 @@ def _ssd_inputs(cuda, B, S, H, P, N, G, dtype, with_h0, slow, seed=0):
     (1, 1024, 64, 64, 128, 1, 256, torch.bfloat16, False),   # the path
     (1, 777, 64, 64, 128, 1, 256, torch.bfloat16, False),    # ragged
     (2, 300, 8, 64, 128, 2, 256, torch.bfloat16, True),      # groups, h0
+    (1, 200, 6, 80, 64, 3, 100, torch.bfloat16, True),       # tc, odd tiles
+    (1, 200, 6, 80, 200, 3, 100, torch.bfloat16, True),      # general
     (1, 600, 4, 64, 128, 1, 256, torch.float32, True),
     (2, 45, 4, 16, 16, 2, 32, torch.float32, False),         # reduced
     (1, 200, 6, 80, 200, 3, 100, torch.float32, True),       # odd tiles
@@ -944,9 +952,12 @@ def _ssd_inputs(cuda, B, S, H, P, N, G, dtype, with_h0, slow, seed=0):
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, G, chunk, dtype,
                                   with_h0, slow):
     """y and the final state against the plain version.  bf16 y within two
-    bf16 ulps of the case's largest |y| (both round once from f32); f32 y
-    and every final state within 5e-5 of the largest value (sums and the
-    cumsum in another order)."""
+    bf16 ulps of the case's largest |y| and each element within two bf16
+    ulps of itself + 1e-4 (both round once from f32; the tc instance
+    carries W, h_in and B∘w as two bf16 terms, and one term breaks the
+    per-element rule); f32 y and every final state within 5e-5 of the
+    largest value (sums and the cumsum in another order).  A second
+    launch gives the same bits."""
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     x, dt, A, b, c, h0 = _ssd_inputs(cuda, B, S, H, P, N, G, dtype,
@@ -954,16 +965,63 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, G, chunk, dtype,
     n0 = ssd.LAUNCHES
     y, h = ssd.ssd(x, dt, A, b, c, chunk=chunk, init_state=h0)
     assert ssd.LAUNCHES == n0 + 1
+    y2, h2 = ssd.ssd(x, dt, A, b, c, chunk=chunk, init_state=h0)
     wy, wh = ssd_scan_ref(x, dt, A, b, c, chunk=chunk, init_state=h0)
     torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     assert y.dtype == dtype and h.dtype == torch.float32
     m = wy.float().abs().max()
     if dtype == torch.bfloat16:
         _, e = torch.frexp(m)
         limit = 2 * torch.ldexp(torch.tensor(2.0 ** -7, device=cuda), e - 1)
+        assert bf16_err_over_limit(y, wy) <= 1.0
     else:
         limit = 5e-5 * m
     assert (y.float() - wy.float()).abs().max() <= limit
+    assert (h - wh).abs().max() <= 5e-5 * wh.abs().max()
+
+
+def _conv_views(cuda, B, S, H, P, N, G, dtype, pad=0):
+    """x, B, C as the model passes them: views of one (B, S, H*P + 2*G*N +
+    pad) conv output."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    conv = torch.randn(B, S, H * P + 2 * G * N + pad, generator=g,
+                       device=cuda)
+    conv[..., H * P:] *= 0.3
+    conv = conv.to(dtype)
+    return (conv[..., :H * P].reshape(B, S, H, P),
+            conv[..., H * P:H * P + G * N].reshape(B, S, G, N),
+            conv[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N))
+
+
+@pytest.mark.parametrize("P,N,dtype,pad,inst", [
+    (64, 128, torch.bfloat16, 0, "tc"),       # the ssm prefill's views
+    (64, 128, torch.bfloat16, 1, "general"),  # row stride 4353: odd
+    (24, 128, torch.bfloat16, 0, "general"),  # P not a multiple of 16
+    (64, 40, torch.bfloat16, 0, "general"),   # N not a multiple of 16
+    (64, 128, torch.float32, 0, "f32")])
+def test_ssd_takes_the_instance_its_inputs_allow(cuda, P, N, dtype, pad,
+                                                 inst):
+    """``ops.instance`` routes by dtype, shape, strides and bases; the
+    launch counts in that instance alone and holds the plain version's
+    result."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    B, S, H, G = 1, 300, 8, 1
+    x, b, c = _conv_views(cuda, B, S, H, P, N, G, dtype, pad)
+    _, dt, A, _, _, h0 = _ssd_inputs(cuda, B, S, H, P, N, G, dtype, True,
+                                     True)
+    assert ssd.instance(x, b, c) == inst
+    before = dict(ssd.LAUNCHES_BY_INSTANCE)
+    y, h = ssd.ssd(x, dt, A, b, c, chunk=128, init_state=h0)
+    assert {k: v - before[k] for k, v in ssd.LAUNCHES_BY_INSTANCE.items()} \
+        == {k: int(k == inst) for k in before}
+    wy, wh = ssd_scan_ref(x, dt, A, b, c, chunk=128, init_state=h0)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert bf16_err_over_limit(y, wy) <= 1.0
+    else:
+        assert (y - wy).abs().max() <= 5e-5 * wy.abs().max()
     assert (h - wh).abs().max() <= 5e-5 * wh.abs().max()
 
 

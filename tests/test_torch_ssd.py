@@ -148,22 +148,29 @@ def test_ssd_chunked_bf16_operands_match_reference():
     _close(h.numpy(), hj, "state")
 
 
+def term_shares(x, dt, A, b, c, *, chunk, init_state=None):
+    """(far-pair share of the intra-chunk term, carried-state share of
+    |y| over the chunks after the first, the same over the first chunk)
+    of f32 tensors, far meaning more than a quarter chunk apart."""
+    near, far, inter = ssd_terms(x, dt, A, b, c, chunk=chunk,
+                                 init_state=init_state, far=chunk // 4)
+    later = slice(chunk, None)  # the chunks after the first
+    intra = near.abs() + far.abs()
+    tot = intra + inter.abs()
+    return (float(far.abs().sum() / intra.sum()),
+            float(inter[:, later].abs().sum() / tot[:, later].sum()),
+            float(inter[:, :chunk].abs().sum() / tot[:, :chunk].sum()))
+
+
 def test_slow_decay_cases_see_every_term():
     """Where decay is slow, the far pairs carry at least 10% of the
     intra-chunk term, and the state carried into the later chunks (and
     h0 into the first) at least 10% of |y|."""
     def shares(case):
         i = _inputs(case)
-        near, far, inter = ssd_terms(
-            _t(i["x"]), _t(i["dt"]), _t(i["A"]), _t(i["b"]), _t(i["c"]),
-            chunk=i["chunk"], init_state=_t(i["h0"]), far=i["chunk"] // 4)
-        later = slice(i["chunk"], None)  # the chunks after the first
-        intra = near.abs() + far.abs()
-        tot = intra + inter.abs()
-        return (float(far.abs().sum() / intra.sum()),
-                float(inter[:, later].abs().sum() / tot[:, later].sum()),
-                float(inter[:, :i["chunk"]].abs().sum()
-                      / tot[:, :i["chunk"]].sum()))
+        return term_shares(_t(i["x"]), _t(i["dt"]), _t(i["A"]), _t(i["b"]),
+                           _t(i["c"]), chunk=i["chunk"],
+                           init_state=_t(i["h0"]))
     far, carried, first = shares("slow_decay_ragged_groups_h0")
     assert far >= 0.1 and carried >= 0.1 and first >= 0.1, (far, carried,
                                                             first)
@@ -234,3 +241,23 @@ def test_plain_version_runs_in_f64():
     assert y64.dtype == h64.dtype == torch.float64
     _close(y.numpy(), y64.numpy(), "y")
     _close(h.numpy(), h64.numpy(), "state")
+
+
+@pytest.mark.parametrize("P,N,dtype,pad,want", [
+    (64, 128, torch.bfloat16, 0, "tc"),       # the ssm prefill's views
+    (64, 128, torch.bfloat16, 1, "general"),  # an odd row stride
+    (24, 128, torch.bfloat16, 0, "general"),  # P not a multiple of 16
+    (64, 40, torch.bfloat16, 0, "general"),   # N not a multiple of 16
+    (64, 272, torch.bfloat16, 0, "general"),  # N over the tc tiles' 256
+    (64, 128, torch.float32, 0, "f32")])
+def test_instance_is_picked_from_dtype_shapes_and_strides(P, N, dtype, pad,
+                                                          want):
+    """The kernel's instance follows from the tensors alone: x, B and C as
+    views of one (B, S, H*P + 2*N + pad) conv output, as the model passes
+    them."""
+    H = 4
+    conv = torch.zeros(1, 40, H * P + 2 * N + pad, dtype=dtype)
+    x = conv[..., :H * P].reshape(1, 40, H, P)
+    b = conv[..., H * P:H * P + N].reshape(1, 40, 1, N)
+    c = conv[..., H * P + N:H * P + 2 * N].reshape(1, 40, 1, N)
+    assert ops.instance(x, b, c) == want
