@@ -38,7 +38,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    at the tune path's shapes, f32 operands split on the card; ragged M,
    N and K, K below one chunk, one expert, odd N; ``general`` for
    misaligned operands; ``f32``), every case launched twice and
-   bit-identical, and its split pass bit for bit; kernel, plain
+   bit-identical, and its split pass bit for bit; the token
+   dispatch/combine's four movements at the tune shapes through
+   ``moe_ffn``'s shared layouts and the bias-4.0 drop case (``vec``:
+   16-byte rows; f32 in three passes; ``general`` for bf16 D 2100 and a
+   misaligned source), each bit-equal to the in-order plain version on
+   the CPU, launched twice with the same bits, the backwards' bf16 dsrc
+   bit-equal to an f32 copy summed then cast, the fused dscale bit-equal
+   to its order's plain version and within DSCALE_REL of ``.sum(-1)``;
+   kernel, plain
    and library-call times (``scaled_dot_product_attention``, matmul +
    ``cross_entropy``, ``torch.bmm``, ``index_add_``: yardsticks the
    port never calls; none for the SSD scan) from CUDA events
@@ -84,7 +92,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    with frozen experts at lr 5e-4.  Checks finite losses, frozen experts
    bit-identical and every trainable leaf changed, the MoE kernels'
    launch counts (every kd_loss launch in the wgmma instance, every
-   grouped-matmul launch in a tensor-core instance), the
+   grouped-matmul launch in a tensor-core instance, every dispatch/
+   combine launch in the vec instance), the
    kernel path's loss and gradients against its plain
    version in bf16 and in f32 (the dropless plain path reported), and
    reports ms per step, tokens/s, MFU, peak memory, dropped assignments
@@ -822,14 +831,21 @@ def ffn_case(gen, E, C, D, Fh, dtype, *, act="silu", off=None,
     return row
 
 
-def gsa_case(gen, direction, T, E, k, D, dtype, *, bias=0.0, timed=False):
-    """The gather/scatter-add kernel as dispatch (tokens -> capacity
-    slots) or combine (slots -> tokens) of softmax-top-k routing from
-    random logits, ``bias`` added to expert 0 (a drop case).  Held to the
-    plain version on the card (``index_add_``, atomics) by the bf16 rule,
-    and bit for bit to the plain version on the CPU, which adds rows in
-    order as the kernel does."""
-    from repro_torch.kernels.moe_dispatch import ops, ref
+# dscale (the routing weights' gradient, fused into the combine
+# backward's launch) against .sum(-1) of the same f32 products, relative
+# to sum |a_i b_i|: the kernel adds a lane's D/32 products in order, then
+# a five-level shuffle tree, so each order's rounding is at most about
+# (D/32 + 5) f32 half-ulps of sum |a_i b_i| (3.3e-6 at D 2048) and the
+# two orders' difference under twice that.  It must also equal its own
+# order's plain version (``ops.dscale_in_kernel_order``) bit for bit.
+DSCALE_REL = 1e-5
+
+
+def _routing(gen, T, E, k, bias):
+    """Softmax-top-k routing from random logits, ``bias`` added to expert
+    0 (a drop case), with the reference's capacity and ``moe_ffn``'s two
+    shared layouts."""
+    from repro_torch.kernels.moe_dispatch import ops
     logits = torch.randn((T, E), generator=gen, device="cuda")
     logits[:, 0] += bias
     w, idx = torch.softmax(logits, -1).topk(k, -1)
@@ -838,45 +854,126 @@ def gsa_case(gen, direction, T, E, k, D, dtype, *, bias=0.0, timed=False):
     flat_e = idx.reshape(-1)
     flat_tok = torch.arange(T * k, device="cuda") // k
     pos, keep = ops.capacity_positions(flat_e, cap)
-    slot = torch.where(keep, flat_e * cap + pos, 0)
-    if direction == "dispatch":
-        src = _randn(gen, (T, D), dtype)
-        src_rows, dst, scale, n_out = flat_tok, slot, keep.float(), E * cap
-    else:
-        src = _randn(gen, (E * cap, D), dtype)
-        src_rows, dst, n_out = slot, flat_tok, T
-        scale = torch.where(keep, w.reshape(-1), 0.0)
-    out = ops.gather_scatter_add_rows(src, src_rows, dst, scale, n_out)
-    want = ref.gather_scatter_add_ref(src, src_rows, dst, scale, n_out)
+    slot = flat_e * cap + pos
+    by_slot, by_token = ops.routing_layouts(flat_tok, slot, keep, E * cap, T,
+                                            k=k)
+    return {"cap": cap, "keep": keep, "wk": torch.where(keep, w.reshape(-1),
+                                                        0.0),
+            "by_slot": by_slot, "by_token": by_token}
+
+
+# the four movements of a routed layer: (source rows, destination layout,
+# scale, whether the scale's gradient is fused in)
+GSA_MOVES = {"dispatch": ("by_token", "by_slot", "keep", False),
+             "combine": ("by_slot", "by_token", "wk", False),
+             "dispatch_bwd": ("by_slot", "by_token", "keep", False),
+             "combine_bwd": ("by_token", "by_slot", "wk", True)}
+
+
+def gsa_case(gen, move, T, E, k, D, dtype, *, bias=0.0, off=False,
+             inst="vec", timed=False):
+    """One of the four movements (``GSA_MOVES``) of kernel 6 on softmax-
+    top-k routing from random logits, through ``moe_ffn``'s shared
+    layouts.  Fails unless it takes instance ``inst``, equals the plain
+    version on the CPU (which adds rows in order, as the kernel does) bit
+    for bit, and a second launch gives the same bits; held also to the
+    plain version on the card (``index_add_``, atomics) by the bf16 rule.
+    A backward movement reads its gradient in bf16 and must equal the
+    same movement of an f32 copy, then cast, bit for bit; the combine's
+    backward also computes dscale in the same launch, which must equal
+    its order's plain version bit for bit and .sum(-1) within
+    DSCALE_REL.  ``off``: the source one element off 16-byte alignment.
+    Timed: the kernel, the plain version (with the dot's .sum(-1)), one
+    ``index_add_`` (with ``torch.einsum`` for dscale) and the bound: each
+    source row an entry names read once (and the dot's rows), every
+    output row written once, 12 bytes an entry (4 more for dscale)."""
+    from repro_torch.kernels.moe_dispatch import ops, ref
+    r = _routing(gen, T, E, k, bias)
+    src_key, dst_key, scale_key, with_dot = GSA_MOVES[move]
+    src_lay, dst, scale = r[src_key], r[dst_key], r[scale_key]
+    scale = scale.float() if scale_key == "keep" else scale
+    n = src_lay.n * D + int(off)
+    src = torch.randn(n, generator=gen, device="cuda").to(dtype)[
+        int(off):].view(src_lay.n, D)
+    dot_src = _randn(gen, (dst.n, D), dtype) if with_dot else None
+    name = (f"gather_scatter_add {move} T={T} E={E} k={k} cap={r['cap']} "
+            f"D={D} {str(dtype)[6:]} bias={bias}"
+            f"{' misaligned' if off else ''}")
+    got = ops.instance(src, dot_src=dot_src)
+    if got != inst:
+        fail(f"{name}: takes the {got} instance, expected {inst}")
+
+    def run():
+        return ops.move(src, scale, src_lay, dst, dot_src=dot_src)
+
+    def plain():
+        out = ref.gather_scatter_add_ref(src, src_lay.ids, dst.ids, scale,
+                                         dst.n)
+        if with_dot:
+            return out, (dot_src[dst.ids.long()].float()
+                         * src[src_lay.ids.long()].float()).sum(-1)
+        return out, None
+    n0 = dict(ops.LAUNCHES_BY_INSTANCE)
+    out, dscale = run()
+    n0[inst] += 1
+    if ops.LAUNCHES_BY_INSTANCE != n0:
+        fail(f"{name}: launches by instance {ops.LAUNCHES_BY_INSTANCE}, "
+             f"expected {n0}")
+    want, want_dscale = plain()
     torch.cuda.synchronize()
-    name = (f"gather_scatter_add {direction} T={T} E={E} k={k} cap={cap} "
-            f"D={D} {str(dtype)[6:]} bias={bias}")
     row = check_close(name, out, want)
-    cpu = ref.gather_scatter_add_ref(src.cpu(), src_rows.cpu(), dst.cpu(),
-                                     scale.cpu(), n_out)
+    cpu = ref.gather_scatter_add_ref(src.cpu(), src_lay.ids.cpu(),
+                                     dst.ids.cpu(), scale.cpu(), dst.n)
     if not torch.equal(out.cpu(), cpu):
         fail(f"{name}: differs from the in-order sum of the plain version "
              f"on the CPU")
-    row.update(dropped=int((~keep).sum()), rows=int(src_rows.numel()),
-               equal_to_cpu_in_order=True)
+    again, dscale_again = run()
+    if not torch.equal(out, again) or (
+            with_dot and not torch.equal(dscale, dscale_again)):
+        fail(f"{name}: a second launch on the same inputs differs")
+    if move.endswith("_bwd"):
+        f32, _ = ops.move(src.float(), scale, src_lay, dst)
+        if not torch.equal(out, f32.to(dtype)):
+            fail(f"{name}: differs from the f32 path then cast")
+        row["equal_to_f32_then_cast"] = True
+    if with_dot:
+        a = dot_src[dst.ids.long()]
+        b = src[src_lay.ids.long()]
+        if got == "vec" and not torch.equal(
+                dscale, ops.dscale_in_kernel_order(a, b)):
+            fail(f"{name}: dscale differs from its order's plain version")
+        rel = ((dscale - want_dscale).abs()
+               / (a.float() * b.float()).abs().sum(-1)).max().item()
+        if not rel <= DSCALE_REL:
+            fail(f"{name}: dscale {rel:.3g} of sum |ab| from .sum(-1), "
+                 f"limit {DSCALE_REL}")
+        row["dscale_rel_err"] = rel
+    seg0 = int((r["by_slot"].ids == 0).sum())
+    row.update(instance=got, dropped=int((~r["keep"]).sum()),
+               rows=int(src_lay.ids.numel()), slot0_segment=seg0,
+               equal_to_cpu_in_order=True, repeat_bit_identical=True)
     if bias and not row["dropped"]:
         fail(f"{name}: the drop case dropped nothing")
     if timed:
-        # each referenced source row read once, every output row written
-        # once, the (row, scale, destination) triples read once
-        used = int(torch.unique(src_rows).numel())
-        nbytes = ((used + n_out) * D * src.element_size()
-                  + 12 * src_rows.numel())
+        used = int(torch.unique(src_lay.ids).numel())
+        nbytes = ((used + dst.n) * D * src.element_size()
+                  + 12 * src_lay.ids.numel())
+        rows_s, rows_d = src_lay.ids.long(), dst.ids.long()
+        if with_dot:
+            nbytes += (int(torch.unique(dst.ids).numel()) * D
+                       * src.element_size() + 4 * src_lay.ids.numel())
 
-        def library():  # index_add_, with its gather and scale
-            return torch.zeros((n_out, D), dtype=dtype, device="cuda"
-                               ).index_add_(0, dst, src[src_rows]
-                                            * scale[:, None].to(dtype))
+        def library():  # index_add_ (and an einsum for dscale)
+            out = torch.zeros((dst.n, D), dtype=dtype, device="cuda"
+                              ).index_add_(0, rows_d, src[rows_s]
+                                           * scale[:, None].to(dtype))
+            if with_dot:
+                return out, torch.einsum("rd,rd->r",
+                                         dot_src[rows_d].float(),
+                                         src[rows_s].float())
+            return out
 
-        row.update(ms=time_ms(lambda: ops.gather_scatter_add_rows(
-                       src, src_rows, dst, scale, n_out)),
-                   plain_ms=time_ms(lambda: ref.gather_scatter_add_ref(
-                       src, src_rows, dst, scale, n_out)),
+        row.update(ms=time_ms(run), plain_ms=time_ms(plain),
                    library_ms=time_ms(library))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 0, dtype)
     return row
@@ -940,11 +1037,26 @@ def moe_cases(gen):
                     inst="f32")]
     split = [split_case(gen, (E, C, Fh), timed=True),
              split_case(gen, (3, 130, 37))]
-    gsa = [gsa_case(gen, "dispatch", MOE_T, E, MOE_K, D, bf, timed=True),
-           gsa_case(gen, "combine", MOE_T, E, MOE_K, D, bf, timed=True),
-           gsa_case(gen, "dispatch", MOE_T, E, MOE_K, D, bf, bias=4.0),
-           gsa_case(gen, "combine", 300, 8, 2, 2100, f32, bias=3.0)]
-    return ffn, gmm, split, gsa
+    return ffn, gmm, split, gsa_cases(gen)
+
+
+def gsa_cases(gen):
+    """Kernel 6's four movements at the tune path's shapes (the dispatch
+    forward first: the kernels line's row), timed; the bias-4.0 drop case
+    (slot 0's segment 1 + drops long), timed; f32 (three passes); and the
+    general instance: bf16 D 2100 and a misaligned source."""
+    bf, f32 = torch.bfloat16, torch.float32
+    T, E, k, D = MOE_T, MOE_E, MOE_K, MOE_D
+    gsa = [gsa_case(gen, m, T, E, k, D, bf, timed=True) for m in GSA_MOVES]
+    gsa += [gsa_case(gen, m, T, E, k, D, bf, bias=4.0, timed=True)
+            for m in ("dispatch", "combine_bwd")]
+    gsa += [gsa_case(gen, m, 300, 8, 2, 2100, f32, bias=3.0)
+            for m in ("combine", "combine_bwd")]
+    gsa += [gsa_case(gen, m, 300, 8, 2, 2100, bf, bias=3.0, inst="general")
+            for m in ("dispatch", "combine_bwd")]
+    gsa += [gsa_case(gen, "dispatch", 300, 8, 2, 256, bf, bias=3.0, off=True,
+                     inst="general")]
+    return gsa
 
 
 # SSD scan outputs: bf16 y within two bf16 ulps of the case's largest |y|
@@ -2206,6 +2318,16 @@ def _gmm_on_tensor_cores(mg_ops, layer_steps, phase):
              f"expected {want}")
 
 
+def _gsa_all_vec(md_ops, phase):
+    """Every dispatch/combine launch of the phase's main path (bf16 rows
+    of 2048, 16-byte-aligned bases) took the vec instance."""
+    by = dict(md_ops.LAUNCHES_BY_INSTANCE)
+    print(f"{phase}: gather_scatter_add launches by instance {by}")
+    if by["vec"] != md_ops.LAUNCHES or sum(by.values()) != md_ops.LAUNCHES:
+        fail(f"{phase}: gather_scatter_add launches {md_ops.LAUNCHES} by "
+             f"instance {by}: not all took the vec instance")
+
+
 # phase 7: Phase III on Qwen1.5-MoE-A2.7B, full width, 12 of 24 layers
 # ---------------------------------------------------------------------------
 
@@ -2436,6 +2558,8 @@ def phase_tune():
     mg_ops.LAUNCHES.update(dict.fromkeys(mg_ops.LAUNCHES, 0))
     mg_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
         mg_ops.LAUNCHES_BY_INSTANCE, 0))
+    md_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
+        md_ops.LAUNCHES_BY_INSTANCE, 0))
     moe.route = recording_route
     t0 = time.perf_counter()
     try:
@@ -2471,6 +2595,7 @@ def phase_tune():
         fail(f"tune launches {launches} != expected {want}")
     _all_wgmma(kd_ops, "tune")
     _gmm_on_tensor_cores(mg_ops, L * n, "tune")
+    _gsa_all_vec(md_ops, "tune")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite tuning loss: {losses}")
 
@@ -2502,12 +2627,14 @@ def phase_tune():
                            "split_f32": ("split_kernel",),
                            "ffn_stage_a": ("ffn_gate_up_tc",),
                            "ffn_stage_b": ("ffn_down_tc",),
-                           "gather_scatter_add": ("gsa_kernel",),
+                           "gather_scatter_add": ("gsa_vec_kernel",
+                                                  "gsa_kernel"),
                            "kd_loss": ("kd_wgmma", "kd_merge"),
                            "flash_fwd": ("flash_fwd",)})
     del opt, step
     silent = [g for g in ("grouped_matmul", "split_f32", "ffn_stage_a",
-                          "ffn_stage_b") if not prof["group_ms"][g] > 0]
+                          "ffn_stage_b", "gather_scatter_add")
+              if not prof["group_ms"][g] > 0]
     if silent:
         fail(f"the tune step's profile shows no device time in {silent}")
     n_params = sum(t.numel() for t in tree_leaves(params))

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_dispatch.ops import (capacity_positions,
+                                                  routing_layouts,
                                                   token_combine,
                                                   token_dispatch)
 from repro_torch.kernels.moe_gemm.ref import (Split, gated_act,
@@ -350,8 +351,10 @@ def moe_ffn(xt, w, idx, wg, wu, wo, *, act: str = "silu"):
     flat_tok = torch.arange(T * k, device=xt.device) // k
     pos, keep = capacity_positions(flat_e, cap)
     slot = flat_e * cap + pos
-    buf = token_dispatch(xt, flat_tok, slot, keep, E * cap)
+    # the four movements' two layouts, once a call
+    lay = routing_layouts(flat_tok, slot, keep, E * cap, T, k=k)
+    buf = token_dispatch(xt, flat_tok, slot, keep, E * cap, layouts=lay)
     y = grouped_ffn(buf.reshape(E, cap, D), wg, wu, wo, act=act)
     out = token_combine(y.reshape(E * cap, D), flat_tok, slot, keep,
-                        w.reshape(-1), T)
+                        w.reshape(-1), T, layouts=lay)
     return out.to(xt.dtype)

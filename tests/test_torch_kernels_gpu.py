@@ -914,6 +914,219 @@ def test_moe_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the token dispatch/combine (kernel 6): vec and general instances
+# ---------------------------------------------------------------------------
+
+# dscale against the plain .sum(-1), relative to sum |a_i b_i|: a bound
+# of the two orders' rounding depth at these D, not a reading
+# (tests/test_torch_dispatch_numerics.py states it and its readings)
+DSCALE_REL = 1e-5
+
+
+def _routing_case(cuda, T, E, k, D, dtype, bias, *, off=None, seed=0):
+    """Softmax-top-k routing of T tokens from random logits (``bias`` on
+    expert 0: assignments drop into slot 0), the reference's capacity;
+    tokens, expert outputs and the two outputs' gradients on the card.
+    ``off`` names the one of xt / y2d made a view one element into its
+    storage (off 16-byte alignment)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def draw(name, rows):
+        t = torch.randn(rows * D + 1, generator=g, device=cuda).to(dtype)
+        return t[1:].view(rows, D) if name == off else t[:-1].view(rows, D)
+    logits = torch.randn((T, E), generator=g, device=cuda)
+    logits[:, 0] += bias
+    w, idx = torch.softmax(logits, -1).topk(k, -1)
+    w = w / w.sum(-1, keepdim=True)
+    cap = max(-(-T * k // E) * 2, 8)
+    flat_e = idx.reshape(-1)
+    pos, keep = dis.capacity_positions(flat_e, cap)
+    return dict(w=w.reshape(-1), flat_tok=torch.arange(T * k, device=cuda)
+                // k, slot=flat_e * cap + pos, keep=keep, cap=cap, E=E, T=T,
+                k=k, xt=draw("xt", T), y2d=draw("y2d", E * cap),
+                dbuf=draw("dbuf", E * cap), dout=draw("dout", T))
+
+
+def _movements(c, dev):
+    """The four movements of one routing on ``dev`` through the autograd
+    Functions with ``moe_ffn``'s shared layouts: dispatch, combine, and
+    both backwards with the routing weights' gradient."""
+    t = {n: v.to(dev) if torch.is_tensor(v) else v for n, v in c.items()}
+    xt, y2d, w = (t[n].detach().requires_grad_(True)
+                  for n in ("xt", "y2d", "w"))
+    lay = dis.routing_layouts(t["flat_tok"], t["slot"], t["keep"],
+                              t["E"] * t["cap"], t["T"], k=t["k"])
+    buf = dis.token_dispatch(xt, t["flat_tok"], t["slot"], t["keep"],
+                             t["E"] * t["cap"], layouts=lay)
+    out = dis.token_combine(y2d, t["flat_tok"], t["slot"], t["keep"], w,
+                            t["T"], layouts=lay)
+    gx, gy, gw = torch.autograd.grad((buf, out), (xt, y2d, w),
+                                     (t["dbuf"], t["dout"]))
+    return {"dispatch": buf.detach(), "combine": out.detach(), "dxt": gx,
+            "dy2d": gy, "dw": gw, "layouts": lay}
+
+
+def _equal_nan(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _check_dscale(c, got, want_cpu):
+    """dscale bit-equal to its order's plain version
+    (``dscale_in_kernel_order``, vec instance only) and within DSCALE_REL
+    x sum |a_i b_i| of .sum(-1) (the CPU run's), 0 where dropped."""
+    by_slot, by_token = got["layouts"]
+    a = c["y2d"][by_slot.ids.long()]
+    b = c["dout"][by_token.ids.long()]
+    keep = c["keep"]
+    if dis.instance(c["dout"], dot_src=c["y2d"]) == "vec":
+        assert torch.equal(got["dw"][keep],
+                           dis.dscale_in_kernel_order(a, b)[keep])
+    plain = want_cpu["dw"].to(a.device)
+    scale = (a.float() * b.float()).abs().sum(-1)
+    err = ((got["dw"] - plain).abs() / scale)[keep]
+    assert (err <= DSCALE_REL).all(), err.max().item()
+    assert (got["dw"][~keep] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k,D,bias,long0", [
+    (256, 8, 2, 512, 0.0, False),     # empty slots, short segments
+    (512, 8, 2, 256, 3.0, True),      # slot 0 holds hundreds of drops
+    (300, 16, 4, 2048, 4.0, True),    # the model's D and top-k
+    (400, 6, 2, 3000, 3.0, True)])    # two passes (three for f32)
+def test_dispatch_vec_equals_plain_bit_for_bit(cuda, dtype, T, E, k, D,
+                                               bias, long0):
+    """Each movement (values, dxt, dy2d) equal to the CPU plain version
+    bit for bit in the vec instance, with empty rows and a long slot-0
+    segment; dscale to its order and its limit; a second run the same."""
+    c = _routing_case(cuda, T, E, k, D, dtype, bias)
+    seg0 = int((torch.where(c["keep"], c["slot"], 0) == 0).sum())
+    assert (seg0 > dis.LONG) == long0
+    before = dict(dis.LAUNCHES_BY_INSTANCE)
+    got = _movements(c, cuda)
+    n = {i: v - before[i] for i, v in dis.LAUNCHES_BY_INSTANCE.items()}
+    assert n == {"vec": 4, "general": 0}
+    want = _movements(c, "cpu")
+    for name in ("dispatch", "combine", "dxt", "dy2d"):
+        assert torch.equal(got[name].cpu(), want[name]), name
+    _check_dscale(c, got, want)
+    again = _movements(c, cuda)
+    for name in ("dispatch", "combine", "dxt", "dy2d", "dw"):
+        assert torch.equal(got[name], again[name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_backward_equals_the_f32_path(cuda, dtype):
+    """dsrc from dout in its own dtype equals an f32 copy of dout summed
+    and then cast, bit for bit (one rounding either way)."""
+    c = _routing_case(cuda, 300, 16, 4, 2048, dtype, 4.0)
+    got = _movements(c, cuda)
+    by_slot, by_token = got["layouts"]
+    wk = torch.where(c["keep"], c["w"], 0.0)
+    f32 = dis.gather_scatter_add_rows(c["dbuf"].float(), by_slot.ids,
+                                      by_token.ids, c["keep"].float(), 300)
+    assert torch.equal(got["dxt"], f32.to(dtype))
+    f32 = dis.gather_scatter_add_rows(c["dout"].float(), by_token.ids,
+                                      by_slot.ids, wk, c["E"] * c["cap"])
+    assert torch.equal(got["dy2d"], f32.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", ["inf", "nan", "-inf"])
+def test_dispatch_nonfinite_dropped_row_reaches_slot_0(cuda, dtype, poison):
+    """A dropped token row holding an inf or NaN makes its columns of
+    slot 0 NaN, as the in-order walk (0 * inf) does, though the long
+    segment's zero-scale rows are walked apart; other columns keep the
+    sum.  The layout's scratch is left clean for the next launch."""
+    c = _routing_case(cuda, 512, 8, 2, 512, dtype, 3.0)
+    dst = torch.where(c["keep"], c["slot"], 0)
+    assert int((dst == 0).sum()) > dis.LONG
+    dropped = torch.nonzero(~c["keep"]).flatten()
+    xt = c["xt"].clone()
+    tok = c["flat_tok"][dropped[[3, -1]]]
+    xt[tok[0], 5] = float(poison)
+    xt[tok[1], 300:308] = float(poison)
+    assert dis.instance(xt) == "vec"
+    lay = dis.routing_layouts(c["flat_tok"], c["slot"], c["keep"],
+                              c["E"] * c["cap"], 512, k=2)
+    out = dis.token_dispatch(xt, c["flat_tok"], c["slot"], c["keep"],
+                             c["E"] * c["cap"], layouts=lay)
+    want = dis.gather_scatter_add_rows(xt.cpu(), c["flat_tok"].cpu(),
+                                       dst.cpu(), c["keep"].float().cpu(),
+                                       c["E"] * c["cap"])
+    assert _equal_nan(out.cpu(), want)
+    # (the poisoned tokens' kept assignments carry inf * w elsewhere)
+    assert torch.isnan(out[0, 5]) and torch.isnan(out[0, 300:308]).all()
+    assert torch.isfinite(out[0, :5]).all()
+    out = dis.token_dispatch(c["xt"], c["flat_tok"], c["slot"], c["keep"],
+                             c["E"] * c["cap"], layouts=lay)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("D,off,want_n", [
+    (2100, None, {"vec": 0, "general": 4}),     # bf16 rows not 16-byte whole
+    (256, "xt", {"vec": 3, "general": 1}),      # the dispatch's source
+    (256, "y2d", {"vec": 2, "general": 2})])    # combine, its dot source
+def test_dispatch_general_instance(cuda, D, off, want_n):
+    """Rows that 16-byte access cannot take go to the general instance:
+    bf16 D 2100, views one element off alignment; values and dsrc equal
+    to the plain version bit for bit, dscale within its limit."""
+    c = _routing_case(cuda, 200, 6, 2, D, torch.bfloat16, 3.0, off=off)
+    assert dis.instance(c["xt"]) == ("general" if off != "y2d" else "vec")
+    before = dict(dis.LAUNCHES_BY_INSTANCE)
+    got = _movements(c, cuda)
+    n = {i: v - before[i] for i, v in dis.LAUNCHES_BY_INSTANCE.items()}
+    assert n == want_n
+    want = _movements(c, "cpu")
+    for name in ("dispatch", "combine", "dxt", "dy2d"):
+        assert torch.equal(got[name].cpu(), want[name]), name
+    _check_dscale(c, got, want)
+
+
+def test_dispatch_layouts_are_shared_and_counted(cuda):
+    """The shared layouts equal a stable argsort + searchsorted (by slot)
+    and the identity with offsets k * t (by token), and the four
+    movements launch once each."""
+    c = _routing_case(cuda, 256, 8, 2, 256, torch.bfloat16, 0.0)
+    by_slot, by_token = dis.routing_layouts(
+        c["flat_tok"], c["slot"], c["keep"], c["E"] * c["cap"], 256, k=2)
+    dst = torch.where(c["keep"], c["slot"], 0)
+    order = torch.argsort(dst, stable=True)
+    assert torch.equal(by_slot.order.long(), order)
+    assert torch.equal(by_slot.seg.long(), torch.searchsorted(
+        dst[order], torch.arange(by_slot.n + 1, device=cuda)))
+    assert by_token.order is None and by_token.sorted_ids is None
+    assert torch.equal(by_token.seg.long(),
+                       torch.arange(257, device=cuda) * 2)
+    n0 = dis.LAUNCHES
+    _movements(c, cuda)
+    assert dis.LAUNCHES == n0 + 4
+
+
+def test_dispatch_vec_refuses_what_it_does_not_take(cuda):
+    """The vec C entry refuses a row that is not whole 16-byte chunks and
+    a misaligned base (``ops.instance`` never sends them there)."""
+    _, vec, _ = dis._kernel()
+    src = torch.ones(4, 16, dtype=torch.bfloat16, device=cuda)
+    out = torch.zeros(2, 16, dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(3, dtype=torch.int32, device=cuda)
+    scale = torch.ones(3, device=cuda)
+    seg = torch.tensor([0, 3, 3], dtype=torch.int32, device=cuda)
+
+    def call(ptr, D):
+        return vec(ptr, 1, out.data_ptr(), rows.data_ptr(),
+                   scale.data_ptr(), None, seg.data_ptr(), None, None, None,
+                   0, None, None, 2, D, 3,
+                   torch.cuda.current_stream().cuda_stream)
+    assert call(src.data_ptr(), 12) != 0          # 12 % 8
+    assert call(src.data_ptr() + 2, 8) != 0       # base off alignment
+    assert call(src.data_ptr(), 8) == 0
+    torch.cuda.synchronize()
+    assert (out.view(-1)[:8] == 3).all() and (out.view(-1)[8:16] == 0).all()
+
+
+# ---------------------------------------------------------------------------
 # SSD chunked scan (Mamba-2 prefill)
 # ---------------------------------------------------------------------------
 

@@ -200,10 +200,13 @@ def test_token_dispatch_combine_match_reference_and_grads(use_kernel):
 
     jbuf, jout = jfn(jnp.asarray(xt), jnp.asarray(y2d), jnp.asarray(w))
     txt, ty, tw = (_t(a).requires_grad_(True) for a in (xt, y2d, w))
+    lay = (dis.routing_layouts(_t(flat_tok), _t(slot), _t(keep), E * cap, T,
+                               k=k) if use_kernel else None)
     tbuf = dis.token_dispatch(txt, _t(flat_tok), _t(slot), _t(keep), E * cap,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, layouts=lay)
     tout = dis.token_combine(ty, _t(flat_tok), _t(slot), _t(keep),
-                             tw.reshape(-1), T, use_kernel=use_kernel)
+                             tw.reshape(-1), T, use_kernel=use_kernel,
+                             layouts=lay)
     np.testing.assert_allclose(tbuf.detach().numpy(), np.asarray(jbuf), **TOL)
     np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), **TOL)
     cb = _rand(rng, (E * cap, D))
