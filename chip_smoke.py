@@ -30,7 +30,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (1e-4 for f32 outputs), kd_loss's argmax-correct exactly except on
    rows whose top two logits are within ``ARGMAX_MARGIN``; kd_loss in
    each instance (``wgmma`` timed at the train and tune steps' shapes
-   and in KD mode, and on ragged T, V and D; ``general`` for rows or
+   and in KD mode, at Dt 1024 and at the distill step's T 2048, Ds = Dt
+   = 2048, V 151936, and on ragged T, V and D; ``general`` for rows or
    bases TMA cannot take; ``f32``), every case launched twice and
    bit-identical, planted ties across vocab-tile and split boundaries
    going to the lower index; the grouped matmul in each instance
@@ -97,7 +98,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    kernel path's loss and gradients against its plain
    version in bf16 and in f32 (the dropless plain path reported), and
    reports ms per step, tokens/s, MFU, peak memory, dropped assignments
-   per step and a profile.
+   per step and a profile;
+8. distill: Phases I and II of the paper's method.  Two random
+   full-width TinyLlama-1.1B uploads (22 layers, bf16) on the
+   federation's vocabulary, 151936, instead of their own 32000 (the
+   kd_loss kernel takes one V for both heads, and the student's must be
+   the global MoE's): ``DeepFusionServer.cluster`` (K = 60 > N = 2, so
+   each upload is its own proxy) and ``build_proxies`` on a cluster of
+   both, whose bf16 average must equal the CPU's f32 sum, divided and
+   cast, bit for bit; then ``distill_proxy`` into the dense base of
+   Qwen1.5-MoE-A2.7B (12 of 24 layers, d_ff 1408, remat) for 6 steps of
+   4 x 1024 tokens at lr 1e-3, J 4, VAA d 128, 4 heads, P_q 64, τ 2.
+   Checks finite, falling losses, the launch counts (flash 22 + 2 x 12
+   a step; kd_loss only in KD mode, 2 a loss chunk, every one in the
+   wgmma instance), and the kernel path's distill_loss and the gradient
+   of every student and VAA leaf against the plain path on one 1 x 1024
+   batch in bf16 and in f32 (teacher sharpened so that KL reaches
+   them), where a teacher rolled by one token (KL) and its stage list
+   reversed (FM) must each break a limit; reports ms per step, tokens/s,
+   MFU, peak memory, the KD backward's time and share of a step, and a
+   profile.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without either when
@@ -503,8 +523,8 @@ ARGMAX_MARGIN = 1e-5
 
 
 # the plain version's logits and their temporaries above this are not
-# timed (the check still runs it once)
-PLAIN_TIMED_BYTES = 4e9
+# timed (the check still runs it once); the KD case at V 151936 needs 7.5 GB
+PLAIN_TIMED_BYTES = 8e9
 
 
 def _n_sm():
@@ -637,13 +657,17 @@ def kd_case(gen, T, Ds, Dt, V, dtype, *, tau=1.0, cap_s=0.0, cap_t=0.0,
 
 def kd_cases(gen):
     """Timed at the train step's shape (the kernels line's row), in KD mode
-    and at the tune step's vocabulary; the wgmma instance on ragged T, V
+    (Dt 1024, V 32000), at the tune step's vocabulary, and in KD mode at
+    the distill step's shape (a loss chunk of 4 x 512 tokens, Ds = Dt =
+    2048, V 151936, τ 2: the kernels line's ``kd_loss_kd`` row); the
+    wgmma instance on ragged T, V
     and D; the general instance (V not a multiple of 8, rows too narrow
     for TMA, hs off alignment); f32; planted ties in each instance."""
     bf, f32 = torch.bfloat16, torch.float32
     return [kd_case(gen, 2048, 2048, 0, 32000, bf, timed=True),
             kd_case(gen, 2048, 2048, 1024, 32000, bf, tau=2.0, timed=True),
             kd_case(gen, 2048, 2048, 0, 151936, bf, timed=True),
+            kd_case(gen, 2048, 2048, 2048, 151936, bf, tau=2.0, timed=True),
             kd_case(gen, 130, 136, 0, 4104, bf),
             kd_case(gen, 2049, 256, 0, 32008, bf, cap_s=15.0),
             kd_case(gen, 130, 136, 72, 4104, bf, tau=0.5, cap_t=20.0),
@@ -1349,7 +1373,7 @@ def phase_kernels():
                 + ffn + gmm + split + gsa + ssd):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
-            "paged_attn_quant": pq[0], "kd_loss": kd[0],
+            "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
             "grouped_ffn": ffn[0],
             "grouped_matmul": gmm[0], "split_f32": split[0],
             "gather_scatter_add": gsa[0],
@@ -1483,12 +1507,14 @@ def phase_serve():
     return launches
 
 
-def profile(fn, top: int = 8, groups=None):
+def profile(fn, top: int = 8, groups=None, ranges=()):
     """One call of ``fn`` under torch.profiler: host wall time, summed
     device kernel time (one stream, so kernels do not overlap), the
     device's idle share of the wall, and the kernels that took most.
     ``groups`` maps a name to kernel-name fragments; each group's summed
-    device time is reported under ``group_ms``."""
+    device time is reported under ``group_ms``.  ``ranges`` names
+    ``record_function`` ranges opened inside ``fn``: the device time of
+    the kernels launched in each is reported under ``range_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -1499,8 +1525,16 @@ def profile(fn, top: int = 8, groups=None):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, range_ms = [], {}
     for evt in prof.key_averages():
+        if evt.key in ranges:
+            # the host-side range sums its kernels' device time; its
+            # device-side copy spans them, gaps included: not a kernel
+            if evt.device_type != DeviceType.CUDA:
+                us = getattr(evt, "device_time_total", None)
+                range_ms[evt.key] = (evt.cuda_time_total if us is None
+                                     else us) / 1e3
+            continue
         # device-side events only: a CPU op's self device time repeats
         # the time of the kernels it launched
         if evt.device_type != DeviceType.CUDA:
@@ -1515,7 +1549,8 @@ def profile(fn, top: int = 8, groups=None):
     device_ms = sum(r[0] for r in rows) / 1e3
     group_ms = {g: sum(us for us, k, _ in rows if any(f in k for f in frags))
                 / 1e3 for g, frags in (groups or {}).items()}
-    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+    out = {"range_ms": range_ms} if ranges else {}
+    return {**out, "wall_ms": wall * 1e3, "device_ms": device_ms,
             "group_ms": group_ms,
             "device_idle_share": 1 - device_ms / (wall * 1e3),
             "device_launches": sum(r[2] for r in rows),
@@ -1879,7 +1914,7 @@ def _ssm_logits(M, params, cfg, toks, plain=False):
         ssd_ops.ssd = (_ssd_scan_f64 if plain == "f64"
                        else ssd_ref.ssd_scan_ref)
     try:
-        h, _, _ = M.backbone(params, cfg, {"tokens": toks})
+        h, _, _, _ = M.backbone(params, cfg, {"tokens": toks})
     finally:
         ssd_ops.ssd = kernel
     return M._head(params, cfg, h)[0]
@@ -2683,8 +2718,366 @@ def phase_tune():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Phases I and II, TinyLlama-1.1B teachers into the Qwen1.5-MoE base
+# ---------------------------------------------------------------------------
+
+DISTILL_STEPS, DISTILL_BATCH, DISTILL_SEQ, DISTILL_LR = 6, 4, 1024, 1e-3
+DISTILL_J, DISTILL_VAA_DIM, DISTILL_VAA_HEADS, DISTILL_P_Q = 4, 128, 4, 64
+DISTILL_TAU = 2.0
+# the leaves whose on-card bf16 proxy average is held bit for bit to the
+# CPU's f32 sum, divided and cast
+PROXY_LEAVES = ("embed", "lm_head", "final_norm/scale",
+                "blocks/sub0/attn/wq", "blocks/sub0/mlp/wi_gate")
+# The kernel path's distill_loss and the gradient of every student and
+# VAA leaf (relative L2, the worst leaf of each), on one 1 x 1024 batch,
+# the distilled student with the VAA module as Phase II draws it, against
+# the plain path (use_kernels=False: dense attention and logits) with
+# the teacher's outputs shared.  In bf16 the plain path rounds its
+# logits to bf16 and both round activations at other points through 12
+# layers; the VAA's f32 gradients see the student's stages move with
+# them.  Readings on an H100 (700 W) on this batch and two others (seed
+# salts 77, 78, 80), bf16: loss |d| 1.30e-4, 6.98e-4, 1.91e-4; student
+# 0.0108, 0.0090, 0.0100; VAA 0.0052, 0.0031, 0.0080; f32: loss |d| 0,
+# student 3.0e-6, 1.7e-6, 2.8e-6; VAA 3.8e-6, 1.4e-6, 8.8e-6.  (Two
+# optimizer steps past its init the VAA read 0.154 in bf16: its
+# gradients shrink and their relative error grows, so the check holds
+# the init.)  Limits about 3x the worst reading; the f32 loss about
+# three f32 ulps of ~36.
+DISTILL_LOSS_TOL = {"float32": 1e-5, "bfloat16": 2.1e-3}
+DISTILL_STUDENT_TOL = {"float32": 1e-5, "bfloat16": 0.033}
+DISTILL_VAA_TOL = {"float32": 2.7e-5, "bfloat16": 0.024}
+# each planted fault must move the check past a limit, the loss's or a
+# gradient's, by at least this factor
+DISTILL_FAULT_MARGIN = 3.0
+# A random teacher's logits are ~N(0, 1): its distribution over 151,936
+# tokens is near uniform, its KL to any student hardly depends on the
+# token (a rolled teacher moves the mean KL by ~1e-4) and the KL gradient
+# is ~1e-3 of the CE gradient.  The check sharpens the teacher (final
+# norm scale x8, exact in bf16; logits ~N(0, 64)) so that KL reaches the
+# loss and the gradients, as a trained teacher's confident predictions
+# would.
+TEACHER_SHARPEN = 8.0
+
+
+def _check_proxy_average(uploads):
+    """``build_proxies`` on a cluster of both uploads: the bf16 average on
+    the card equals, bit for bit, the CPU's f32 sum divided and cast."""
+    from repro_torch.convert import flatten
+    from repro_torch.core import clustering, proxy
+    res = clustering.ClusterResult(labels=np.zeros(2, np.int32),
+                                centroids=np.zeros((1, 32), np.float32),
+                                similarity=np.ones((2, 2), np.float32),
+                                members=[[0, 1]])
+    (avg,) = proxy.build_proxies([u["params"] for u in uploads], res, [0, 0])
+    got = flatten(avg["params"])
+    ups = [flatten(u["params"]) for u in uploads]
+    for name in PROXY_LEAVES:
+        a, b = (u[name].cpu() for u in ups)
+        want = ((a.float() + b.float()) / 2).to(a.dtype)
+        if got[name].dtype != torch.bfloat16 or \
+                not torch.equal(got[name].cpu(), want):
+            fail(f"proxy leaf {name}: the card's average is not the CPU's")
+    return list(PROXY_LEAVES)
+
+
+def _distill_grad_check(D, kd_ops, s_cfg, t_cfg, trainable, t_params, batch,
+                        kw):
+    """distill_loss and the gradient of every student and VAA leaf, kernel
+    path against the plain path, the teacher's outputs computed once and
+    shared; then the same with two planted faults on the kernel path: the
+    teacher's hidden states rolled by one token (seen through KL) and its
+    stage list reversed (seen through FM), each of which must break a
+    limit."""
+    from repro_torch.utils.pytree import tree_leaves, tree_paths
+    dtype = s_cfg.dtype
+    tol = {"loss": DISTILL_LOSS_TOL[dtype],
+           "student": DISTILL_STUDENT_TOL[dtype],
+           "vaa": DISTILL_VAA_TOL[dtype]}
+    t_out = D.teacher_forward(t_params, t_cfg, batch, n_stages=kw["n_stages"])
+    runs = {"path": t_out,
+            "fault_teacher_h_rolled": dict(
+                t_out, h=torch.roll(t_out["h"], 1, dims=1)),
+            "fault_teacher_stages_reversed": dict(
+                t_out, stages=t_out["stages"][::-1])}
+    paths = [p for p, _ in tree_paths(trainable)]
+    leaves = [t.requires_grad_(True) for t in tree_leaves(trainable)]
+
+    def run(use_kernels, out):
+        n0 = kd_ops.LAUNCHES_BY_MODE["kd"]
+        loss, m = D.distill_loss(trainable, s_cfg.replace(
+            use_kernels=use_kernels), t_params, t_cfg, batch, out, **kw)
+        gs = torch.autograd.grad(loss, leaves)
+        return (loss.item(), {k: v.item() for k, v in m.items()},
+                [g.float() for g in gs], kd_ops.LAUNCHES_BY_MODE["kd"] - n0)
+
+    lp, mp, gp, n_plain = run(False, t_out)
+    if n_plain:
+        fail(f"distill check ({dtype}): {n_plain} kd_loss launches on the "
+             f"plain path")
+    res = {"dtype": dtype, "loss_plain": lp, "metrics_plain": mp,
+           "tol": tol}
+    for name, out in runs.items():
+        lk, mk, gk, n_kd = run(True, out)
+        errs = {p: ((a - b).norm() / b.norm()).item()
+                for p, a, b in zip(paths, gk, gp)}
+        del gk
+        err = {"loss": abs(lk - lp)}
+        for part in ("student", "vaa"):
+            worst = max((p for p in errs if p.startswith(part)),
+                        key=errs.get)
+            err[part] = errs[worst]
+            res.setdefault(name, {})[f"worst_{part}_leaf"] = worst
+        res[name].update(
+            loss_kernel=lk, loss_abs_err=err["loss"],
+            metrics_abs_err={k: abs(mk[k] - mp[k]) for k in mk},
+            student_grad_rel_err=err["student"],
+            vaa_grad_rel_err=err["vaa"], kd_launches=n_kd,
+            over_limit={k: err[k] / tol[k] for k in tol})
+    print("distill kernel vs plain " + json.dumps(res))
+    for k, over in res["path"]["over_limit"].items():
+        if not over <= 1.0:
+            fail(f"distill ({dtype}): the kernel path's {k} "
+                 f"{'loss' if k == 'loss' else 'gradients'} differ from "
+                 f"the plain path's by {over:.3g}x the limit {tol[k]}")
+    for name in runs:
+        if name.startswith("fault") and not max(
+                res[name]["over_limit"].values()) >= DISTILL_FAULT_MARGIN:
+            fail(f"distill ({dtype}): the planted {name[6:]} moves the check "
+                 f"only {max(res[name]['over_limit'].values()):.3g}x a "
+                 f"limit")
+    for t in leaves:
+        t.requires_grad_(False)
+    return res
+
+
+def phase_distill():
+    """Phase I (``cluster``, ``build_proxies``) and Phase II
+    (``distill_proxy``) at full width: two random TinyLlama-1.1B uploads
+    (22 layers, vocab widened to the federation's 151936) distilled into
+    the dense base of Qwen1.5-MoE-A2.7B (12 of 24 layers) for 6 steps of
+    4 x 1024 tokens, lr 1e-3, J 4, VAA d 128, 4 heads, P_q 64, τ 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import distill, merge
+    from repro_torch.core import vaa as vaa_mod
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import device as Dv
+    from repro_torch.federated import server as S
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    moe_cfg = get_config("qwen2-moe-a2.7b", variant="full").replace(
+        n_layers=TUNE_LAYERS)
+    s_cfg = merge.base_config_of(moe_cfg)
+    t_own = get_config("tinyllama-1.1b", variant="full")
+    t_cfg = t_own.replace(vocab_size=s_cfg.vocab_size)
+    print(f"distill: teacher {t_cfg.name} at full width and depth on the "
+          f"federation's vocabulary {t_cfg.vocab_size} (its own: "
+          f"{t_own.vocab_size}); student {s_cfg.name}, {s_cfg.n_layers} of "
+          f"24 layers, d_ff {s_cfg.d_ff}")
+    if not (s_cfg.use_kernels and s_cfg.remat and t_cfg.use_kernels):
+        fail("configs do not distill through the kernels with remat")
+    torch.cuda.empty_cache()
+    corpus = FederatedCorpus.build(seed=0, n_devices=2, n_domains=2,
+                                   vocab=s_cfg.vocab_size)
+    t0 = time.perf_counter()
+    uploads = [{"params": M.init_params(t_cfg, generator=torch.Generator(
+                    device="cuda").manual_seed(200 + i)),
+                "embedding": corpus.device_embedding(i),
+                "upload_bytes": Dv.device_upload_bytes(t_cfg),
+                "arch_id": 0, "device_id": i} for i in range(2)]
+    scfg = S.ServerConfig(moe_cfg, distill_steps=DISTILL_STEPS,
+                          distill_batch=DISTILL_BATCH, distill_lr=DISTILL_LR,
+                          seq_len=DISTILL_SEQ, temperature=DISTILL_TAU,
+                          n_stages=DISTILL_J, vaa_dim=DISTILL_VAA_DIM,
+                          vaa_heads=DISTILL_VAA_HEADS, p_q=DISTILL_P_Q,
+                          seed=0)
+    marks = []
+
+    def on_step(s, loss):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    srv = S.DeepFusionServer(scfg, corpus, [t_cfg], device="cuda",
+                             on_step=on_step)
+    # Phase I: K = 60 experts, N = 2 uploads, so each upload is its own
+    # cluster and proxy; then one cluster of both, averaged on the card
+    proxies, result = srv.cluster(uploads)
+    if srv.report["n_clusters"] != 2 or \
+            {id(p["params"]) for p in proxies} != \
+            {id(u["params"]) for u in uploads}:
+        fail(f"Phase I: {srv.report['n_clusters']} proxies of 2 uploads, "
+             f"not each upload its own")
+    proxy_leaves = _check_proxy_average(uploads)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"distill: Phase I, K {moe_cfg.n_experts} > N 2 uploads: "
+          f"{srv.report['n_clusters']} proxies, one upload each; a cluster "
+          f"of both averaged on the card, leaves {proxy_leaves} equal to "
+          f"the CPU's f32 sum, divided and cast")
+
+    # the main path, counts from 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa_ops.LAUNCHES = kd_ops.LAUNCHES = 0
+    for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE):
+        d.update(dict.fromkeys(d, 0))
+    t0 = time.perf_counter()
+    marks.append(t0)
+    student, losses = srv.distill_proxy(proxies[0], s_cfg, seed_offset=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_attention": fa_ops.LAUNCHES,
+                "kd_loss_kd": kd_ops.LAUNCHES_BY_MODE["kd"],
+                "kd_loss_ce": kd_ops.LAUNCHES_BY_MODE["ce"]}
+    chunks = DISTILL_SEQ // s_cfg.loss_chunk
+    # per step: the teacher's layers once (no grad), the student's twice
+    # (remat recomputes each group); kd_loss twice per loss chunk
+    want = {"flash_attention": DISTILL_STEPS * (t_cfg.n_layers
+                                                + 2 * s_cfg.n_layers),
+            "kd_loss_kd": DISTILL_STEPS * chunks * 2, "kd_loss_ce": 0}
+    print(f"distill: {DISTILL_STEPS} steps in {wall:.2f}s, losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches}")
+    if launches != want:
+        fail(f"distill launches {launches} != expected {want}")
+    _all_wgmma(kd_ops, "distill")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite distillation loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"distillation loss did not fall: {losses}")
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    del proxies, result
+    kw = dict(alpha=scfg.alpha, beta=scfg.beta, temperature=DISTILL_TAU,
+              n_stages=DISTILL_J, vaa_heads=DISTILL_VAA_HEADS,
+              p_q=DISTILL_P_Q)
+    teacher = uploads[0]["params"]
+    del uploads
+    # the VAA module as Phase II draws it (its gradients are largest
+    # there; a few steps on, they shrink and their relative error grows)
+    vaa = vaa_mod.init_vaa(torch.Generator(device="cuda").manual_seed(202),
+                           n_stages=DISTILL_J, d_student=s_cfg.d_model,
+                           d_teacher=t_cfg.d_model, d=DISTILL_VAA_DIM,
+                           p_q=DISTILL_P_Q)
+    trainable = {"student": student, "vaa": vaa}
+    del student, vaa
+
+    # kernel path against plain path on one 1 x 1024 batch: the distilled
+    # student in bf16 as it trains, then everything in f32; the teacher
+    # sharpened (TEACHER_SHARPEN)
+    batch = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
+        1, DISTILL_SEQ, seed_salt=77).items()}
+    sharp = dict(teacher, final_norm=tree_map(
+        lambda t: t * TEACHER_SHARPEN, teacher["final_norm"]))
+    for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE):
+        d.update(dict.fromkeys(d, 0))
+    kd_ops.LAUNCHES = 0
+    check_bf16 = _distill_grad_check(distill, kd_ops, s_cfg, t_cfg,
+                                     trainable, sharp, batch, kw)
+    _all_wgmma(kd_ops, "distill bf16 check")
+    check = _distill_grad_check(
+        distill, kd_ops, s_cfg.replace(dtype="float32"),
+        t_cfg.replace(dtype="float32"),
+        tree_map(lambda t: t.detach().float(), trainable),
+        tree_map(lambda t: t.detach().float(), sharp), batch, kw)
+    del sharp
+    torch.cuda.empty_cache()
+    per_check = 3 * chunks * 2
+    by = {"mode": dict(kd_ops.LAUNCHES_BY_MODE),
+          "instance": dict(kd_ops.LAUNCHES_BY_INSTANCE)}
+    if by != {"mode": {"ce": 0, "kd": 2 * per_check},
+              "instance": {"wgmma": per_check, "general": 0,
+                           "f32": per_check}}:
+        fail(f"distill checks: kd_loss launches {by}")
+
+    # where the time goes: the KD backward (``_blocked_bwd``) in one more
+    # step, its span on CUDA events, then one step under the profiler
+    # with the backward as a named range
+    opt = adamw_init(trainable)
+    step = distill.make_distill_step(s_cfg, t_cfg,
+                                     optimizer_update=adamw_update, **kw)
+    b = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
+        DISTILL_BATCH, DISTILL_SEQ, seed_salt=79).items()}
+    own_bwd, spans = kd_ops._blocked_bwd, []
+
+    def timed_bwd(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with torch.profiler.record_function("kd_blocked_bwd"):
+            ev[0].record()
+            out = own_bwd(*a, **k)
+            ev[1].record()
+        spans.append(ev)
+        return out
+
+    kd_ops._blocked_bwd = timed_bwd
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(trainable, opt, teacher, b, DISTILL_LR)
+        torch.cuda.synchronize()
+        bwd_step_ms = 1e3 * (time.perf_counter() - t0)
+        kd_bwd_ms = [s.elapsed_time(e) for s, e in spans]
+        prof = profile(lambda: step(trainable, opt, teacher, b, DISTILL_LR),
+                       top=12, groups={"kd_fwd": ("kd_wgmma", "kd_merge"),
+                                       "f32_gemm": ("sgemm", "f32f32"),
+                                       "flash_fwd": ("flash_fwd",)},
+                       ranges=("kd_blocked_bwd",))
+    finally:
+        kd_ops._blocked_bwd = own_bwd
+    del opt, step, trainable, teacher
+    torch.cuda.empty_cache()
+    if len(kd_bwd_ms) != chunks or not prof["group_ms"]["kd_fwd"] > 0:
+        fail(f"the distill step ran {len(kd_bwd_ms)} KD backwards, not "
+             f"{chunks}, or its profile shows no kd_loss device time")
+
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = DISTILL_BATCH * DISTILL_SEQ
+
+    def matmul_params(cfg):
+        H, KH, Dh, D = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                        cfg.d_model)
+        per_layer = 2 * D * H * Dh + 2 * D * KH * Dh + 3 * D * cfg.d_ff
+        return cfg.n_layers * per_layer + D * cfg.vocab_size
+
+    def attn_flops(cfg, passes):
+        S = DISTILL_SEQ
+        return (passes * 4 * DISTILL_BATCH * cfg.n_heads
+                * cfg.resolved_head_dim * S * (S + 1) / 2 * cfg.n_layers)
+
+    n_s, n_t = matmul_params(s_cfg), matmul_params(t_cfg)
+    model_flops = (6 * n_s * tokens + attn_flops(s_cfg, 3)
+                   + 2 * n_t * tokens + attn_flops(t_cfg, 1))
+    res = {"steps": DISTILL_STEPS, "batch": DISTILL_BATCH,
+           "seq": DISTILL_SEQ, "teacher_vocab_own": t_own.vocab_size,
+           "teacher_vocab_used": t_cfg.vocab_size, "losses": losses,
+           "setup_s": setup_s, "distill_proxy_wall_s": wall,
+           "launches": launches, "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "mfu": model_flops / (ms / 1e3) / PEAK_BF16,
+           "model_tflop_per_step": model_flops / 1e12,
+           "student_matmul_params": n_s, "teacher_matmul_params": n_t,
+           "peak_mem_gb": peak_gb, "kd_bwd_span_ms": kd_bwd_ms,
+           "kd_bwd_step_ms": bwd_step_ms,
+           "kd_bwd_share_of_step": sum(kd_bwd_ms) / bwd_step_ms,
+           "proxy_leaves_bit_equal": proxy_leaves, **check,
+           "bf16_check": check_bf16}
+    print("distill " + json.dumps(res))
+    print("profile " + json.dumps({"distill_step": prof}))
+    return {"flash_attention": launches["flash_attention"],
+            "kd_loss_kd": launches["kd_loss_kd"]}
+
+
 KERNELS = {
     "kd_loss": {
+        "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
+        "replaces": "src/repro/kernels/kd_loss/kernel.py:163"},
+    # the same kernel in KD mode (a teacher's logits beside the student's)
+    "kd_loss_kd": {
         "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
         "replaces": "src/repro/kernels/kd_loss/kernel.py:163"},
     "flash_attention": {
@@ -2737,9 +3130,11 @@ def main() -> int:
     serve_ssm = phase_serve_ssm()
     train = phase_train()
     tune = phase_tune()
+    distill = phase_distill()
     # launches: the counts of every path run that drives the kernel
-    launches = {k: sum(path.get(k, 0)
-                       for path in (serve, serve_kv, serve_ssm, train, tune))
+    launches = {k: sum(path.get(k, 0) for path in (serve, serve_kv,
+                                                   serve_ssm, train, tune,
+                                                   distill))
                 for k in KERNELS}
     line = []
     for kname in KERNELS:

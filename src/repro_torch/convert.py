@@ -102,3 +102,45 @@ def params_to_jax(params, cfg: ModelConfig):
         else:
             out[path] = t.numpy()
     return unflatten(out)
+
+
+_VAA_LEAVES = ("stage_proj", "wq", "wk", "wv", "wo", "out_proj")
+
+
+def _check_vaa(shapes) -> None:
+    """The six VAA leaves and the shapes they imply of one another:
+    stage_proj (J, d_S, d), wq/wk/wv/wo (d, d), out_proj (J, d, d_T)."""
+    if set(shapes) != set(_VAA_LEAVES):
+        raise ValueError(f"VAA leaves {sorted(shapes)} != "
+                         f"{sorted(_VAA_LEAVES)}")
+    sp, op = shapes["stage_proj"], shapes["out_proj"]
+    if len(sp) != 3 or len(op) != 3:
+        raise ValueError(f"stage_proj {sp} and out_proj {op} must be 3-d")
+    J, d = sp[0], sp[2]
+    for k in ("wq", "wk", "wv", "wo"):
+        if shapes[k] != (d, d):
+            raise ValueError(f"{k}: shape {shapes[k]} != expected {(d, d)}")
+    if op[:2] != (J, d):
+        raise ValueError(f"out_proj: shape {op} != expected ({J}, {d}, d_T)")
+
+
+def vaa_from_jax(np_tree, *, device="cpu"):
+    """The port's VAA parameters (``core.vaa.init_vaa``'s six f32 leaves)
+    from the reference's, turned into numpy arrays.  Raises
+    ``ValueError`` on a missing, extra or mis-shaped leaf, ``TypeError``
+    on a dtype other than float32."""
+    shapes = {k: tuple(np.shape(v)) for k, v in np_tree.items()}
+    _check_vaa(shapes)
+    out = {}
+    for k, leaf in np_tree.items():
+        a = np.asarray(leaf)
+        if a.dtype != np.float32:
+            raise TypeError(f"{k}: dtype {a.dtype.name} != expected float32")
+        out[k] = torch.from_numpy(np.array(a, order="C")).to(device)
+    return out
+
+
+def vaa_to_jax(params):
+    """The reference's VAA parameters (numpy leaves) from the port's."""
+    _check_vaa({k: tuple(v.shape) for k, v in params.items()})
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

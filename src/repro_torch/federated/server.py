@@ -1,29 +1,46 @@
-"""DeepFusion central server (paper Fig. 3): Phase III of the pipeline.
+"""DeepFusion central server (paper Fig. 3): the three-phase pipeline.
 
-Counterpart of ``repro.federated.server``.  Phase III merges the K base
-models into the global MoE (Fig. 6, ``core/merge.py``) and tunes it with
-frozen experts (§IV.D, ``core/tuning.py``) on server-side public data.
-The reference compiles the tune epoch into one scanned program; the port
-runs the same steps eagerly (``optim.loops.scan_epoch``) with the same
-seed, schedule and batches.
+Counterpart of ``repro.federated.server``.
 
-Not ported yet, and refused with ``NotImplementedError``: Phase I
-(``cluster``), Phase II (``distill_proxy``), the whole pipeline
-(``run``), meshes, the async fleet schedule (``AsyncFleetConfig``,
-``FleetAggregator``) and the bf16/int8 moment policies.
+Phase I   — local knowledge clustering: cluster uploaded on-device LLMs
+            by data embeddings into K domains, weight-average per cluster
+            into proxy models m̄_i (§IV.B; ``core/clustering.py``,
+            ``core/proxy.py``).
+Phase II  — cross-architecture KD: distill each proxy into a dense "MoE
+            base model" M_i with the VAA module (§IV.C, Eq. 7-11) on
+            public server data (``core/distill.py``, ``core/vaa.py``).
+Phase III — merge the K base models into the global MoE (Fig. 6,
+            ``core/merge.py``) and tune it with frozen experts (§IV.D,
+            ``core/tuning.py``).
+
+The reference compiles each Phase II and Phase III epoch into one
+scanned program; the port runs the same steps eagerly
+(``optim.loops.scan_epoch``) with the same seeds, schedules and batches.
+Its own random inits come from ``torch.Generator``s seeded as the
+reference's keys (the draws differ from ``jax.random``), or are passed
+in (e.g. the reference's, converted).
+
+Not ported yet, and refused with ``NotImplementedError``: meshes, the
+async fleet schedule (``AsyncFleetConfig``, ``FleetAggregator``) and
+the bf16/int8 moment policies.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core import merge, tuning
+from repro_torch.core import clustering, distill, merge, proxy, tuning
+from repro_torch.core import vaa as vaa_mod
 from repro_torch.data.federated import FederatedCorpus
+from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import cosine_schedule
+from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_map
 
 
 @dataclasses.dataclass
@@ -53,8 +70,8 @@ class ServerConfig:
 
 class DeepFusionServer:
     """``device`` defaults to the card; pass ``device="cpu"`` to run on
-    the CPU.  ``on_step(step, loss)``, if given, runs after every tuning
-    step (e.g. to time it)."""
+    the CPU.  ``on_step(step, loss)``, if given, runs after every Phase
+    II and Phase III step (e.g. to time it)."""
 
     def __init__(self, cfg: ServerConfig, corpus: FederatedCorpus,
                  device_cfgs: Sequence[ModelConfig], *, mesh=None,
@@ -77,15 +94,77 @@ class DeepFusionServer:
         self.report: Dict = {}
 
     # ------------------------------------------------------------------
-    # Phases I and II
+    # Phase I
     # ------------------------------------------------------------------
-    def cluster(self, uploads):
-        raise NotImplementedError("Phase I (cluster) is not ported yet")
+    def cluster(self, uploads: Sequence[Dict]):
+        """K = the MoE's expert count; KMeans over the uploads' data
+        embeddings, architecture-constrained, then one proxy per
+        non-empty cluster.  Returns (proxies, ClusterResult)."""
+        K = self.cfg.moe_cfg.n_experts
+        emb = np.stack([u["embedding"] for u in uploads])
+        arch_ids = [u["arch_id"] for u in uploads]
+        result = clustering.cluster_devices(emb, K, arch_ids=arch_ids,
+                                            seed=self.cfg.seed)
+        proxies = proxy.build_proxies([u["params"] for u in uploads], result,
+                                      arch_ids)
+        self.report["n_clusters"] = len(proxies)
+        self.report["cluster_sizes"] = [len(p["members"]) for p in proxies]
+        self.log(f"Phase I: {len(uploads)} uploads -> {len(proxies)} proxies "
+                 f"{self.report['cluster_sizes']}")
+        return proxies, result
 
-    def distill_proxy(self, proxy_item, base_cfg, *, init_params=None,
+    # ------------------------------------------------------------------
+    # Phase II
+    # ------------------------------------------------------------------
+    def distill_proxy(self, proxy_item: Dict, base_cfg: ModelConfig, *,
+                      init_params=None, vaa_params=None,
                       seed_offset: int = 0):
-        raise NotImplementedError(
-            "Phase II (distill_proxy) is not ported yet")
+        """Distill one proxy (teacher, its parameters on ``self.device``)
+        into one MoE base model (student) for ``distill_steps`` steps.
+        The student's init is drawn from a ``torch.Generator`` seeded
+        ``seed + 101 + seed_offset`` and the VAA module's from ``seed +
+        202 + seed_offset`` (the reference's keys), or copied from
+        ``init_params`` / ``vaa_params``, which stay as they are (the
+        update works in place).  Returns (student params, per-step
+        losses)."""
+        scfg = self.cfg
+        dev = self.device
+        t_cfg = self.device_cfgs[proxy_item["arch"]]
+        t_params = proxy_item["params"]
+
+        def gen(offset):
+            return torch.Generator(device=dev).manual_seed(
+                scfg.seed + offset + seed_offset)
+
+        def copy(tree):
+            return tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+
+        s_params = copy(init_params) if init_params is not None else \
+            M.init_params(base_cfg, generator=gen(101))
+        if vaa_params is not None:
+            vaa_params = copy(vaa_params)
+        else:
+            vaa_params = vaa_mod.init_vaa(
+                gen(202), n_stages=scfg.n_stages, d_student=base_cfg.d_model,
+                d_teacher=t_cfg.d_model, d=scfg.vaa_dim, p_q=scfg.p_q)
+        trainable = {"student": s_params, "vaa": vaa_params}
+        opt = adamw_init(trainable)
+        steps = scfg.distill_steps
+        epoch = distill.make_distill_epoch(
+            base_cfg, t_cfg, steps=steps,
+            schedule=cosine_schedule(scfg.distill_lr, steps,
+                                     warmup=max(steps // 20, 1)),
+            alpha=scfg.alpha, beta=scfg.beta, temperature=scfg.temperature,
+            n_stages=scfg.n_stages, vaa_heads=scfg.vaa_heads, p_q=scfg.p_q,
+            optimizer_update=adamw_update, on_step=self.on_step)
+        batches = self.corpus.mixed_eval_batches(steps, scfg.distill_batch,
+                                                 scfg.seq_len)
+        batches = {k: v.to(dev) for k, v in batches.items()}
+        trainable, opt, losses = epoch(trainable, opt, t_params, batches)
+        hist = [float(x) for x in losses.cpu()]  # the epoch's one sync
+        self.log(f"Phase II: proxy c{proxy_item['cluster']} distilled "
+                 f"loss {hist[0]:.3f}->{hist[-1]:.3f}")
+        return trainable["student"], hist
 
     # ------------------------------------------------------------------
     # Phase III
@@ -122,6 +201,21 @@ class DeepFusionServer:
         return moe_params, hist
 
     # ------------------------------------------------------------------
-    def run(self, uploads):
-        raise NotImplementedError(
-            "the full pipeline (run) is not ported yet")
+    def run(self, uploads: Sequence[Dict]):
+        """Full pipeline: Phase I, Phase II per proxy (``seed_offset`` =
+        its index), Phase III.  Returns (moe_params, report)."""
+        t0 = time.time()
+        proxies, _ = self.cluster(uploads)
+        base_cfg = merge.base_config_of(self.cfg.moe_cfg)
+        bases, distill_hists = [], []
+        for i, p in enumerate(proxies):
+            s_params, hist = self.distill_proxy(p, base_cfg, seed_offset=i)
+            bases.append(s_params)
+            distill_hists.append(hist)
+        moe_params, tune_hist = self.merge_and_tune(bases)
+        self.report["distill_hists"] = distill_hists
+        self.report["tune_hist"] = tune_hist
+        self.report["comm_bytes"] = int(sum(u["upload_bytes"]
+                                            for u in uploads))
+        self.report["wall_s"] = time.time() - t0
+        return moe_params, self.report

@@ -15,7 +15,8 @@ view, which the wrapper copies with ``.contiguous()`` (only tied
 families pay it).  ``instance`` picks the kernel's instance from dtypes,
 shapes and pointers alone: ``wgmma`` (bf16 whose rows and bases suit
 TMA), ``general`` (any other bf16), ``f32``.  ``LAUNCHES`` counts kernel
-launches, ``LAUNCHES_BY_INSTANCE`` the same launches by instance.
+launches, ``LAUNCHES_BY_INSTANCE`` the same launches by instance and
+``LAUNCHES_BY_MODE`` by mode (``ce`` alone, or ``kd`` with a teacher).
 
 Backward: ``_ce_bwd`` / ``_ce_kl_bwd`` of the reference, the same on the
 CPU and on the card: two passes over vocab blocks of ``block_v``
@@ -40,6 +41,7 @@ from repro_torch.kernels.kd_loss.ref import ce_kl_ref, ce_ref
 
 LAUNCHES = 0
 LAUNCHES_BY_INSTANCE = {"wgmma": 0, "general": 0, "f32": 0}
+LAUNCHES_BY_MODE = {"ce": 0, "kd": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # per instance (kd_loss.cu): rows and vocab columns a block's tile (the
 # wgmma instance's KD tiles are half as wide: 128 columns a side), and
@@ -180,6 +182,7 @@ def kd_loss_fwd(hs, ws, ht, wt, labels, *, tau: float = 1.0,
     _build.check(err, f"kd_loss_fwd ({inst})", err_str)
     LAUNCHES += 1
     LAUNCHES_BY_INSTANCE[inst] += 1
+    LAUNCHES_BY_MODE["kd" if with_teacher else "ce"] += 1
     return ce, kl, cor
 
 

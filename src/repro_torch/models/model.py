@@ -189,13 +189,17 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 
 def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
-               causal: bool, collect_cache: bool):
+               causal: bool, collect_cache: bool,
+               collect_stages: bool = False):
     """Loop over the stacked groups of sub-layers (full sequence), each
     group rematerialised in the backward when ``cfg.remat``.  Returns
-    (x, aux, caches): ``aux`` the MoE load-balance losses summed per
-    group (through the remat, as the reference's scan carries it), and
+    (x, aux, caches, stages): ``aux`` the MoE load-balance losses summed
+    per group (through the remat, as the reference's scan carries it),
     the per-layer k/v stacked on the group axis (an empty dict unless
-    ``collect_cache``)."""
+    ``collect_cache``), and each group's output stacked (n_groups, B, S,
+    D) when ``collect_stages``, else None.  The stages are the remat'd
+    group function's outputs, which the next group's input keeps anyway,
+    so keeping them costs no extra recompute."""
     n = next(iter(blocks["sub0"]["ln1"].values())).shape[0]
 
     def group_fn(x, gp):
@@ -211,16 +215,20 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
     group_fn = _maybe_remat(cfg, group_fn)
     per_sub = {f"sub{i}": {"k": [], "v": []} for i in range(len(pattern))}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stages = []
     for gp in _groups(blocks, n):
         x, a, kvs = group_fn(x, gp)
         aux = aux + a
+        if collect_stages:
+            stages.append(x)
         for i, kv in enumerate(kvs):
             per_sub[f"sub{i}"]["k"].append(kv["k"])
             per_sub[f"sub{i}"]["v"].append(kv["v"])
+    stages = torch.stack(stages) if collect_stages else None
     if not collect_cache:
-        return x, aux, {}
+        return x, aux, {}, stages
     return x, aux, {s: {k: torch.stack(v) for k, v in e.items()}
-                    for s, e in per_sub.items()}
+                    for s, e in per_sub.items()}, stages
 
 
 def _decode_stack(blocks, cfg: ModelConfig, x, pos, cache, *, pattern,
@@ -290,10 +298,14 @@ def _head(params, cfg: ModelConfig, h):
     return logits
 
 
-def _ssm_backbone(params, cfg: ModelConfig, x, collect_cache: bool):
+def _ssm_backbone(params, cfg: ModelConfig, x, collect_cache: bool,
+                  collect_stages: bool = False):
     """x + ssm_forward(ln(x)) per layer; the per-layer decode cache
-    entries stacked on the layer axis when ``collect_cache``."""
+    entries stacked on the layer axis when ``collect_cache``, and each
+    layer's output stacked (n_layers, B, S, D) when ``collect_stages``
+    (else None)."""
     caches = {"state": [], "conv": []}
+    stages = []
     for bp in _groups(params["blocks"], cfg.n_layers):
         h = layers.apply_norm(bp["ln"], x)
         if collect_cache:
@@ -303,32 +315,38 @@ def _ssm_backbone(params, cfg: ModelConfig, x, collect_cache: bool):
         else:
             out = ssm.ssm_forward(bp["mixer"], cfg, h)
         x = x + out
+        if collect_stages:
+            stages.append(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stages = torch.stack(stages) if collect_stages else None
     if not collect_cache:
-        return x, aux, {}
-    return x, aux, {k: torch.stack(v) for k, v in caches.items()}
+        return x, aux, {}, stages
+    return x, aux, {k: torch.stack(v) for k, v in caches.items()}, stages
 
 
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-             collect_cache: bool = False):
+             collect_cache: bool = False, collect_stages: bool = False):
     """Full-sequence forward of the dense, MoE and ssm families.  Returns
     (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 but for MoE),
-    caches) — ``caches`` is ``{"blocks": ...}`` when ``collect_cache``,
-    else empty."""
+    caches, stages) — ``caches`` is ``{"blocks": ...}`` when
+    ``collect_cache``, else empty; ``stages`` the per-group hidden states
+    (n_groups, B, S, D) before the final norm, the representation stages
+    the VAA distiller reads, when ``collect_stages``, else None."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     if cfg.arch_type == "ssm":
-        x, aux, c = _ssm_backbone(params, cfg, x, collect_cache)
-        caches = {"blocks": c} if collect_cache else {}
-        return layers.apply_norm(params["final_norm"], x), aux, caches
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x, aux, c = _run_stack(params["blocks"], cfg, x, positions,
-                           pattern=cfg.attn_pattern, causal=True,
-                           collect_cache=collect_cache)
+        x, aux, c, stages = _ssm_backbone(params, cfg, x, collect_cache,
+                                          collect_stages)
+    else:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x, aux, c, stages = _run_stack(params["blocks"], cfg, x, positions,
+                                       pattern=cfg.attn_pattern, causal=True,
+                                       collect_cache=collect_cache,
+                                       collect_stages=collect_stages)
     caches = {"blocks": c} if collect_cache else {}
-    return layers.apply_norm(params["final_norm"], x), aux, caches
+    return layers.apply_norm(params["final_norm"], x), aux, caches, stages
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +406,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
         raise NotImplementedError(
             f"{cfg.name}: ssm training (the ssd_chunked backward) is not "
             "ported yet")
-    h, aux, _ = backbone(params, cfg, batch)
+    h, aux, _, _ = backbone(params, cfg, batch)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -409,7 +427,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
 def prefill(params, cfg: ModelConfig, batch):
     """Runs the full prompt, returns (last_token_logits (B, V) f32,
     cache) with the cache entries of every position."""
-    h, _, caches = backbone(params, cfg, batch, collect_cache=True)
+    h, _, caches, _ = backbone(params, cfg, batch, collect_cache=True)
     return _head(params, cfg, h[:, -1:])[:, 0], caches
 
 

@@ -59,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.moe_dispatch.ops, repro_torch.models.moe, "
             "repro_torch.core.merge, repro_torch.core.tuning, "
             "repro_torch.federated.server, repro_torch.models.ssm, "
-            "repro_torch.kernels.ssd_scan.ops, repro_torch.models.quant; "
+            "repro_torch.kernels.ssd_scan.ops, repro_torch.models.quant, "
+            "repro_torch.core.clustering, repro_torch.core.proxy, "
+            "repro_torch.core.vaa, repro_torch.core.distill; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),

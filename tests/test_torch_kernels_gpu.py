@@ -1266,3 +1266,79 @@ def test_reduced_mamba2_on_card_matches_cpu(cuda):
         outs[dev] = {u: c.tokens.tolist() for u, c in eng.run().items()}
     assert ssd.LAUNCHES - n0 == cfg.n_layers * len(prompts)
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# Phase II: kernel 3 in KD mode at the path's shape, and a distill step
+# ---------------------------------------------------------------------------
+
+def test_kd_loss_kd_mode_at_the_phase_ii_shape(cuda):
+    """T 2048 (4 x 512-token loss chunks), Ds = Dt = 2048, V 151936, bf16,
+    τ 2: the wgmma instance in KD mode against the plain version."""
+    T, D, V = 2048, 2048, 151936
+    hs, ws, ht, wt, lab = _kd_inputs(cuda, T, D, D, V, torch.bfloat16,
+                                     seed=7)
+    assert kd.instance(hs, ws, ht, wt) == "wgmma"
+    kd_before = kd.LAUNCHES_BY_MODE["kd"]
+    ce, kl, cor = kd.kd_loss_fwd(hs, ws, ht, wt, lab, tau=2.0)
+    assert kd.LAUNCHES_BY_MODE["kd"] == kd_before + 1
+    want_ce, want_kl, want_cor = ce_kl_ref(hs, ws, ht, wt, lab, tau=2.0)
+    torch.testing.assert_close(ce, want_ce, **TOL)
+    torch.testing.assert_close(kl, want_kl, **TOL)
+    assert ((cor == want_cor) | _near_ties(hs, ws, 0.0)).all()
+
+
+def _distill_pair():
+    """The dense base of reduced Qwen1.5-MoE as the student and reduced
+    TinyLlama on the student's vocabulary as the teacher, f32, remat on
+    in the student (so each loss chunk is rematerialised)."""
+    from repro_torch.core import merge
+    moe_cfg = get_config("qwen2-moe-a2.7b", variant="reduced")
+    s_cfg = merge.base_config_of(moe_cfg).replace(remat=True)
+    t_cfg = get_config("tinyllama-1.1b", variant="reduced").replace(
+        vocab_size=s_cfg.vocab_size)
+    return moe_cfg, s_cfg, t_cfg
+
+
+def test_distill_step_on_card_matches_cpu(cuda):
+    """Two ``distill_proxy`` steps through the kernels (flash and kd_loss
+    in KD mode, f32 instances) on the card give the CPU's loss history,
+    and one distill_loss gradient of every student and VAA leaf agrees
+    with the CPU's."""
+    from repro_torch.core import distill, vaa
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import server
+    from repro_torch.utils.pytree import tree_leaves
+    moe_cfg, s_cfg, t_cfg = _distill_pair()
+    corpus = FederatedCorpus.build(seed=0, n_devices=2, n_domains=2,
+                                   vocab=s_cfg.vocab_size)
+    scfg = server.ServerConfig(moe_cfg, distill_steps=2, distill_batch=2,
+                               seq_len=80, n_stages=2, p_q=16, vaa_dim=32)
+    teacher = M.init_params(t_cfg, generator=torch.Generator().manual_seed(1))
+    student = M.init_params(s_cfg, generator=torch.Generator().manual_seed(2))
+    v0 = vaa.init_vaa(torch.Generator().manual_seed(3), n_stages=2,
+                      d_student=s_cfg.d_model, d_teacher=t_cfg.d_model,
+                      d=32, p_q=16)
+    batch = corpus.mixed_eval_batch(2, 80, seed_salt=5)
+    hists, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        srv = server.DeepFusionServer(scfg, corpus, [t_cfg], device=dev)
+        item = {"params": _to(teacher, dev), "arch": 0, "cluster": 0,
+                "members": [0]}
+        n0 = kd.LAUNCHES_BY_MODE["kd"]
+        _, hists[dev] = srv.distill_proxy(item, s_cfg,
+                                          init_params=_to(student, dev),
+                                          vaa_params=_to(v0, dev))
+        if dev == "cuda":   # 2 steps x 2 chunks of 64, each rematerialised
+            assert kd.LAUNCHES_BY_MODE["kd"] - n0 == 8
+        b = {k: v.to(dev) for k, v in batch.items()}
+        tr = {"student": _to(student, dev), "vaa": _to(v0, dev)}
+        t_out = distill.teacher_forward(item["params"], t_cfg, b, n_stages=2)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(tr)]
+        loss, _ = distill.distill_loss(tr, s_cfg, item["params"], t_cfg, b,
+                                       t_out, n_stages=2, vaa_heads=4,
+                                       p_q=16)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    np.testing.assert_allclose(hists["cuda"], hists["cpu"], rtol=1e-4)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)

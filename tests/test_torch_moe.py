@@ -308,8 +308,7 @@ def test_convert_round_trips_moe_leaves(moe_params):
 
 
 @pytest.mark.parametrize("what", ["decode", "paged_engine", "engine",
-                                  "a2a", "replicated_ep", "dense_layers",
-                                  "server"])
+                                  "a2a", "replicated_ep", "dense_layers"])
 def test_unported_moe_paths_raise(moe_params, what):
     cfg, pt, _ = moe_params
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -323,10 +322,6 @@ def test_unported_moe_paths_raise(moe_params, what):
             p = M._layer(pt["blocks"]["sub0"]["moe"], 0)
             moe.apply_moe(p, cfg.replace(moe_impl=what),
                           torch.zeros((1, 2, cfg.d_model)))
-        elif what == "dense_layers":
+        else:
             M.init_params(cfg.replace(first_dense_layers=1),
                           generator=torch.Generator())
-        else:
-            srv = server.DeepFusionServer(server.ServerConfig(cfg), None, [],
-                                          device="cpu")
-            srv.run([])

@@ -185,7 +185,7 @@ def test_prefill_then_decode_equals_one_prefill(models, use_kernels):
     _, _, cfg, pt = models
     cfg = cfg.replace(use_kernels=use_kernels)
     toks = torch.as_tensor(_tokens(cfg, (2, 38)))
-    h, _, _ = M.backbone(pt, cfg, {"tokens": toks})
+    h, _, _, _ = M.backbone(pt, cfg, {"tokens": toks})
     full = M._head(pt, cfg, h)
     logits, pc = M.prefill(pt, cfg, {"tokens": toks[:, :30]})
     np.testing.assert_allclose(_np(logits), _np(full[:, 29]), **TOL)
