@@ -117,7 +117,34 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    them), where a teacher rolled by one token (KL) and its stage list
    reversed (FM) must each break a limit; reports ms per step, tokens/s,
    MFU, peak memory, the KD backward's time and share of a step, and a
-   profile.
+   profile;
+9. pipeline: the whole federation through ``run_deepfusion`` from
+   ``uploads=None``, the paper's case study 1 at full width: four
+   devices (build_fleet's draws at seed 0: GPT-2, GPT-2-Medium,
+   GPT-2-Medium, GPT-2; bf16, on the federation's vocabulary 151936,
+   tied heads) train 4 steps of 4 x 1024; Phase I (K 60 > N 4: four
+   proxies); Phase II distils each into the 12-layer Qwen1.5-MoE base (4
+   steps of 4 x 1024, Dt 768 and 1024 against Ds 2048, the tied teacher
+   head copied on every KD launch); Phase III merges and tunes 4 steps;
+   ``evaluate_model`` on 4 domains x 4 batches of 8 x 1024.  Checks each
+   stage's launches against the configs, every bf16 kd_loss launch in
+   the wgmma instance, the tune's products on tensor cores and the
+   dispatch in vec, finite losses, each trained model's mean loss over
+   its training batches below its init's (the inits drawn again from
+   their seeds), each device's and proxy's loss on a held-out batch
+   below its init's, ``comm_bytes`` against ``device_upload_bytes``,
+   finite metrics; reports each stage's wall time, tokens/s and peak
+   memory, the KD calls' spans beside the tied head's copy, the MoE's
+   drops and the tune's held-out loss;
+10. methods: DeepFusion, FedKMT, OFA-KD, FedJETS, centralized training
+   and FedAvg on ``benchmarks/common.py``'s f32 configs (copied; vocab
+   256, seq 48, N 8, its step counts), one fleet's uploads shared.
+   Checks each ``comm_bytes`` against its formula; DeepFusion at 6
+   steps with kernels against ``use_kernels=False`` (histories and
+   ``log_ppl`` within METHODS_*_RTOL; the MoE's only when nothing
+   dropped; the plain run launches no kernel, the kernel run's tune and
+   eval launch the MoE's), and FedKMT at least METHODS_KMT_MARGIN
+   log_ppl limits from DeepFusion.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without either when
@@ -126,6 +153,7 @@ f32 matrix products run in full f32 (TF32 off) throughout.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -216,14 +244,19 @@ def bound_ms(nbytes: float, flops: float, dtype):
 # phase 1-2: card and build
 # ---------------------------------------------------------------------------
 
+CARD = ""   # nvidia-smi's name and power limit, printed with numbers
+
+
 def phase_card():
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     name = torch.cuda.get_device_name(0)
     print(f"card: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
@@ -2337,6 +2370,34 @@ def phase_train():
     return launches
 
 
+def _counts():
+    """Every kernel wrapper's launch count, by the kernels line's names."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    return {"flash_attention": fa_ops.LAUNCHES,
+            "kd_loss": kd_ops.LAUNCHES_BY_MODE["ce"],
+            "kd_loss_kd": kd_ops.LAUNCHES_BY_MODE["kd"],
+            "grouped_ffn": mg_ops.LAUNCHES["grouped_ffn"],
+            "grouped_matmul": mg_ops.LAUNCHES["grouped_matmul"],
+            "split_f32": mg_ops.LAUNCHES["split_f32"],
+            "gather_scatter_add": md_ops.LAUNCHES}
+
+
+def _zero_counts():
+    """Every count of the kernels a federation runs set to 0."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
+    for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE,
+              mg_ops.LAUNCHES, mg_ops.LAUNCHES_BY_INSTANCE,
+              md_ops.LAUNCHES_BY_INSTANCE):
+        d.update(dict.fromkeys(d, 0))
+
+
 # ---------------------------------------------------------------------------
 def _gmm_on_tensor_cores(mg_ops, layer_steps, phase):
     """The bf16 backward's grouped products all took a tensor-core
@@ -2587,14 +2648,7 @@ def phase_tune():
     # the main path, counts from 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
-    kd_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
-        kd_ops.LAUNCHES_BY_INSTANCE, 0))
-    mg_ops.LAUNCHES.update(dict.fromkeys(mg_ops.LAUNCHES, 0))
-    mg_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
-        mg_ops.LAUNCHES_BY_INSTANCE, 0))
-    md_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
-        md_ops.LAUNCHES_BY_INSTANCE, 0))
+    _zero_counts()
     moe.route = recording_route
     t0 = time.perf_counter()
     try:
@@ -2923,9 +2977,7 @@ def phase_distill():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fa_ops.LAUNCHES = kd_ops.LAUNCHES = 0
-    for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE):
-        d.update(dict.fromkeys(d, 0))
+    _zero_counts()
     t0 = time.perf_counter()
     marks.append(t0)
     student, losses = srv.distill_proxy(proxies[0], s_cfg, seed_offset=0)
@@ -3072,6 +3124,653 @@ def phase_distill():
             "kd_loss_kd": launches["kd_loss_kd"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the whole federation through run_deepfusion, at full width
+# ---------------------------------------------------------------------------
+
+PIPE_N, PIPE_STEPS, PIPE_BATCH, PIPE_SEQ = 4, 4, 4, 1024
+# build_fleet's draws at seed 0 (np.random.default_rng(42) for the arch,
+# the corpus's Dirichlet split for the domain): both families present
+PIPE_ARCHS, PIPE_DOMAINS = [0, 1, 1, 0], [2, 3, 2, 1]
+# eval: evaluate_model's defaults, 4 batches of 8 a domain, no gradient
+EVAL_BATCH, EVAL_BATCHES = 8, 4
+
+
+class _Stages:
+    """Wraps the pipeline's stage functions: each call synchronised, timed
+    on the host clock, its peak memory and kernel launches recorded."""
+
+    def __init__(self):
+        self.rows, self._undo = [], []
+
+    def wrap(self, owner, attr, name_of):
+        """``name_of(args, kwargs)`` names the stage of one call."""
+        own = getattr(owner, attr)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0, t0 = _counts(), time.perf_counter()
+            out = own(*a, **k)
+            torch.cuda.synchronize()
+            c1 = _counts()
+            self.rows.append({
+                "stage": name_of(a, k), "wall_s": time.perf_counter() - t0,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {n: c1[n] - c0[n] for n in c1 if c1[n] - c0[n]}})
+            return out
+
+        setattr(owner, attr, run)
+        self._undo.append((owner, attr, own))
+
+    def restore(self):
+        for owner, attr, own in reversed(self._undo):
+            setattr(owner, attr, own)
+
+
+def _pipeline_want(fleet, fam, moe_cfg, proxy_archs):
+    """The launches each stage must make, from the configs.  Per step of
+    a remat'd model: flash twice a layer (forward and the backward's
+    recompute; its backward is the plain version), kd_loss twice a loss
+    chunk; per layer-step of the MoE as the tune phase has it; a frozen
+    teacher's forward once a layer; no gradient in eval, so everything
+    once."""
+    n, S = PIPE_STEPS, PIPE_SEQ
+    chunks = S // moe_cfg.loss_chunk
+    L = moe_cfg.n_layers
+    want = {"fleet": {
+        "flash_attention": sum(2 * s.cfg.n_layers * n for s in fleet),
+        "kd_loss": sum(2 * (S // s.cfg.loss_chunk) * n for s in fleet)}}
+    for i, a in enumerate(proxy_archs):
+        t_cfg = fam[a]
+        want[f"phase2_proxy{i}_arch{a}"] = {
+            "flash_attention": n * (t_cfg.n_layers + 2 * L),
+            "kd_loss_kd": 2 * chunks * n}
+    want["phase3"] = {"flash_attention": 2 * L * n, "kd_loss": 2 * chunks * n,
+                      "gather_scatter_add": 6 * L * n,
+                      "grouped_ffn": 2 * L * n, "grouped_matmul": 7 * L * n,
+                      "split_f32": 3 * L * n}
+    b = 4 * EVAL_BATCHES    # four domains
+    want["eval"] = {"flash_attention": L * b, "kd_loss": chunks * b,
+                    "gather_scatter_add": 2 * L * b, "grouped_ffn": L * b}
+    want["phase1"] = {}
+    return want
+
+
+def _pipeline_configs():
+    """The device families (their own and on the federation's vocabulary),
+    the MoE, the simulation and the server of the pipeline phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.federated import server as S
+    from repro_torch.federated import simulation as SIM
+    moe_cfg = get_config("qwen2-moe-a2.7b", variant="full").replace(
+        n_layers=TUNE_LAYERS)
+    own = [get_config("gpt2", variant="full"),
+           get_config("gpt2-medium", variant="full")]
+    fam = [c.replace(vocab_size=moe_cfg.vocab_size) for c in own]
+    if not all(c.use_kernels and c.remat and c.tie_embeddings
+               and c.dtype == "bfloat16" for c in fam):
+        fail("device families do not train through the kernels with remat")
+    sim = SIM.SimulationConfig(n_devices=PIPE_N, n_domains=4,
+                               vocab=moe_cfg.vocab_size, seq_len=PIPE_SEQ,
+                               device_steps=PIPE_STEPS,
+                               device_batch=PIPE_BATCH, seed=0)
+    scfg = S.ServerConfig(moe_cfg, distill_steps=PIPE_STEPS,
+                          distill_batch=PIPE_BATCH, tune_steps=PIPE_STEPS,
+                          tune_batch=PIPE_BATCH, seq_len=PIPE_SEQ, seed=0)
+    return own, fam, moe_cfg, sim, scfg
+
+
+def _learning_losses(report, fleet, fam, scfg, students, params):
+    """Each trained model against its init, no gradient, on the same
+    batches both sides: the mean over its stage's training batches
+    (``epoch``) and one batch no step saw (``held``).  Devices: their
+    own ``device_batches`` and ``device_batch(step=PIPE_STEPS)``;
+    Phase II students (with their VAA modules, through ``distill_loss``):
+    ``mixed_eval_batches`` and ``seed_salt=PIPE_STEPS``; the MoE: from
+    ``seed_salt0=10_000``.  The inits are drawn again from the seeds the
+    pipeline drew them from (device ``seed * 100003 + id``, student
+    ``seed + 101 + i``, VAA ``+ 202 + i``; the tune started from the merge
+    of the trained students, ``seed + 303``).  Returns {model:
+    {"epoch": (init, trained), "held": (init, trained)}}."""
+    from repro_torch.core import distill, merge
+    from repro_torch.core import vaa as vaa_mod
+    from repro_torch.models import model as M
+    from repro_torch.utils.pytree import tree_leaves
+    corpus, B, S, n = report["corpus"], PIPE_BATCH, PIPE_SEQ, PIPE_STEPS
+    dev = tree_leaves(params)[0].device
+    seed = scfg.seed
+
+    def gen(s):
+        return torch.Generator(device=dev).manual_seed(s)
+
+    def batches(stacked, held):
+        out = [{k: v[s].to(dev) for k, v in stacked.items()}
+               for s in range(n)]
+        return out + [{k: v.to(dev) for k, v in held.items()}]
+
+    def losses(loss_of, models, bs):
+        """{"epoch": (mean over bs[:-1] per model), "held": (bs[-1])}."""
+        per = [[loss_of(m, b) for b in bs] for m in models]
+        return {"epoch": tuple(sum(p[:-1]) / n for p in per),
+                "held": tuple(p[-1] for p in per)}
+
+    out = {}
+    with torch.no_grad():
+        for spec, up in zip(fleet, report["uploads"]):
+            i = spec.device_id
+            bs = batches(corpus.device_batches(i, n, B, S),
+                         corpus.device_batch(i, B, S, step=n))
+            init = M.init_params(spec.cfg, generator=gen(seed * 100003 + i))
+            out[f"device{i}"] = losses(
+                lambda p, b: M.loss_fn(p, spec.cfg, b)[0].item(),
+                (init, up["params"]), bs)
+            del init
+        bs = batches(corpus.mixed_eval_batches(n, B, S),
+                     corpus.mixed_eval_batch(B, S, seed_salt=n))
+        base = merge.base_config_of(scfg.moe_cfg)
+        kw = dict(alpha=scfg.alpha, beta=scfg.beta,
+                  temperature=scfg.temperature, n_stages=scfg.n_stages,
+                  vaa_heads=scfg.vaa_heads, p_q=scfg.p_q)
+        for i, (item, student, vaa) in enumerate(students):
+            t_cfg, t_params = fam[item["arch"]], item["params"]
+            t_outs = [distill.teacher_forward(t_params, t_cfg, b,
+                                              n_stages=scfg.n_stages)
+                      for b in bs]
+            init = {"student": M.init_params(base, generator=gen(
+                        seed + 101 + i)),
+                    "vaa": vaa_mod.init_vaa(
+                        gen(seed + 202 + i), n_stages=scfg.n_stages,
+                        d_student=base.d_model, d_teacher=t_cfg.d_model,
+                        d=scfg.vaa_dim, p_q=scfg.p_q)}
+
+            def distill_of(tr, b):
+                t_out = t_outs[next(j for j, x in enumerate(bs) if x is b)]
+                return distill.distill_loss(tr, base, t_params, t_cfg, b,
+                                            t_out, **kw)[0].item()
+
+            out[f"proxy{i}"] = losses(
+                distill_of, (init, {"student": student, "vaa": vaa}), bs)
+            del init, t_outs
+        bs = batches(corpus.mixed_eval_batches(n, B, S, seed_salt0=10_000),
+                     corpus.mixed_eval_batch(B, S, seed_salt=10_000 + n))
+        start = merge.merge_into_moe(gen(seed + 303), scfg.moe_cfg,
+                                     [s for _, s, _ in students])
+        out["tune"] = losses(
+            lambda p, b: M.loss_fn(p, scfg.moe_cfg, b)[0].item(),
+            (start, params), bs)
+        del start
+    return out
+
+
+def phase_pipeline():
+    """``run_deepfusion`` from ``uploads=None`` at full width, the paper's
+    case study 1: four devices (GPT-2 12 x 768 and GPT-2-Medium 24 x
+    1024, bf16, on the federation's vocabulary 151936) train 4 steps of 4
+    x 1024 tokens; Phase I (K 60 > N 4: each upload its own proxy);
+    Phase II distils each proxy into the dense base of Qwen1.5-MoE-A2.7B
+    (12 of 24 layers) for 4 steps of 4 x 1024; Phase III merges and
+    tunes the MoE 4 steps of 4 x 1024; ``evaluate_model`` on 4 domains x
+    4 batches of 8 x 1024."""
+    from repro_torch.core import vaa as vaa_mod
+    from repro_torch.federated import device as Dv
+    from repro_torch.federated import server as S
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.models import moe
+
+    own, fam, moe_cfg, sim, scfg = _pipeline_configs()
+    V = moe_cfg.vocab_size
+    # the fleet run_deepfusion builds (the same draws)
+    fleet = SIM.build_fleet(sim, SIM.build_corpus(sim), fam)
+    archs = [s.arch_id for s in fleet]
+    domains = [s.domain_id for s in fleet]
+    if archs != PIPE_ARCHS or domains != PIPE_DOMAINS:
+        fail(f"pipeline fleet archs {archs} domains {domains}, not "
+             f"{PIPE_ARCHS} {PIPE_DOMAINS}")
+    print(f"pipeline: {CARD}; devices {[c.name for c in fam]} on vocab {V} "
+          f"(their own {own[0].vocab_size}), archs {archs}, domains "
+          f"{domains}; MoE {moe_cfg.name} {moe_cfg.n_layers} of 24 layers")
+
+    # the students (returned by distill_proxy) and their VAA modules
+    # (trained in place), kept for the learning check
+    students, vaas, own_vaa = [], [], vaa_mod.init_vaa
+
+    def keeping_vaa(*a, **k):
+        vaas.append(own_vaa(*a, **k))
+        return vaas[-1]
+
+    own_distill = S.DeepFusionServer.distill_proxy
+
+    def keeping_student(self, item, base_cfg, **k):
+        out = own_distill(self, item, base_cfg, **k)
+        students.append((item, out[0]))
+        return out
+
+    S.DeepFusionServer.distill_proxy = keeping_student
+    stages = _Stages()
+    stages.wrap(SIM, "train_fleet", lambda a, k: "fleet")
+    stages.wrap(S.DeepFusionServer, "cluster", lambda a, k: "phase1")
+    # a proxy's stage carries its teacher's family: a[1] is the proxy
+    stages.wrap(S.DeepFusionServer, "distill_proxy",
+                lambda a, k: f"phase2_proxy{k['seed_offset']}_arch"
+                             f"{a[1]['arch']}")
+    stages.wrap(S.DeepFusionServer, "merge_and_tune", lambda a, k: "phase3")
+    stages.wrap(SIM, "evaluate_model", lambda a, k: "eval")
+    # KD-mode kd_loss calls timed on CUDA events, the tied teacher head's
+    # .contiguous() copy included (the wrapper makes it on every launch)
+    own_fwd, kd_spans = kd_ops.kd_loss_fwd, []
+
+    def timed_fwd(hs, ws, ht, wt, labels, **kw):
+        if ht is None:
+            return own_fwd(hs, ws, ht, wt, labels, **kw)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = own_fwd(hs, ws, ht, wt, labels, **kw)
+        ev[1].record()
+        kd_spans.append((ht.shape[-1], ev))
+        return out
+
+    choices, own_route = [], moe.route
+
+    def recording_route(p, c, x):
+        w, idx, aux = own_route(p, c, x)
+        choices.append((torch.is_grad_enabled(), idx))
+        return w, idx, aux
+
+    # each device's share of the fleet stage, in the order they train
+    device_s, own_train = [], Dv.train_device
+
+    def timed_device(spec, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = own_train(spec, *a, **k)
+        torch.cuda.synchronize()
+        device_s.append((spec.device_id, time.perf_counter() - t))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _zero_counts()       # the main path, counts from 0
+    kd_ops.kd_loss_fwd, moe.route = timed_fwd, recording_route
+    vaa_mod.init_vaa, Dv.train_device = keeping_vaa, timed_device
+    logs = []
+    t0 = time.perf_counter()
+    try:
+        params, report = SIM.run_deepfusion(sim, scfg, fam, log=logs.append,
+                                            device="cuda")
+    finally:
+        kd_ops.kd_loss_fwd, moe.route = own_fwd, own_route
+        stages.restore()
+        S.DeepFusionServer.distill_proxy = own_distill
+        vaa_mod.init_vaa, Dv.train_device = own_vaa, own_train
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak_gb = max(r["peak_gb"] for r in stages.rows)
+    for line in logs:
+        print("pipeline log: " + line)
+
+    # launches, stage by stage, against the configs
+    n_prox = report["n_clusters"]
+    if n_prox != PIPE_N or report["cluster_sizes"] != [1] * PIPE_N:
+        fail(f"Phase I: {n_prox} proxies {report['cluster_sizes']}, not one "
+             f"an upload")
+    got = {r["stage"]: r["launches"] for r in stages.rows}
+    proxy_archs = [int(n.rsplit("arch", 1)[1]) for n in got
+                   if n.startswith("phase2")]
+    if sorted(proxy_archs) != sorted(archs):
+        fail(f"Phase II teachers' families {proxy_archs}, uploads' {archs}")
+    want = _pipeline_want(fleet, fam, moe_cfg, proxy_archs)
+    if got != want:
+        fail(f"pipeline launches by stage {got} != expected {want}")
+    _all_wgmma(kd_ops, "pipeline")
+    _gmm_on_tensor_cores(mg_ops, moe_cfg.n_layers * PIPE_STEPS, "pipeline")
+    _gsa_all_vec(md_ops, "pipeline")
+
+    # losses finite; the bill; the metrics
+    hists = {f"device{u['device_id']}": u["losses"]
+             for u in report["uploads"]}
+    hists.update({f"proxy{i}": h
+                  for i, h in enumerate(report["distill_hists"])})
+    hists["tune"] = report["tune_hist"]
+    bad = [n for n, h in hists.items()
+           if len(h) != PIPE_STEPS or not all(map(math.isfinite, h))]
+    bill = sum(Dv.device_upload_bytes(s.comm_cfg) for s in fleet)
+    m = report["metrics"]
+    # learning: every trained model against its init on the same
+    # batches.  A history's first and last losses come from different
+    # batches: at 4 steps (step 0 at lr 0) the batches move them more
+    # than the three updates do.  The mean over its own training batches
+    # is held for every model; the held-out batch for the devices and
+    # the proxies (the tune's is reported: its three steps at the tune's
+    # learning rate move a held-out loss by less than its batch noise).
+    learn = _learning_losses(report, fleet, fam, scfg,
+                             [(it, st, v) for (it, st), v in
+                              zip(students, vaas)], params)
+    del students, vaas
+    # the kernel path's drops (the MoE's capacity) in tune and eval
+    tune_calls = [i for g, i in choices if g]
+    eval_calls = [i for g, i in choices if not g]
+    drops = {"tune_per_step": sum(_dropped(i, moe_cfg.n_experts)
+                                  for i in tune_calls) / 2 / PIPE_STEPS,
+             "eval": sum(_dropped(i, moe_cfg.n_experts) for i in eval_calls),
+             "eval_assignments": sum(i.numel() for i in eval_calls)}
+    del choices, tune_calls, eval_calls
+
+    # the tied heads' copy, alone, against the KD calls' spans
+    spans = {}
+    for dt, ev in kd_spans:
+        spans.setdefault(dt, []).append(ev[0].elapsed_time(ev[1]))
+    copy_ms = {}
+    for u in report["uploads"]:
+        emb = u["params"]["embed"]
+        if emb.shape[1] not in copy_ms:
+            copy_ms[emb.shape[1]] = time_ms(lambda: emb.T.contiguous())
+    kd = {f"Dt{dt}": {"launches": len(v), "span_ms_median":
+                      sorted(v)[len(v) // 2], "copy_ms": copy_ms[dt],
+                      "copy_share": copy_ms[dt] / sorted(v)[len(v) // 2]}
+          for dt, v in sorted(spans.items())}
+    del kd_spans
+
+    tokens = {"fleet": PIPE_N * PIPE_STEPS * PIPE_BATCH * PIPE_SEQ,
+              "phase3": PIPE_STEPS * PIPE_BATCH * PIPE_SEQ,
+              "eval": 4 * EVAL_BATCHES * EVAL_BATCH * PIPE_SEQ}
+    rows = []
+    for r in stages.rows:
+        tk = tokens.get(r["stage"], PIPE_STEPS * PIPE_BATCH * PIPE_SEQ
+                        if r["stage"].startswith("phase2") else 0)
+        rows.append(dict(r, tokens=tk,
+                         tokens_per_s=tk / r["wall_s"] if tk else None))
+    res = {"card": CARD, "wall_s": wall, "peak_mem_gb": peak_gb,
+           "stages": rows, "fleet_device_s": device_s,
+           "launches": launches, "kd_calls": kd,
+           "moe_drops": drops, "losses": hists,
+           "loss_init_trained": learn,
+           "comm_bytes": report["comm_bytes"],
+           "upload_bytes": [u["upload_bytes"] for u in report["uploads"]],
+           "trainable_fraction": report["trainable_fraction"],
+           "metrics": m}
+    print("pipeline " + json.dumps(res))
+    print(f"pipeline: log_ppl {m['log_ppl']:.4f}, accuracy "
+          f"{m['accuracy']:.4f}, per-domain ppl "
+          f"{[round(m[f'ppl_domain{d}'], 1) for d in range(4)]}, acc "
+          f"{[round(m[f'acc_domain{d}'], 4) for d in range(4)]}; "
+          f"{wall:.1f}s, peak {peak_gb:.2f} GB")
+    del params, report
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"pipeline: non-finite or missing losses in {bad}")
+    for name, r in learn.items():
+        init, trained = r["epoch"]
+        if not trained < init:
+            fail(f"pipeline {name}: the trained model's mean loss over its "
+                 f"training batches, {trained}, is not below its init's "
+                 f"{init}")
+        init, trained = r["held"]
+        if name != "tune" and not trained < init:
+            fail(f"pipeline {name}: the trained model's loss on a held-out "
+                 f"batch, {trained}, is not below its init's {init}")
+    if res["comm_bytes"] != bill:
+        fail(f"pipeline comm_bytes {res['comm_bytes']} != the fleet's "
+             f"device_upload_bytes {bill}")
+    if not all(math.isfinite(v) for v in m.values()):
+        fail(f"pipeline metrics {m}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper's comparison, every method at the repo's own scale
+# ---------------------------------------------------------------------------
+
+# benchmarks/common.py's configuration (copied: that module imports JAX)
+METHODS_N, METHODS_VOCAB, METHODS_SEQ = 8, 256, 48
+# DeepFusion with kernels and with use_kernels=False at cut step counts
+METHODS_CUT = 6
+# Kernel path against the plain path (f32 kernels against plain f32
+# PyTorch; the dense phases are the same function on both, the MoE's
+# capacity path is held only when it dropped nothing; at E 4, k 2 the
+# capacity 2·T·k/E is T, so nothing can drop).  Readings on an H100
+# (700 W), largest relative difference: device losses 1.74e-7 (two f32
+# ulps of ~5.5, an ulp being 8.7e-8 of it), Phase II 8.5e-8, tune and
+# log_ppl 0 (equal: means over 384 tokens whose per-token differences
+# cancel below half an ulp, while the two paths' hidden states differ in
+# most elements, as ``same_params`` reports).  Limits about 3x the worst
+# nonzero reading, six ulps.
+METHODS_HIST_RTOL = 5e-7
+METHODS_LOGPPL_RTOL = 5e-7
+# FedKMT (alpha = 0) at the cut counts must land at least this many
+# log_ppl limits away from DeepFusion, so the check sees the VAA term
+# (reading on an H100, 700 W: 4.16e-5, 83 limits)
+METHODS_KMT_MARGIN = 10.0
+
+
+def _methods_configs(use_kernels=True):
+    """benchmarks/common.py's families, MoE, simulation and server."""
+    from repro_torch.federated import server as S
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.models.config import ModelConfig
+    small = dict(vocab_size=METHODS_VOCAB, dtype="float32", remat=False,
+                 attn_chunk_q=32, attn_chunk_k=32, loss_chunk=32,
+                 use_kernels=use_kernels)
+    a = ModelConfig(name="gpt2-tiny", n_layers=2, d_model=64, n_heads=4,
+                    n_kv_heads=4, head_dim=16, d_ff=128,
+                    norm_type="layernorm", act="gelu", mlp_gated=False,
+                    pos_embedding="sinusoidal", **small).validate()
+    b = ModelConfig(name="llama-tiny", n_layers=3, d_model=96, n_heads=4,
+                    n_kv_heads=2, head_dim=24, d_ff=192, **small).validate()
+    moe_cfg = ModelConfig(name="qwen-moe-tiny", arch_type="moe", n_layers=2,
+                          d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                          d_ff=128, n_experts=4, top_k=2, moe_d_ff=128,
+                          n_shared_experts=1, **small).validate()
+    sim = SIM.SimulationConfig(n_devices=METHODS_N, n_domains=4,
+                               vocab=METHODS_VOCAB, seq_len=METHODS_SEQ,
+                               device_steps=30, device_batch=8, seed=0)
+    scfg = S.ServerConfig(moe_cfg=moe_cfg, distill_steps=40, distill_batch=8,
+                          tune_steps=40, tune_batch=8, seq_len=METHODS_SEQ,
+                          n_stages=2, p_q=32, vaa_dim=64, seed=0)
+    return [a, b], moe_cfg, sim, scfg
+
+
+def _rel_dist(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_methods():
+    """DeepFusion, FedKMT, OFA-KD, FedJETS, centralized training and
+    FedAvg on the card, on ``benchmarks/common.py``'s f32 configs (vocab
+    256, seq 48, N 8, its step counts), one fleet's uploads shared as
+    ``benchmarks/methods.py::run_all_methods`` shares them; each
+    method's ``comm_bytes`` against its formula; then DeepFusion at cut
+    step counts with kernels and with ``use_kernels=False``."""
+    from repro_torch.core import baselines as B
+    from repro_torch.federated import device as Dv
+    from repro_torch.federated import server as S
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.utils.pytree import tree_bytes, tree_leaves
+
+    fam, moe_cfg, sim, scfg = _methods_configs()
+    quiet = dict(log=lambda s: None, device="cuda")
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    corpus = SIM.build_corpus(sim)
+    fleet = SIM.build_fleet(sim, corpus, fam)
+    uploads = Dv.train_fleet(fleet, corpus, steps=sim.device_steps,
+                             batch=sim.device_batch, seq_len=sim.seq_len,
+                             seed=sim.seed, device="cuda")
+    shared = dict(uploads=uploads, corpus=corpus, **quiet)
+    runs, walls = {}, {"fleet": time.perf_counter() - t0}
+    for name, call in (
+            ("deepfusion", lambda: SIM.run_deepfusion(sim, scfg, fam,
+                                                      **shared)),
+            ("fedkmt", lambda: B.run_fedkmt(sim, scfg, fam, **shared)),
+            ("ofa_kd", lambda: B.run_ofa_kd(sim, scfg, fam, **shared)),
+            ("fedjets", lambda: B.run_fedjets(sim, moe_cfg, rounds=3,
+                                              local_steps=10, batch=8,
+                                              corpus=corpus, **quiet)),
+            ("centralized", lambda: B.run_centralized(
+                sim, moe_cfg, steps=120, batch=8, corpus=corpus, **quiet)),
+            ("fedavg", lambda: B.run_fedavg(sim, fam[0], corpus=corpus,
+                                            **quiet))):
+        t1 = time.perf_counter()
+        _, runs[name] = call()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t1
+    launches = _counts()
+
+    # each method's bill, by its formula
+    up = sum(Dv.device_upload_bytes(s.comm_cfg) for s in fleet)
+    dense = tree_bytes(M.init_params(fam[0], generator="meta"))
+    local = tree_bytes(M.init_params(moe_cfg.replace(n_experts=2),
+                                     generator="meta"))
+    bills = {"deepfusion": up, "fedkmt": up, "ofa_kd": up,
+             "fedjets": 2 * local * sim.n_devices * 3,
+             "centralized": sim.n_devices * sim.device_steps
+             * sim.device_batch * (sim.seq_len + 1) * 4,
+             "fedavg": 2 * dense * sim.n_devices * 5}
+    for name, rep in runs.items():
+        m = rep["metrics"]
+        print(f"methods: {name:12s} log_ppl {m['log_ppl']:.4f} accuracy "
+              f"{m['accuracy']:.4f} comm_bytes {rep['comm_bytes']} "
+              f"({walls[name]:.1f}s)")
+        if rep["comm_bytes"] != bills[name]:
+            fail(f"methods {name}: comm_bytes {rep['comm_bytes']} != its "
+                 f"formula {bills[name]}")
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"methods {name}: metrics {m}")
+    if runs["fedjets"]["local_model_bytes"] != local:
+        fail(f"fedjets local_model_bytes {runs['fedjets']['local_model_bytes']}"
+             f" != {local}")
+    missing = [k for k in ("flash_attention", "kd_loss", "kd_loss_kd",
+                           "grouped_ffn", "grouped_matmul",
+                           "gather_scatter_add") if not launches[k]]
+    if missing:
+        fail(f"methods: no launches of {missing} ({launches})")
+    del runs
+
+    # DeepFusion at cut counts, kernels against use_kernels=False: the
+    # kernel run's tune and eval must launch the MoE's kernels, the plain
+    # run no kernel at all
+    cut = dict(device_steps=METHODS_CUT)
+    srv_cut = dict(distill_steps=METHODS_CUT, tune_steps=METHODS_CUT)
+    paths = {}
+    for use_kernels in (True, False):
+        fam_k, moe_k, sim_k, scfg_k = _methods_configs(use_kernels)
+        sim_k = dataclasses.replace(sim_k, **cut)
+        scfg_k = dataclasses.replace(scfg_k, **srv_cut)
+        choices, own_route = [], moe.route
+
+        def recording_route(p, c, x):
+            w, idx, aux = own_route(p, c, x)
+            choices.append(idx)
+            return w, idx, aux
+
+        stages = _Stages()
+        stages.wrap(S.DeepFusionServer, "merge_and_tune", lambda a, k: "tune")
+        stages.wrap(SIM, "evaluate_model", lambda a, k: "eval")
+        moe.route = recording_route
+        torch.cuda.synchronize()
+        _zero_counts()
+        try:
+            params_k, rep = SIM.run_deepfusion(sim_k, scfg_k, fam_k, **quiet)
+        finally:
+            moe.route = own_route
+            stages.restore()
+        torch.cuda.synchronize()
+        drops = sum(_dropped(i, moe_k.n_experts) for i in choices)
+        paths[use_kernels] = dict(
+            rep=rep, drops=drops, fam=fam_k, sim=sim_k, scfg=scfg_k,
+            params=params_k, moe=moe_k, counts=_counts(),
+            by_stage={r["stage"]: r["launches"] for r in stages.rows})
+    kern, plain = paths[True], paths[False]
+    plain_counts = plain["counts"]
+    if any(plain_counts.values()):
+        fail(f"methods: the use_kernels=False run launched kernels "
+             f"{plain_counts}")
+    by_stage = kern["by_stage"]
+    need = {"tune": ("flash_attention", "kd_loss", "grouped_ffn",
+                     "grouped_matmul", "gather_scatter_add"),
+            "eval": ("flash_attention", "kd_loss", "grouped_ffn",
+                     "gather_scatter_add")}
+    short = {st: [k for k in ks if not by_stage.get(st, {}).get(k)]
+             for st, ks in need.items()}
+    if any(short.values()) or not kern["counts"]["kd_loss_kd"]:
+        fail(f"methods: the kernel run's tune/eval launched none of {short} "
+             f"(tune and eval {by_stage}, whole run {kern['counts']})")
+    # the two paths on the same parameters and batch (the kernel run's
+    # tuned MoE, a batch no tune step saw): the final hidden states
+    # differ where the losses, means over 384 tokens, may not
+    params_k = kern["params"]
+    b = {k: v.to("cuda") for k, v in kern["rep"]["corpus"].mixed_eval_batch(
+        kern["scfg"].tune_batch, kern["sim"].seq_len,
+        seed_salt=10_000 + METHODS_CUT).items()}
+    with torch.no_grad():
+        hk = M.backbone(params_k, kern["moe"], b)[0]
+        hp = M.backbone(params_k, plain["moe"], b)[0]
+        lk = M.loss_fn(params_k, kern["moe"], b)[0].item()
+        lp = M.loss_fn(params_k, plain["moe"], b)[0].item()
+    same_params = {
+        "h_max_abs_diff": (hk - hp).abs().max().item(),
+        "h_max_abs": hk.abs().max().item(),
+        "h_share_differing": (hk != hp).float().mean().item(),
+        "loss_kernel": lk, "loss_plain": lp,
+        "tuned_params_max_abs_diff_across_runs": max(
+            (a - c).abs().max().item() for a, c in
+            zip(tree_leaves(params_k), tree_leaves(plain["params"])))}
+    del hk, hp, b, params_k
+    rk, rp, drops = kern["rep"], plain["rep"], kern["drops"]
+    _, kmt = B.run_fedkmt(kern["sim"], kern["scfg"], kern["fam"],
+                          uploads=rk["uploads"], corpus=rk["corpus"], **quiet)
+    dist = {
+        "device_losses": max(_rel_dist(a["losses"], b["losses"])
+                             for a, b in zip(rk["uploads"], rp["uploads"])),
+        "distill_hists": max(_rel_dist(a, b) for a, b in
+                             zip(rk["distill_hists"], rp["distill_hists"])),
+        "tune_hist": _rel_dist(rk["tune_hist"], rp["tune_hist"]),
+        "log_ppl": _rel_dist(rk["metrics"]["log_ppl"],
+                             rp["metrics"]["log_ppl"]),
+        "fedkmt_log_ppl": _rel_dist(kmt["metrics"]["log_ppl"],
+                                    rk["metrics"]["log_ppl"])}
+    res = {"card": CARD, "walls_s": walls, "launches": launches,
+           "cut_steps": METHODS_CUT, "kernel_vs_plain": dist,
+           "kernel_path_moe_drops": drops,
+           "kernel_run_launches": {"tune": by_stage["tune"],
+                                   "eval": by_stage["eval"],
+                                   "whole": kern["counts"]},
+           "plain_run_launches": plain_counts,
+           "same_params": same_params,
+           "limits": {"hist": METHODS_HIST_RTOL,
+                      "log_ppl": METHODS_LOGPPL_RTOL,
+                      "fedkmt_margin": METHODS_KMT_MARGIN}}
+    print("methods " + json.dumps(res))
+    for k in ("device_losses", "distill_hists"):
+        if not dist[k] <= METHODS_HIST_RTOL:
+            fail(f"methods: kernel-path {k} differ from the plain path's "
+                 f"by {dist[k]} > {METHODS_HIST_RTOL}")
+    if drops == 0:
+        if not dist["tune_hist"] <= METHODS_HIST_RTOL:
+            fail(f"methods: kernel-path tune losses differ by "
+                 f"{dist['tune_hist']} > {METHODS_HIST_RTOL}")
+        if not dist["log_ppl"] <= METHODS_LOGPPL_RTOL:
+            fail(f"methods: kernel-path log_ppl differs by "
+                 f"{dist['log_ppl']} > {METHODS_LOGPPL_RTOL}")
+    else:
+        print(f"methods: the kernel path dropped {drops} assignments; "
+              f"its MoE phases are reported, not held")
+    if not dist["fedkmt_log_ppl"] >= METHODS_KMT_MARGIN * \
+            METHODS_LOGPPL_RTOL:
+        fail(f"methods: FedKMT lies {dist['fedkmt_log_ppl']} from "
+             f"DeepFusion, under {METHODS_KMT_MARGIN} log_ppl limits")
+    return launches
+
+
 KERNELS = {
     "kd_loss": {
         "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
@@ -3108,6 +3807,10 @@ KERNELS = {
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:91"},
 }
 
+# the path phases, in the order they run
+PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_train,
+         phase_tune, phase_distill, phase_pipeline, phase_methods)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3125,17 +3828,9 @@ def main() -> int:
     name = phase_card()
     phase_build()
     rows = phase_kernels()
-    serve = phase_serve()
-    serve_kv = phase_serve_kv()
-    serve_ssm = phase_serve_ssm()
-    train = phase_train()
-    tune = phase_tune()
-    distill = phase_distill()
     # launches: the counts of every path run that drives the kernel
-    launches = {k: sum(path.get(k, 0) for path in (serve, serve_kv,
-                                                   serve_ssm, train, tune,
-                                                   distill))
-                for k in KERNELS}
+    paths = [run() for run in PATHS]
+    launches = {k: sum(path.get(k, 0) for path in paths) for k in KERNELS}
     line = []
     for kname in KERNELS:
         main_row = rows[kname]

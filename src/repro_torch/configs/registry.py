@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+from repro_torch.configs.device_models import (BLOOM_1_1B, GPT2,
+                                               GPT2_MEDIUM, OLMO_1_2B)
 from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
@@ -17,6 +19,11 @@ PORTED: Dict[str, ModelConfig] = {
     "tinyllama-1.1b": TINYLLAMA_1_1B,
     "qwen2-moe-a2.7b": QWEN2_MOE_A2_7B,
     "mamba2-1.3b": MAMBA2_1_3B,
+    # the paper's on-device families (configs/device_models.py)
+    "gpt2": GPT2,
+    "gpt2-medium": GPT2_MEDIUM,
+    "olmo-1.2b": OLMO_1_2B,
+    "bloom-1.1b": BLOOM_1_1B,
 }
 
 

@@ -14,6 +14,8 @@ device.  Weights are random, drawn from seed 0.
 Prints loss, accuracy and grad norm as the reference does, and ms per
 step and tokens/s over the steps after the first (which builds the
 kernels and warms the allocator), synchronised with the device.
+``--save PATH`` writes the final parameters in the reference's npz
+format (``checkpoint.save_pytree``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.data.federated import FederatedCorpus
 from repro_torch.federated.device import train_step
@@ -33,7 +36,6 @@ from repro_torch.utils.device import resolve_device
 _NOT_PORTED = [
     ("--fleet", {"type": int, "default": 0}),
     ("--production-mesh", {"action": "store_true"}),
-    ("--save", {"default": ""}),
 ]
 
 
@@ -49,6 +51,8 @@ def parse_args(argv=None):
     ap.add_argument("--vocab", type=int, default=512,
                     help="vocab size of the reduced variant")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--save", default="",
+                    help="write the final parameters here (npz)")
     for flag, kw in _NOT_PORTED:
         ap.add_argument(flag, help="not ported yet", **kw)
     args = ap.parse_args(argv)
@@ -100,6 +104,9 @@ def main(argv=None):
         print(f"{args.arch} ({args.variant}) on {dev_name}: {ms:.1f} ms/step, "
               f"{args.batch * args.seq * timed / (t2 - t1):.0f} tokens/s "
               f"over steps 1..{args.steps - 1}")
+    if args.save:
+        save_pytree(params, args.save)
+        print("saved", args.save)
     return [float(x) for x in torch.stack(losses).cpu()]
 
 

@@ -61,7 +61,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.federated.server, repro_torch.models.ssm, "
             "repro_torch.kernels.ssd_scan.ops, repro_torch.models.quant, "
             "repro_torch.core.clustering, repro_torch.core.proxy, "
-            "repro_torch.core.vaa, repro_torch.core.distill; "
+            "repro_torch.core.vaa, repro_torch.core.distill, "
+            "repro_torch.federated.simulation, repro_torch.checkpoint, "
+            "repro_torch.core.baselines, repro_torch.launch.distill_run, "
+            "repro_torch.configs.device_models; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),

@@ -278,7 +278,7 @@ def test_cli_trains_on_the_cpu_and_needs_cuda_by_default(monkeypatch):
     losses = train.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
                          "--steps", "3", "--batch", "2", "--seq", "16"])
     assert len(losses) == 3 and np.all(np.isfinite(losses))
-    for flag in (["--fleet", "4"], ["--save", "x"], ["--production-mesh"]):
+    for flag in (["--fleet", "4"], ["--production-mesh"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
