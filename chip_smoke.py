@@ -85,7 +85,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the kernel path's loss and gradients against the plain path's, every
    layer's flash output on a real batch (q, k, v caught on the path)
    against the plain version's by the per-element rule, and
-   reports ms per step, tokens/s, MFU, peak memory and a profile;
+   reports ms per step, tokens/s, MFU, peak memory and a profile; then
+   the same 8 steps with bf16 and with int8 AdamW moments (launches
+   checked, losses against the fp32 run's at the reference's limits,
+   2e-2 and 5e-2) and, per policy, ms per step, tokens/s, the resident
+   state and the peak;
 7. tune: Phase III on Qwen1.5-MoE-A2.7B at full width, 12 of its 24
    layers (bf16, random weights): K = 4 random base models merged by
    ``merge_into_moe`` on the card (the merge rule checked exactly), then
@@ -144,7 +148,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``log_ppl`` within METHODS_*_RTOL; the MoE's only when nothing
    dropped; the plain run launches no kernel, the kernel run's tune and
    eval launch the MoE's), and FedKMT at least METHODS_KMT_MARGIN
-   log_ppl limits from DeepFusion.
+   log_ppl limits from DeepFusion;
+11. fleet: the fleet extensions on the pipeline phase's four full-width
+   devices (batch 4 x 1024): ``train_fleet_async`` 3 rounds x 2 steps
+   on an ideal fleet against ``train_fleet`` 6 steps, every upload bit
+   for bit; a straggler fleet (``build_fleet(traffic="harsh")``, int8
+   moments, participation 0.75, deadline 2 s, stale late reports, 4
+   rounds x 2 steps) held to the schedule the host predicts from the
+   traffic draws (its ``rounds`` log, lost reports, each device's loss
+   count and the step each round starts from), offline devices' state
+   unchanged bit for bit, each bucket's aggregate against its f64
+   closed form (and the same reports without the staleness discount
+   breaking it); the resident fleet state and a round's peak, fp32
+   against int8 moments; ``launch/train.py --fleet 8 --async-rounds 3
+   --steps-per-round 2 --straggler-profile mild --check-sync`` in
+   process, which must print ``check-sync OK``.  Flash and kd_loss
+   launch in every device step, every bf16 kd_loss launch in wgmma.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without either when
@@ -2367,7 +2386,83 @@ def phase_train():
            **check}
     print("train " + json.dumps(res))
     print("profile " + json.dumps({"train_step": prof}))
+    del params, opt, steps
+    _train_policies(D, M, cfg, corpus, spec, run, losses, kd_ops, fa_ops,
+                    want)
     return launches
+
+
+# the reference's tracking limits (tests/test_quantized.py): each
+# policy's losses against the fp32 run's over the same 8 steps
+POLICY_LOSS_ATOL = {"bf16": 2e-2, "int8": 5e-2}
+
+
+def _policy_step(D, M, cfg, corpus, policy):
+    """ms of three synchronised steps (after one warm-up) from fresh
+    seed-0 weights with ``policy``'s moments, and the peak memory over
+    them with the resident state (params, moments) apart."""
+    from repro_torch.optim import adamw_init, cosine_schedule
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = adamw_init(params, policy=policy)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    sched = cosine_schedule(TRAIN_LR, TRAIN_STEPS, warmup=1)
+    batches = corpus.device_batches(0, 4, TRAIN_BATCH, TRAIN_SEQ)
+    steps = [{k: v[s].cuda() for k, v in batches.items()} for s in range(4)]
+    D.train_step(params, opt, cfg, steps[0], sched(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for b in steps[1:]:
+        t0 = time.perf_counter()
+        D.train_step(params, opt, cfg, b, sched(2))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, opt, steps
+    return ms, resident / 1e9, peak / 1e9
+
+
+def _train_policies(D, M, cfg, corpus, spec, run, fp32_losses, kd_ops,
+                    fa_ops, want):
+    """The train phase's run again with bf16 and int8 AdamW moments: the
+    launches of each 8-step ``train_device`` (counts from 0), its losses
+    against the fp32 run's at the reference's limits, and per policy ms
+    per step, tokens/s, the resident state and the peak."""
+    rows = []
+    for policy in ("", "bf16", "int8"):
+        row = {"policy": policy or "fp32"}
+        if policy:
+            torch.cuda.empty_cache()
+            fa_ops.LAUNCHES = 0
+            kd_ops.LAUNCHES = 0
+            kd_ops.LAUNCHES_BY_INSTANCE.update(dict.fromkeys(
+                kd_ops.LAUNCHES_BY_INSTANCE, 0))
+            losses = D.train_device(spec, corpus, state_policy=policy,
+                                    **run)["losses"]
+            torch.cuda.synchronize()
+            got = {"flash_attention": fa_ops.LAUNCHES,
+                   "kd_loss": kd_ops.LAUNCHES}
+            if got != want:
+                fail(f"train ({policy}) launches {got} != expected {want}")
+            _all_wgmma(kd_ops, f"train ({policy})")
+            dev = max(abs(a - b) for a, b in zip(losses, fp32_losses))
+            row.update(losses=losses, max_abs_loss_diff=dev,
+                       loss_atol=POLICY_LOSS_ATOL[policy])
+            if not dev <= POLICY_LOSS_ATOL[policy]:
+                fail(f"train ({policy}): losses {losses} stray {dev} from "
+                     f"fp32's, past {POLICY_LOSS_ATOL[policy]}")
+        ms, resident, peak = _policy_step(D, M, cfg, corpus, policy)
+        mid = sorted(ms)[len(ms) // 2]
+        row.update(step_ms=ms, ms_per_step=mid,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (mid / 1e3),
+                   resident_gb=resident, peak_gb=peak)
+        rows.append(row)
+    print(f"train policies ({CARD}) " + json.dumps(rows))
 
 
 def _counts():
@@ -3771,6 +3866,370 @@ def phase_methods():
     return launches
 
 
+# phase 11: the fleet extensions at full width
+# ---------------------------------------------------------------------------
+
+# (a) ideal async rounds against one synchronous run of as many steps
+FLEET_ROUNDS, FLEET_K = 3, 2
+# (b) a straggler fleet: harsh traffic, int8 moments, stale late reports.
+# Seed 0's draws (reckoned on the host, _predict_rounds) hold offline
+# device-rounds, stale merges, a mixed-staleness merge and lost reports.
+STRAG_ROUNDS, STRAG_K, STRAG_PARTICIPATION = 4, 2, 0.75
+STRAG_DEADLINE_S, STRAG_SEED = 2.0, 0
+# each bucket's aggregate against its closed form sum w_i x_i / sum w_i in
+# f64: the f32 sum rounds to bf16 once (half an ulp, 2^-9 of the value),
+# plus the f32 sum's own error relative to sum w_i |x_i| / sum w_i
+AGG_REL, AGG_ABS = 2.0 ** -8, 2.0 ** -20
+# the launcher's fleet smoke, as a user would run it
+FLEET_CLI = ["--fleet", "8", "--async-rounds", "3", "--steps-per-round", "2",
+             "--straggler-profile", "mild", "--check-sync"]
+
+
+def _predict_rounds(fleet, acfg):
+    """The straggler run's schedule from the traffic draws alone, on the
+    host: the ``rounds`` log (without bytes), each device's online
+    rounds, and the lost reports (late reports that never arrive)."""
+    from repro_torch.federated import device as Dv
+    n, pending, rows, lost = len(fleet), [], [], 0
+    online_rounds = {s.device_id: [] for s in fleet}
+    for r in range(acfg.rounds):
+        traffic = {s.device_id: Dv.sample_traffic(s, r, acfg.seed)
+                   for s in fleet}
+        for d, (_, on) in traffic.items():
+            if on:
+                online_rounds[d].append(r)
+        ids = sorted(traffic)
+        n_sel = max(1, math.ceil(acfg.participation * n))
+        rng = np.random.default_rng((acfg.seed, 424_242, r))
+        sel = set(ids) if n_sel >= n else {
+            ids[i] for i in rng.choice(n, size=n_sel, replace=False)}
+        fresh = dropped = 0
+        for d in ids:
+            lat, on = traffic[d]
+            if d not in sel or not on:
+                continue
+            late = 0 if lat <= acfg.deadline_s else \
+                math.ceil(lat / acfg.deadline_s) - 1
+            if late and acfg.deadline_policy == "drop":
+                dropped += 1
+                lost += 1
+            elif late:
+                pending.append(r + late)
+            else:
+                fresh += 1
+        matured = sum(a <= r for a in pending)
+        pending = [a for a in pending if a > r]
+        rows.append({"round": r, "online": sum(t[1] for t in traffic.values()),
+                     "selected": len(sel), "reported": fresh + matured,
+                     "stale_merged": matured, "late_dropped": dropped,
+                     "participation_rate": round((fresh + matured) / n, 4)})
+    return rows, online_rounds, lost + len(pending)
+
+
+def _fleet_want(ups, fleet):
+    """Launches of the uploads' device steps: per step of a remat'd model,
+    flash twice a layer and kd_loss twice a loss chunk."""
+    cfg = {s.device_id: s.cfg for s in fleet}
+    return {"flash_attention": sum(2 * cfg[u["device_id"]].n_layers *
+                                   len(u["losses"]) for u in ups),
+            "kd_loss": sum(2 * (PIPE_SEQ // cfg[u["device_id"]].loss_chunk) *
+                           len(u["losses"]) for u in ups)}
+
+
+def _fleet_launches(kd_ops, ups, fleet, what):
+    """The counts of the run just made (zeroed before it) against its
+    device steps, every kd_loss launch in the wgmma instance."""
+    c = _counts()
+    got = {"flash_attention": c["flash_attention"], "kd_loss": c["kd_loss"]}
+    want = _fleet_want(ups, fleet)
+    steps = sum(len(u["losses"]) for u in ups)
+    print(f"fleet {what}: {steps} device steps, launches {got}")
+    if got != want or c["kd_loss_kd"]:
+        fail(f"fleet {what}: launches {c} for {steps} device steps, "
+             f"expected {want}")
+    _all_wgmma(kd_ops, f"fleet {what}")
+    return got
+
+
+def _first_difference(ups, ref):
+    """'' if every upload's losses and parameters are equal bit for bit,
+    else the first that is not."""
+    from repro_torch.utils.pytree import tree_paths
+    for u, r in zip(ups, ref):
+        if u["losses"] != r["losses"]:
+            return f"device {u['device_id']} losses"
+        for (p, a), (_, b) in zip(tree_paths(u["params"]),
+                                  tree_paths(r["params"])):
+            if not torch.equal(a, b):
+                return f"device {u['device_id']} leaf {p}"
+    return ""
+
+
+class _AggregateCheck:
+    """Wraps ``FleetAggregator.merge_round``: each bucket's aggregate held
+    to its closed form ``sum w_i x_i / sum w_i``, reckoned in f64 on the
+    card from the delivered reports with the host's f64 weights.  Where
+    the weights differ, the same reports merged without the staleness
+    discount must break the limit somewhere."""
+
+    def __init__(self, S):
+        self.S, self.own = S, S.FleetAggregator.merge_round
+        self.worst, self.undiscounted, self.merges = 0.0, [], []
+        check = self
+
+        def merge_round(agg, key, reports):
+            out = check.own(agg, key, reports)
+            check.hold(agg.acfg, reports, out)
+            return out
+
+        S.FleetAggregator.merge_round = merge_round
+
+    def restore(self):
+        self.S.FleetAggregator.merge_round = self.own
+
+    @torch.no_grad()
+    def hold(self, acfg, reports, out):
+        from repro_torch.utils.pytree import tree_leaves
+        ws = [self.S.staleness_weight(acfg.alpha, r["staleness"],
+                                      acfg.staleness_power) for r in reports]
+        self.merges.append(sorted(int(r["staleness"]) for r in reports))
+        mixed = len(set(ws)) > 1
+        worst_plain = 0.0
+        for i, got in enumerate(tree_leaves(out)):
+            xs = [tree_leaves(r["params"])[i].double() for r in reports]
+            scale = sum(w * x.abs() for w, x in zip(ws, xs)) / sum(ws)
+            want = sum(w * x for w, x in zip(ws, xs)) / sum(ws)
+            lim = AGG_REL * want.abs() + AGG_ABS * scale
+            self.worst = max(self.worst, float(
+                ((got.double() - want).abs() / lim.clamp_min(1e-300)).max()))
+            if mixed:
+                plain = sum(xs) / len(xs)
+                worst_plain = max(worst_plain, float(
+                    ((got.double() - plain).abs() / lim.clamp_min(1e-300))
+                    .max()))
+        if mixed:
+            self.undiscounted.append(worst_plain)
+
+
+def _state_bytes(states):
+    from repro_torch.utils.pytree import tree_bytes
+    return sum(tree_bytes(p) + tree_bytes(o["m"]) + tree_bytes(o["v"]) +
+               tree_bytes(o.get("v_scale", {})) for p, o in states)
+
+
+def _fleet_memory(AF, Dv, S, fleet, corpus, policy):
+    """The resident fleet state (every device's params and moments) by
+    ``memory_allocated`` after its init, and the peak of one ideal round
+    of one step over that state."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    states = [Dv._device_init(s, 0, torch.device("cuda"),
+                              state_policy=policy) for s in fleet]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    counted = _state_bytes(states)
+    del states
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    AF.train_fleet_async(fleet, corpus, S.AsyncFleetConfig(
+        rounds=1, steps_per_round=1), batch=PIPE_BATCH, seq_len=PIPE_SEQ,
+        state_policy=policy, device="cuda")
+    torch.cuda.synchronize()
+    return {"policy": policy or "fp32", "resident_gb": resident / 1e9,
+            "state_bytes_gb": counted / 1e9,
+            "round_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+
+def phase_fleet():
+    """The fleet extensions at full width, on the pipeline phase's fleet
+    (four GPT-2 / GPT-2-Medium devices, bf16, vocab 151936, tied heads,
+    batch 4 x 1024): (a) ``train_fleet_async`` 3 rounds x 2 steps on an
+    ideal fleet against ``train_fleet`` 6 steps, bit for bit; (b) a
+    straggler fleet (``build_fleet(traffic="harsh")``, int8 moments,
+    participation 0.75, deadline 2 s, stale late reports, 4 rounds x 2
+    steps), held to the schedule the host predicts from the draws;
+    (c) the resident fleet state and a round's peak, fp32 against int8
+    moments; then ``launch/train.py --fleet 8 ... --check-sync``."""
+    import contextlib
+    import io
+    from repro_torch.federated import async_fleet as AF
+    from repro_torch.federated import device as Dv
+    from repro_torch.federated import server as S
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.launch import train as TL
+
+    own, fam, moe_cfg, sim, _ = _pipeline_configs()
+    corpus = SIM.build_corpus(sim)
+    fleet = SIM.build_fleet(sim, corpus, fam)
+    if [s.arch_id for s in fleet] != PIPE_ARCHS:
+        fail(f"fleet archs {[s.arch_id for s in fleet]}, not {PIPE_ARCHS}")
+    run = dict(batch=PIPE_BATCH, seq_len=PIPE_SEQ, seed=0, device="cuda")
+    print(f"fleet: {CARD}; devices {[c.name for c in fam]} on vocab "
+          f"{moe_cfg.vocab_size}, archs {PIPE_ARCHS}")
+    launches = {"flash_attention": 0, "kd_loss": 0}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    # (a) ideal async rounds against one synchronous run
+    total = FLEET_ROUNDS * FLEET_K
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    sync = Dv.train_fleet(fleet, corpus, steps=total, **run)
+    torch.cuda.synchronize()
+    t_sync = time.perf_counter() - t0
+    add(_fleet_launches(kd_ops, sync, fleet, "sync"))
+    _zero_counts()
+    t0 = time.perf_counter()
+    asy, rep = AF.train_fleet_async(
+        fleet, corpus, S.AsyncFleetConfig(rounds=FLEET_ROUNDS,
+                                          steps_per_round=FLEET_K), **run)
+    torch.cuda.synchronize()
+    t_async = time.perf_counter() - t0
+    add(_fleet_launches(kd_ops, asy, fleet, "ideal async"))
+    diff = _first_difference(asy, sync)
+    if diff:
+        fail(f"ideal async rounds differ from train_fleet at {diff}")
+    if rep["staleness_hist"] != {0: PIPE_N * FLEET_ROUNDS}:
+        fail(f"ideal async staleness {rep['staleness_hist']}")
+    ideal = {"rounds": FLEET_ROUNDS, "steps_per_round": FLEET_K,
+             "bitwise_equal": True, "sync_wall_s": t_sync,
+             "async_wall_s": t_async,
+             "losses": {u["device_id"]: u["losses"] for u in asy}}
+    print("fleet ideal " + json.dumps(ideal))
+    del sync, asy, rep
+    torch.cuda.empty_cache()
+
+    # (b) a straggler fleet with int8 moments
+    acfg = S.AsyncFleetConfig(
+        rounds=STRAG_ROUNDS, steps_per_round=STRAG_K,
+        participation=STRAG_PARTICIPATION, deadline_s=STRAG_DEADLINE_S,
+        deadline_policy="stale", seed=STRAG_SEED)
+    slow = SIM.build_fleet(sim, corpus, fam, traffic="harsh")
+    want_rows, online_rounds, want_lost = _predict_rounds(slow, acfg)
+    print("fleet straggler predicted " + json.dumps(
+        {"rounds": want_rows, "online_rounds": online_rounds,
+         "lost_reports": want_lost}))
+    if not (any(r["online"] < PIPE_N for r in want_rows)
+            and sum(r["stale_merged"] for r in want_rows) and want_lost):
+        fail("the straggler draws hold no offline round, stale merge or "
+             "lost report")
+    states, starts, held, unchanged = {}, [], {}, []
+    own_init, own_round, own_select = (AF._device_init, AF.train_round,
+                                       AF.selected_devices)
+
+    def keep_state(spec, *a, **k):
+        states[spec.device_id] = own_init(spec, *a, **k)
+        return states[spec.device_id]
+
+    def record_round(spec, *a, **k):
+        starts.append((spec.device_id, k["start"]))
+        return own_round(spec, *a, **k)
+
+    def offline_still(until_round):
+        """The devices offline in the round before ``until_round`` hold
+        the state they had when it began, bit for bit."""
+        from repro_torch.utils.pytree import tree_leaves
+        for d, copy in held.items():
+            p, o = states[d]
+            now = tree_leaves(p) + tree_leaves(o["m"]) + tree_leaves(o["v"]) \
+                + tree_leaves(o.get("v_scale", {}))
+            same = all(torch.equal(a, b) for a, b in zip(now, copy))
+            unchanged.append((d, until_round - 1, same))
+        held.clear()
+
+    def at_round_start(fl, a, r):
+        from repro_torch.utils.pytree import tree_leaves
+        offline_still(r)
+        for s in fl:
+            if not Dv.sample_traffic(s, r, a.seed)[1]:
+                p, o = states[s.device_id]
+                held[s.device_id] = [t.detach().clone() for t in (
+                    tree_leaves(p) + tree_leaves(o["m"]) +
+                    tree_leaves(o["v"]) + tree_leaves(o.get("v_scale", {})))]
+        return own_select(fl, a, r)
+
+    aggs = _AggregateCheck(S)
+    AF._device_init, AF.train_round, AF.selected_devices = (
+        keep_state, record_round, at_round_start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        ups, rep = AF.train_fleet_async(slow, corpus, acfg,
+                                        state_policy="int8", **run)
+        torch.cuda.synchronize()
+        offline_still(STRAG_ROUNDS)
+    finally:
+        AF._device_init, AF.train_round, AF.selected_devices = (
+            own_init, own_round, own_select)
+        aggs.restore()
+    t_strag = time.perf_counter() - t0
+    strag_peak = torch.cuda.max_memory_allocated() / 1e9
+    add(_fleet_launches(kd_ops, ups, slow, "straggler"))
+    rows = [{k: v for k, v in r.items() if k != "comm_bytes"}
+            for r in rep["rounds"]]
+    if rows != want_rows or rep["lost_reports"] != want_lost:
+        fail(f"straggler rounds {rep['rounds']} lost {rep['lost_reports']}, "
+             f"predicted {want_rows} lost {want_lost}")
+    for u in ups:
+        d = u["device_id"]
+        if len(u["losses"]) != STRAG_K * len(online_rounds[d]):
+            fail(f"device {d}: {len(u['losses'])} losses, online in rounds "
+                 f"{online_rounds[d]}")
+        got = [st for dd, st in starts if dd == d]
+        if got != [STRAG_K * i for i in range(len(online_rounds[d]))]:
+            fail(f"device {d}: rounds started at steps {got}, online in "
+                 f"rounds {online_rounds[d]}")
+        if not all(math.isfinite(x) for x in u["losses"]):
+            fail(f"device {d}: non-finite losses {u['losses']}")
+    if not unchanged or not all(same for _, _, same in unchanged):
+        fail(f"offline devices' state changed in their round: {unchanged}")
+    if not aggs.worst <= 1.0:
+        fail(f"an aggregate misses its closed form by {aggs.worst} limits")
+    if not aggs.undiscounted or min(aggs.undiscounted) <= 1.0:
+        fail(f"merges without the staleness discount would pass: "
+             f"{aggs.undiscounted}")
+    strag = {"rounds": rep["rounds"], "lost_reports": rep["lost_reports"],
+             "staleness_hist": rep["staleness_hist"],
+             "merges_staleness": aggs.merges,
+             "aggregate_err_over_limit": aggs.worst,
+             "undiscounted_err_over_limit": aggs.undiscounted,
+             "offline_device_rounds_unchanged": len(unchanged),
+             "device_steps": sum(len(u["losses"]) for u in ups),
+             "wall_s": t_strag, "peak_gb": strag_peak,
+             "losses": {u["device_id"]: u["losses"] for u in ups}}
+    print("fleet straggler " + json.dumps(strag))
+    del ups, rep, states, held
+    torch.cuda.empty_cache()
+
+    # (c) the resident fleet state, fp32 against int8 moments
+    mem = [_fleet_memory(AF, Dv, S, fleet, corpus, p) for p in ("", "int8")]
+    print(f"fleet memory ({CARD}) " + json.dumps(mem))
+
+    # the launcher's fleet smoke, in process
+    out = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out):
+        rc = TL.main(FLEET_CLI)
+    torch.cuda.synchronize()
+    c = _counts()
+    for line in out.getvalue().splitlines():
+        if line.startswith(("async fleet", "check-sync", "CHECK-SYNC")):
+            print("fleet launcher: " + line)
+    if rc != 0 or "check-sync OK" not in out.getvalue():
+        fail(f"launch/train.py {' '.join(FLEET_CLI)} exited {rc}")
+    if not (c["flash_attention"] and c["kd_loss"]):
+        fail(f"the launcher's fleet launched {c}")
+    add(c)
+    return launches
+
+
 KERNELS = {
     "kd_loss": {
         "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
@@ -3809,7 +4268,8 @@ KERNELS = {
 
 # the path phases, in the order they run
 PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_train,
-         phase_tune, phase_distill, phase_pipeline, phase_methods)
+         phase_tune, phase_distill, phase_pipeline, phase_methods,
+         phase_fleet)
 
 
 def main() -> int:

@@ -11,9 +11,13 @@ seeds, batches, schedule and per-step losses.
 Communication cost is billed from the configured model's true
 parameter count, computed from meta tensors (no allocation).
 
-Not ported yet: ``TrafficModel`` / ``sample_traffic`` (async rounds),
-the vmapped fleet, multi-host sharding and the bf16/int8 moment
-policies (``state_policy`` other than ``""`` raises).
+``TrafficModel`` / ``sample_traffic`` draw each device's per-round
+latency and availability for the async rounds (``async_fleet.py``), from
+the reference's numpy generators, so the draws are the same floats; a
+round of one device is ``train_round``.  ``state_policy`` ('' | 'bf16' |
+'int8') sets the AdamW moment storage.  Not ported: the vmapped bucket
+(devices run one after another) and multi-host sharding (``n_hosts`` /
+``mesh`` raise).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import dataclasses
 import functools
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.data.federated import FederatedCorpus
@@ -33,6 +38,35 @@ from repro_torch.utils.pytree import (tree_bytes, tree_leaves,
                                       tree_unflatten_like)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrafficModel:
+    """Seeded per-round traffic behaviour of one simulated edge device.
+
+    Report latency is lognormal (``median_latency_s`` scaled by
+    ``exp(sigma * N(0,1))``, the long straggler tail real fleets show),
+    each round the device is offline with probability ``dropout_p``, and
+    ``avail_period``/``avail_duty`` model a battery / charging window:
+    the device is only reachable during the first ``avail_duty`` rounds
+    of every ``avail_period`` (0 = always available).  All draws are
+    pure functions of ``(seed, device_id, round)`` (``sample_traffic``).
+    """
+    median_latency_s: float = 1.0
+    latency_sigma: float = 0.5
+    dropout_p: float = 0.0
+    avail_period: int = 0
+    avail_duty: int = 0
+
+
+# named presets for --straggler-profile
+STRAGGLER_PROFILES = {
+    "none": TrafficModel(),
+    "mild": TrafficModel(median_latency_s=1.0, latency_sigma=0.5,
+                         dropout_p=0.1),
+    "harsh": TrafficModel(median_latency_s=1.5, latency_sigma=1.0,
+                          dropout_p=0.3, avail_period=8, avail_duty=6),
+}
+
+
 @dataclasses.dataclass
 class DeviceSpec:
     device_id: int
@@ -42,10 +76,28 @@ class DeviceSpec:
     # full-size variant of ``cfg`` when the simulation trains a reduced
     # stand-in; comm-cost accounting (Fig. 8) bills this one.
     full_cfg: Optional[ModelConfig] = None
+    # straggler/dropout behaviour for async rounds (None = ideal link)
+    traffic: Optional[TrafficModel] = None
 
     @property
     def comm_cfg(self) -> ModelConfig:
         return self.full_cfg or self.cfg
+
+
+def sample_traffic(spec: DeviceSpec, round_idx: int, seed: int):
+    """Deterministic ``(latency_s, online)`` draw for (device, round),
+    keyed on ``(seed, 7_700_000 + device_id, round)`` only: a device that
+    dropped out rejoins with the latency/dropout stream it would always
+    have had."""
+    tm = spec.traffic or TrafficModel()
+    if tm.avail_period and (round_idx % tm.avail_period) >= tm.avail_duty:
+        return 0.0, False
+    rng = np.random.default_rng(
+        (seed, 7_700_000 + spec.device_id, round_idx))
+    dropped = bool(rng.random() < tm.dropout_p)
+    latency = float(tm.median_latency_s * np.exp(tm.latency_sigma *
+                                                 rng.standard_normal()))
+    return latency, not dropped
 
 
 @functools.lru_cache(maxsize=64)
@@ -116,6 +168,30 @@ def _upload(spec: DeviceSpec, corpus: FederatedCorpus, params,
     }
 
 
+def _refuse_hosts(n_hosts: int, mesh) -> None:
+    if n_hosts != 1 or mesh is not None:
+        raise NotImplementedError(
+            f"n_hosts={n_hosts}, mesh={mesh!r}: multi-host fleets are not "
+            "ported yet")
+
+
+def train_round(spec: DeviceSpec, corpus: FederatedCorpus, params, opt, *,
+                start: int, steps: int, total_steps: int, batch: int,
+                seq_len: int, lr: float, warmup: int, device):
+    """``steps`` local steps of one device, in place on ``params`` and
+    ``opt``: steps ``[start, start + steps)`` of a ``total_steps``-step
+    run, on that slice of the device's batch stream and of the cosine
+    schedule over the whole horizon, so rounds of one device chain into
+    its one-shot epoch step for step.  Returns the per-step losses (a
+    tensor on the device)."""
+    epoch = scan_epoch(_step_core(spec.cfg),
+                       cosine_schedule(lr, total_steps, warmup=warmup), steps)
+    batches = {k: v.to(device) for k, v in corpus.device_batches(
+        spec.device_id, steps, batch, seq_len, start=start).items()}
+    _, losses = epoch((params, opt), batches, start)
+    return losses
+
+
 def train_device(spec: DeviceSpec, corpus: FederatedCorpus, *, steps: int,
                  batch: int, seq_len: int, lr: float = 3e-3, seed: int = 0,
                  compiled: bool = True, state_policy: str = "",
@@ -128,17 +204,15 @@ def train_device(spec: DeviceSpec, corpus: FederatedCorpus, *, steps: int,
     scanned epoch and per-step loop are one eager loop here, over the
     stacked epoch of batches (equal to the per-step batches).  ``params``
     (on ``device``) replaces the seeded init, e.g. with converted
-    reference weights.
+    reference weights.  ``state_policy`` ('' | 'bf16' | 'int8') sets the
+    AdamW moment storage (``optim.adamw.resolve_moment_policy``).
     """
     del compiled
     dev = resolve_device(device)
     params, opt = _device_init(spec, seed, dev, params, state_policy)
-    warmup = max(steps // 20, 1)
-    epoch = scan_epoch(_step_core(spec.cfg),
-                       cosine_schedule(lr, steps, warmup=warmup), steps)
-    batches = {k: v.to(dev) for k, v in corpus.device_batches(
-        spec.device_id, steps, batch, seq_len).items()}
-    (params, _), losses = epoch((params, opt), batches)
+    losses = train_round(spec, corpus, params, opt, start=0, steps=steps,
+                         total_steps=steps, batch=batch, seq_len=seq_len,
+                         lr=lr, warmup=max(steps // 20, 1), device=dev)
     return _upload(spec, corpus, params, losses)
 
 
@@ -153,15 +227,18 @@ def fleet_buckets(fleet: Sequence[DeviceSpec]
 
 def train_fleet(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus, *,
                 steps: int, batch: int, seq_len: int, lr: float = 3e-3,
-                seed: int = 0, device="cuda") -> List[Dict]:
+                seed: int = 0, state_policy: str = "", n_hosts: int = 1,
+                mesh=None, device="cuda") -> List[Dict]:
     """Every device's ``train_device``, bucket by bucket and in fleet
     order within a bucket (the reference vmaps each bucket; its lanes are
-    independent, so the uploads are the same).  Returns uploads in the
-    fleet's original order."""
+    independent, so the uploads are the same).  ``state_policy`` sets
+    every device's moment storage.  Returns uploads in the fleet's
+    original order."""
+    _refuse_hosts(n_hosts, mesh)
     uploads: Dict[int, Dict] = {}
     for specs in fleet_buckets(fleet).values():
         for spec in specs:
             uploads[spec.device_id] = train_device(
                 spec, corpus, steps=steps, batch=batch, seq_len=seq_len,
-                lr=lr, seed=seed, device=device)
+                lr=lr, seed=seed, state_policy=state_policy, device=device)
     return [uploads[spec.device_id] for spec in fleet]

@@ -20,9 +20,10 @@ Its own random inits come from ``torch.Generator``s seeded as the
 reference's keys (the draws differ from ``jax.random``), or are passed
 in (e.g. the reference's, converted).
 
-Not ported yet, and refused with ``NotImplementedError``: meshes, the
-async fleet schedule (``AsyncFleetConfig``, ``FleetAggregator``) and
-the bf16/int8 moment policies.
+The async fleet schedule (``AsyncFleetConfig``) and its staleness-
+discounted merge (``FleetAggregator``) serve ``async_fleet.py``;
+``ServerConfig.state_policy`` sets Phase II's AdamW moment storage.  Not
+ported yet, and refused with ``NotImplementedError``: meshes.
 """
 from __future__ import annotations
 
@@ -40,7 +41,121 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_average, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncFleetConfig:
+    """Participation schedule for async / hierarchical fleet rounds.
+
+    Per round a sampled subset of the fleet reports its local update;
+    the server merges deliverable reports with FedAsync-style
+    staleness-discounted weights ``alpha / (1 + staleness)^
+    staleness_power`` (``staleness_weight``).  Reports later than
+    ``deadline_s`` are handled by ``deadline_policy``:
+
+      * ``"drop"``    — the late update is discarded;
+      * ``"stale"``   — it is carried and merged in a later round with
+                        its accrued staleness discount;
+      * ``"standby"`` — the round over-selects ``over_select`` extra
+                        standby devices so the on-time quorum still
+                        meets the participation target; late reports
+                        are dropped.
+
+    ``hierarchical`` interposes one sub-server per arch bucket: devices
+    report edge-locally and only each bucket's merged aggregate crosses
+    the global link (comm accounting bills the two tiers separately; the
+    merge math is flat mode's).
+    """
+    rounds: int = 3
+    steps_per_round: int = 10
+    participation: float = 1.0     # fraction of the fleet sampled per round
+    alpha: float = 0.6             # FedAsync base mixing weight
+    staleness_power: float = 0.5   # a in alpha / (1 + staleness)^a
+    deadline_s: float = float("inf")
+    deadline_policy: str = "stale"  # "drop" | "stale" | "standby"
+    over_select: float = 0.25      # standby headroom (deadline_policy=standby)
+    server_momentum: float = 0.0   # G <- mom*G + (1-mom)*round_average
+    hierarchical: bool = False     # per-arch-bucket sub-servers (edge tier)
+    seed: int = 0
+
+    def validate(self) -> "AsyncFleetConfig":
+        if self.deadline_policy not in ("drop", "stale", "standby"):
+            raise ValueError(
+                f"deadline_policy {self.deadline_policy!r} not in "
+                "('drop', 'stale', 'standby')")
+        if not (0.0 < self.participation <= 1.0):
+            raise ValueError("participation must be in (0, 1]")
+        if self.rounds < 1 or self.steps_per_round < 1:
+            raise ValueError("rounds and steps_per_round must be >= 1")
+        return self
+
+
+def staleness_weight(alpha: float, staleness: float, power: float) -> float:
+    """FedAsync mixing weight for a report ``staleness`` rounds old."""
+    return float(alpha) / (1.0 + float(staleness)) ** float(power)
+
+
+class FleetAggregator:
+    """Staleness-discounted per-arch-bucket merging (FedAsync-style).
+
+    Each round's deliverable reports for a bucket are combined into a
+    weighted average (weights ``staleness_weight(alpha, tau, power)``)
+    and mixed into the bucket's running aggregate under
+    ``server_momentum``.  All-fresh reports get equal weights, computed
+    as the plain ``tree_average``, so a round with full on-time
+    participation is the synchronous FedAvg merge bit for bit.  The
+    weighted sum runs in f32 in device-id order, as the reference's
+    Python ``sum`` adds (``0 + w0·x0 + w1·x1 ...``).  Aggregates never
+    share storage with a report: the port trains parameters in place.
+    """
+
+    def __init__(self, acfg: AsyncFleetConfig):
+        self.acfg = acfg
+        self.aggregates: Dict = {}       # bucket key -> merged params
+        self.merged_staleness: List[int] = []
+
+    @torch.no_grad()
+    def merge_round(self, bucket_key, reports: Sequence[Dict]):
+        """``reports``: [{"device_id", "params", "staleness"}], merged in
+        device-id order."""
+        if not reports:
+            return self.aggregates.get(bucket_key)
+        reports = sorted(reports, key=lambda r: r["device_id"])
+        ws = [staleness_weight(self.acfg.alpha, r["staleness"],
+                               self.acfg.staleness_power) for r in reports]
+        self.merged_staleness.extend(int(r["staleness"]) for r in reports)
+        if len(set(ws)) == 1:
+            # uniform weights ARE the plain average: short-circuiting
+            # keeps the all-fresh round bitwise equal to FedAvg
+            avg = tree_average([r["params"] for r in reports])
+            if len(reports) == 1:       # tree_average hands its one tree back
+                avg = tree_map(torch.clone, avg)
+        else:
+            total = sum(ws)
+            wn = [w / total for w in ws]
+
+            def weighted(*xs):
+                acc = 0
+                for w, x in zip(wn, xs):
+                    acc = acc + w * x.float()
+                return acc.to(xs[0].dtype)
+
+            avg = tree_map(weighted, *[r["params"] for r in reports])
+        prev = self.aggregates.get(bucket_key)
+        mom = self.acfg.server_momentum
+        if prev is not None and mom > 0.0:
+            avg = tree_map(lambda g, a: (mom * g.float() +
+                                         (1.0 - mom) * a.float()).to(a.dtype),
+                           prev, avg)
+        self.aggregates[bucket_key] = avg
+        return avg
+
+    def staleness_histogram(self) -> Dict[int, int]:
+        hist: Dict[int, int] = {}
+        for t in self.merged_staleness:
+            hist[t] = hist.get(t, 0) + 1
+        return hist
 
 
 @dataclasses.dataclass
@@ -61,11 +176,11 @@ class ServerConfig:
     vaa_heads: int = 4
     p_q: int = 64                 # total VAA queries
     seed: int = 0
-    # AdamW moment storage for Phase II distillation ('' only: the bf16 /
-    # int8 policies are not ported yet)
+    # AdamW moment storage for Phase II distillation: '' | 'bf16' |
+    # 'int8' (see optim.adamw.resolve_moment_policy)
     state_policy: str = ""
-    # async fleet participation schedule (not ported yet: None only)
-    schedule: Optional[object] = None
+    # async fleet participation schedule (None = one-shot sync training)
+    schedule: Optional[AsyncFleetConfig] = None
 
 
 class DeepFusionServer:
@@ -79,12 +194,6 @@ class DeepFusionServer:
                  device="cuda", on_step: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError("a server mesh is not ported yet")
-        if cfg.schedule is not None:
-            raise NotImplementedError(
-                "the async fleet schedule is not ported yet")
-        if cfg.state_policy:
-            raise NotImplementedError(
-                f"state_policy={cfg.state_policy!r} is not ported yet")
         self.cfg = cfg
         self.corpus = corpus
         self.device_cfgs = list(device_cfgs)
@@ -148,7 +257,7 @@ class DeepFusionServer:
                 gen(202), n_stages=scfg.n_stages, d_student=base_cfg.d_model,
                 d_teacher=t_cfg.d_model, d=scfg.vaa_dim, p_q=scfg.p_q)
         trainable = {"student": s_params, "vaa": vaa_params}
-        opt = adamw_init(trainable)
+        opt = adamw_init(trainable, policy=scfg.state_policy)
         steps = scfg.distill_steps
         epoch = distill.make_distill_epoch(
             base_cfg, t_cfg, steps=steps,

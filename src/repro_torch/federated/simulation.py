@@ -7,10 +7,11 @@ data (token perplexity Eq. 3 + token accuracy, the paper's Tables I/II
 metrics).
 
 Everything runs on one ``device`` (the card unless the caller names the
-CPU).  Not ported yet, and refused with ``NotImplementedError`` before
-any training: the async fleet schedule (``server_cfg.schedule``),
-straggler traffic (``traffic``), multi-host fleets (``n_hosts``) and
-meshes.
+CPU).  ``server_cfg.schedule`` switches local training to async
+participation rounds (``async_fleet.train_fleet_async``) and ``traffic``
+sets every device's straggler model.  Not ported yet, and refused with
+``NotImplementedError`` before any training: multi-host fleets
+(``n_hosts``) and meshes.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.data.federated import FederatedCorpus
-from repro_torch.federated.device import DeviceSpec, train_fleet
+from repro_torch.federated.async_fleet import train_fleet_async
+from repro_torch.federated.device import (STRAGGLER_PROFILES, DeviceSpec,
+                                          train_fleet)
 from repro_torch.federated.server import DeepFusionServer, ServerConfig
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -89,7 +92,9 @@ def build_fleet(sim: SimulationConfig, corpus: FederatedCorpus,
     """One ``DeviceSpec`` a device: its family drawn from
     ``np.random.default_rng(sim.seed + 42)``, its domain the corpus's.
     ``full_cfgs`` (parallel to ``device_cfgs``): the full-size model each
-    family stands in for, which comm-cost accounting bills."""
+    family stands in for, which comm-cost accounting bills.  ``traffic``:
+    a ``TrafficModel`` (or a ``STRAGGLER_PROFILES`` name) applied to
+    every device, for async-round straggler simulation."""
     if full_cfgs is not None and len(full_cfgs) != len(device_cfgs):
         # fail here with names, not deep inside the fleet loop with an
         # opaque IndexError on some sampled arch id
@@ -101,9 +106,13 @@ def build_fleet(sim: SimulationConfig, corpus: FederatedCorpus,
             f"({[c.name for c in device_cfgs]}); it must be parallel to "
             f"device_cfgs" +
             (f" — missing full-size models for {missing}" if missing else ""))
-    if traffic is not None:
-        raise NotImplementedError(
-            "straggler traffic (TrafficModel) is not ported yet")
+    if isinstance(traffic, str):
+        try:
+            traffic = STRAGGLER_PROFILES[traffic]
+        except KeyError:
+            raise ValueError(
+                f"unknown straggler profile {traffic!r}; pick one of "
+                f"{sorted(STRAGGLER_PROFILES)}") from None
     rng = np.random.default_rng(sim.seed + 42)
     fleet = []
     for n in range(sim.n_devices):
@@ -111,7 +120,8 @@ def build_fleet(sim: SimulationConfig, corpus: FederatedCorpus,
         fleet.append(DeviceSpec(
             device_id=n, cfg=device_cfgs[arch], arch_id=arch,
             domain_id=int(corpus.device_domain[n]),
-            full_cfg=full_cfgs[arch] if full_cfgs else None))
+            full_cfg=full_cfgs[arch] if full_cfgs else None,
+            traffic=traffic))
     return fleet
 
 
@@ -122,24 +132,40 @@ def run_deepfusion(sim: SimulationConfig, server_cfg: ServerConfig,
                    traffic=None, n_hosts: int = 1, device="cuda"):
     """Returns (moe_params, report); the report carries the metrics, the
     comm cost, the uploads and the corpus.  Without ``uploads`` the fleet
-    is built and trained first (``train_fleet``, device by device).
-    Everything runs on ``device``."""
-    if server_cfg.schedule is not None:
-        raise NotImplementedError("the async fleet schedule is not ported yet")
-    if traffic is not None:
-        raise NotImplementedError(
-            "straggler traffic (TrafficModel) is not ported yet")
+    is built (with ``traffic``, see ``build_fleet``) and trained first:
+    ``train_fleet``, device by device, or with ``server_cfg.schedule``
+    (an ``AsyncFleetConfig``) async participation rounds, whose log lands
+    in ``report["fleet"]``.  Everything runs on ``device``."""
     if n_hosts != 1:
         raise NotImplementedError(
             f"n_hosts={n_hosts}: multi-host fleets are not ported yet")
+    acfg = server_cfg.schedule
+    if acfg is not None:
+        if acfg.steps_per_round <= 0:
+            # 0 = "derive from the sim": split device_steps evenly
+            acfg = dataclasses.replace(
+                acfg, steps_per_round=max(1, sim.device_steps // acfg.rounds))
+        acfg.validate()              # refused before any training
     dev = resolve_device(device)
     corpus = corpus or build_corpus(sim)
+    fleet_report = None
     if uploads is None:
-        fleet = build_fleet(sim, corpus, device_cfgs, full_cfgs=full_cfgs)
-        uploads = train_fleet(fleet, corpus, steps=sim.device_steps,
-                              batch=sim.device_batch, seq_len=sim.seq_len,
-                              seed=sim.seed, device=dev)
+        fleet = build_fleet(sim, corpus, device_cfgs, full_cfgs=full_cfgs,
+                            traffic=traffic)
+        if acfg is not None:
+            uploads, fleet_report = train_fleet_async(
+                fleet, corpus, acfg, batch=sim.device_batch,
+                seq_len=sim.seq_len, seed=sim.seed, log=log, device=dev)
+        else:
+            uploads = train_fleet(fleet, corpus, steps=sim.device_steps,
+                                  batch=sim.device_batch,
+                                  seq_len=sim.seq_len, seed=sim.seed,
+                                  device=dev)
         for spec, up in zip(fleet, uploads):
+            if not up["losses"]:
+                log(f"device {spec.device_id} (arch {spec.arch_id}, "
+                    f"domain {spec.domain_id}): never online")
+                continue
             log(f"device {spec.device_id} (arch {spec.arch_id}, "
                 f"domain {spec.domain_id}): loss "
                 f"{up['losses'][0]:.3f}->{up['losses'][-1]:.3f}")
@@ -151,6 +177,8 @@ def run_deepfusion(sim: SimulationConfig, server_cfg: ServerConfig,
     report["metrics"] = metrics
     report["uploads"] = uploads
     report["corpus"] = corpus
+    if fleet_report is not None:
+        report["fleet"] = fleet_report
     if report.get("distill_hists"):
         finals = ", ".join(f"{h[-1]:.3f}" for h in report["distill_hists"])
         log(f"Phase II final losses per proxy: [{finals}]")

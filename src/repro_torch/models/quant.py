@@ -1,7 +1,6 @@
-"""Storage dtype policies for decode caches.
+"""Storage dtype policies for decode caches and optimizer moments.
 
-Counterpart of the cache half of ``repro.models.quant`` (the optimizer
-``MomentPolicy`` is not ported yet).  A ``CachePolicy`` names the storage
+Counterpart of ``repro.models.quant``.  A ``CachePolicy`` names the storage
 dtype of the attention KV leaves in a decode cache (contiguous or
 paged).  Quantized policies (int8 / fp8 e4m3) store each KV row with a
 per-(position, kv-head) float32 scale computed at WRITE time — amax over
@@ -20,6 +19,11 @@ scale leaves; ``""`` (default) keeps the parameters' dtype.
 Quantize rounds exactly as the reference: ``x / scale`` (a division, not
 a multiply by the reciprocal), half-to-even rounding for int8, a
 round-to-nearest-even cast for fp8, so codes and scales are bit-equal.
+
+``MomentPolicy`` is the optimizer-state analogue (see
+``repro_torch.optim.adamw``): the first AdamW moment in bf16, the second
+in bf16 or in int8 with one per-tensor float32 scale, on a codebook
+log-spaced in the sqrt domain (``quantize_v``).
 """
 from __future__ import annotations
 
@@ -122,3 +126,79 @@ def policy_of(cache) -> CachePolicy:
             if kv:
                 return CachePolicy(kv)
     return CachePolicy()
+
+
+# ---------------------------------------------------------------------------
+# optimizer-state policy (used by repro_torch.optim.adamw)
+# ---------------------------------------------------------------------------
+
+MOMENT_DTYPES = ("", "fp32", "bf16", "int8")
+_MOMENT_STORAGE = {"": torch.float32, "fp32": torch.float32,
+                   "bf16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentPolicy:
+    """AdamW moment storage policy.
+
+    ``m_dtype`` applies to the first moment (fp32 or bf16: int8 is not
+    offered, a sign-sensitive EMA of gradients degrades too fast).
+    ``v_dtype`` applies to the second moment; ``int8`` stores v with ONE
+    per-tensor float32 scale leaf (``quantize_v``).
+    """
+    m_dtype: str = ""
+    v_dtype: str = ""
+
+    def __post_init__(self):
+        if self.m_dtype not in ("", "fp32", "bf16"):
+            raise ValueError(f"m_dtype {self.m_dtype!r} invalid")
+        if self.v_dtype not in MOMENT_DTYPES:
+            raise ValueError(f"v_dtype {self.v_dtype!r} invalid")
+
+    @property
+    def v_quantized(self) -> bool:
+        return self.v_dtype == "int8"
+
+    def m_storage(self) -> torch.dtype:
+        return _MOMENT_STORAGE[self.m_dtype]
+
+    def v_storage(self) -> torch.dtype:
+        if self.v_quantized:
+            return torch.int8
+        return _MOMENT_STORAGE[self.v_dtype]
+
+
+# log-level span of the int8 v codebook: level 1 sits 6 decades of
+# sqrt(v) below the per-tensor amax (level 127); ~11% relative
+# resolution per level on sqrt(v), the quantity the Adam update
+# consumes.  Linear levels would round small v entries to 0 and turn
+# ``m / (sqrt(v) + eps)`` into a giant sign-SGD step.
+_V_ALPHA = 13.815511  # ln(1e6)
+
+
+def quantize_v(v_f32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor int8 quantization of a (non-negative) second moment.
+
+    Codes are log-spaced in the sqrt domain: code q > 0 decodes to
+    ``scale * exp(_V_ALPHA * (q - 127) / 127)`` of sqrt(v) (code 127 =
+    the tensor's amax, code 1 ~ amax * 1e-6); code 0 is exact zero, so a
+    fresh state round-trips exactly.  Entries below the codebook floor
+    saturate UP to code 1: overestimating a tiny v underestimates the
+    step.  Returns ``(q, scale)`` with a 0-d float32 ``scale``.  The f32
+    ops are the reference's, in its order; ``log`` may differ from XLA's
+    by an ulp, so a code at a level boundary can differ by one.
+    """
+    r = torch.sqrt(v_f32)
+    scale = torch.clamp_min(torch.max(r), _EPS)
+    lvl = 127.0 + torch.log(torch.clamp_min(r, _EPS) / scale) * (
+        127.0 / _V_ALPHA)
+    q = torch.clamp(torch.round(lvl), 1.0, 127.0)
+    q = torch.where(r > 0, q, 0.0).to(torch.int8)
+    return q, scale.float()
+
+
+def dequantize_v(q, scale) -> torch.Tensor:
+    """Inverse of ``quantize_v``: f32 v, exact zeros where the code is 0."""
+    qf = q.float()
+    r = scale.float() * torch.exp(_V_ALPHA * (qf - 127.0) / 127.0)
+    return torch.where(q > 0, torch.square(r), 0.0)

@@ -1,4 +1,4 @@
-"""AdamW with parameter-freezing masks, fp32 moment policy.
+"""AdamW with parameter-freezing masks and moment policies.
 
 Copies the math of ``repro.optim.adamw`` (not ``torch.optim.AdamW``):
 b2 = 0.95, ``eps`` added outside ``sqrt(vhat)``, a global-norm clip at
@@ -8,36 +8,64 @@ bias correction from the incremented step, the new parameter computed
 in f32 and cast to the parameter's dtype.  Frozen leaves (``False`` in
 the mask) keep scalar zero moments, as in the reference.
 
-Moments are f32.  The reference's bf16/int8 moment policies
-(``models/quant.py::MomentPolicy``) are not ported yet and raise.
-Where the reference returns new trees, the port updates the parameter
-and moment tensors in place, under ``torch.no_grad()``, to hold one copy
-of each: a 1.1B model's f32 moments alone are 8.8 GB.
+Moment storage follows a ``quant.MomentPolicy`` (``resolve_moment_policy``):
+f32 moments by default, bf16 ``m`` and ``v`` under ``"bf16"``, bf16 ``m``
+and int8 ``v`` with a ``"v_scale"`` tree of 0-d f32 scales under
+``"int8"``.  As in the reference the structure carries the policy: a
+state with ``"v_scale"`` is dequantized to f32, updated in f32 and
+re-quantized.  Where the reference returns new trees, the port updates
+the parameter and moment tensors in place, under ``torch.no_grad()``, to
+hold one copy of each (a 1.1B model's f32 moments alone are 8.8 GB), and
+makes the f32 temporaries of one leaf at a time.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models import quant
 from repro_torch.utils.pytree import tree_leaves, tree_map
+
+
+def resolve_moment_policy(policy) -> quant.MomentPolicy:
+    """A ``MomentPolicy``, a shorthand string, or None.  Shorthands:
+    ``""`` (f32 moments), ``"bf16"`` (both moments bf16), ``"int8"`` (m
+    bf16, v int8 + per-tensor scale)."""
+    if policy is None or policy == "":
+        return quant.MomentPolicy()
+    if isinstance(policy, quant.MomentPolicy):
+        return policy
+    if policy == "bf16":
+        return quant.MomentPolicy("bf16", "bf16")
+    if policy == "int8":
+        return quant.MomentPolicy("bf16", "int8")
+    raise ValueError(f"unknown moment policy {policy!r} "
+                     "(expected '', 'bf16', 'int8', or a MomentPolicy)")
 
 
 def adamw_init(params, *, freeze_mask=None, policy=None):
     """freeze_mask: nested dict of bools matching params (True =
-    trainable).  Returns {"m", "v" (f32 trees), "step" (an int)}."""
-    if policy not in (None, ""):
-        raise NotImplementedError(
-            f"AdamW moment policy {policy!r} is not ported yet (fp32 only)")
+    trainable).  Returns {"m", "v", "step" (an int)} with the moments at
+    the policy's storage dtypes, and a ``"v_scale"`` tree of 0-d f32
+    zeros (one a parameter, frozen ones included) under int8 ``v``."""
+    pol = resolve_moment_policy(policy)
     if freeze_mask is None:
         freeze_mask = tree_map(lambda _: True, params)
 
-    def mom(p, trainable):
-        shape = p.shape if trainable else ()
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    def mom(dtype):
+        def init(p, trainable):
+            shape = p.shape if trainable else ()
+            return torch.zeros(shape, dtype=dtype, device=p.device)
+        return init
 
-    return {"m": tree_map(mom, params, freeze_mask),
-            "v": tree_map(mom, params, freeze_mask),
-            "step": 0}
+    state = {"m": tree_map(mom(pol.m_storage()), params, freeze_mask),
+             "v": tree_map(mom(pol.v_storage()), params, freeze_mask),
+             "step": 0}
+    if pol.v_quantized:
+        state["v_scale"] = tree_map(
+            lambda p: torch.zeros((), dtype=torch.float32, device=p.device),
+            params)
+    return state
 
 
 _CHUNK = 1 << 26  # elements per f32 temporary of the norm
@@ -74,9 +102,12 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
                  weight_decay: float = 0.0, freeze_mask=None,
                  clip_norm: float = 1.0):
     """One AdamW step, in place on ``params`` and ``state``.  Returns
-    (params, state, {"grad_norm": 0-d tensor})."""
+    (params, state, {"grad_norm": 0-d tensor}).  Moments are read in
+    f32 (an int8 ``v`` dequantized with its scale), updated in f32 and
+    stored back at their own dtype (int8 ``v`` re-quantized)."""
     if freeze_mask is None:
         freeze_mask = tree_map(lambda _: True, params)
+    v_quantized = "v_scale" in state
     step = state["step"] + 1
     scale = None
     if clip_norm:
@@ -91,24 +122,34 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
     c2 = float(f32(1.0) - f32(b2) ** f32(step))
     lr = float(f32(lr))
 
-    def upd(p, g, m, v, trainable):
+    def upd(p, g, m, v, vs, trainable):
         if not trainable:
             return
         if scale is not None:
             g = (g * scale).to(g.dtype)
         gf = g.float()
-        m_new = b1 * m + (1 - b1) * gf
-        v_new = b2 * v + (1 - b2) * torch.square(gf)
+        m_new = b1 * m.float() + (1 - b1) * gf
+        vf = quant.dequantize_v(v, vs) if v_quantized else v.float()
+        v_new = b2 * vf + (1 - b2) * torch.square(gf)
+        del vf
         delta = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
         if weight_decay:
             delta = delta + weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
         m.copy_(m_new)
-        v.copy_(v_new)
+        if v_quantized:
+            q, s = quant.quantize_v(v_new)
+            v.copy_(q)
+            vs.copy_(s)
+        else:
+            v.copy_(v_new)
 
-    for p, g, m, v, t in zip(tree_leaves(params), tree_leaves(grads),
-                             tree_leaves(state["m"]), tree_leaves(state["v"]),
-                             tree_leaves(freeze_mask)):
-        upd(p, g, m, v, t)
+    vscales = (tree_leaves(state["v_scale"]) if v_quantized
+               else [None] * len(tree_leaves(params)))
+    for p, g, m, v, vs, t in zip(tree_leaves(params), tree_leaves(grads),
+                                 tree_leaves(state["m"]),
+                                 tree_leaves(state["v"]), vscales,
+                                 tree_leaves(freeze_mask)):
+        upd(p, g, m, v, vs, t)
     state["step"] = step
     return params, state, {"grad_norm": gnorm}

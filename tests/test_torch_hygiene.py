@@ -64,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.vaa, repro_torch.core.distill, "
             "repro_torch.federated.simulation, repro_torch.checkpoint, "
             "repro_torch.core.baselines, repro_torch.launch.distill_run, "
-            "repro_torch.configs.device_models; "
+            "repro_torch.configs.device_models, repro_torch.federated, "
+            "repro_torch.federated.async_fleet, repro_torch.optim.adamw; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),

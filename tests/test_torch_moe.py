@@ -41,6 +41,7 @@ from repro_torch.kernels.moe_gemm import ops as gemm_ops
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import cosine_schedule
 from repro_torch.serve import PagedServeEngine, ServeEngine
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 
@@ -214,34 +215,157 @@ def _corpus_pair(cfg):
     return JCorpus.build(**kw), FederatedCorpus.build(**kw)
 
 
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_merge_and_tune_matches_reference(use_kernels):
-    """3 tuning steps from the same merge: the loss history and every
-    final parameter.  The clip norm covers the frozen experts, so a
-    port that left them out of the gradient would drift here."""
+TUNE_KW = dict(tune_steps=3, tune_batch=2, seq_len=16, tune_lr=5e-3, seed=2)
+B1, B2, EPS = 0.9, 0.95, 1e-8
+
+
+def _adam_directions(grads):
+    """``m̂ / (√v̂ + eps)`` of every step, in f64 from one side's raw
+    gradients (a list over steps of {path: array}), clipped at norm 1.0
+    over all leaves as ``adamw_update`` does."""
+    m = {k: 0.0 for k in grads[0]}
+    v = {k: 0.0 for k in grads[0]}
+    out = []
+    for s, g in enumerate(grads, start=1):
+        g = {k: np.asarray(x, np.float64) for k, x in g.items()}
+        norm = np.sqrt(sum(np.sum(x * x) for x in g.values()))
+        scale = min(1.0, 1.0 / max(norm, 1e-9))
+        u = {}
+        for k, x in g.items():
+            m[k] = B1 * m[k] + (1 - B1) * x * scale
+            v[k] = B2 * v[k] + (1 - B2) * np.square(x * scale)
+            u[k] = (m[k] / (1 - B1 ** s)) / (
+                np.sqrt(v[k] / (1 - B2 ** s)) + EPS)
+        out.append(u)
+    return out
+
+
+@pytest.fixture(scope="module")
+def tune_reference():
+    """The reference's ``merge_and_tune`` and, for the bound, its steps
+    replayed one at a time (jitted gradient, ``adamw_update``): every
+    leaf's gradient along its own trajectory."""
+    from repro.optim import adamw_update as jadamw
+    from repro.optim import cosine_schedule as jcosine
     cfg_j = _jcfg()
-    cfg = port_cfg(cfg_j, use_kernels=use_kernels)
+    base = merge.base_config_of(port_cfg(cfg_j))
+    bases_j = [_to_jax(b, base) for b in _bases(base, 2)]
+    jc, _ = _corpus_pair(port_cfg(cfg_j))
+    jsrv = jserver.DeepFusionServer(jserver.ServerConfig(cfg_j, **TUNE_KW),
+                                    jc, [])
+    pj, hj = jsrv.merge_and_tune(bases_j)
+    moe_j = jmerge.merge_into_moe(jax.random.PRNGKey(TUNE_KW["seed"] + 303),
+                                  cfg_j, bases_j)
+    mask, opt = jtuning.init_tuning(moe_j)
+    steps = TUNE_KW["tune_steps"]
+    sched = jcosine(TUNE_KW["tune_lr"], steps, warmup=1)
+    grad = jax.jit(jax.grad(lambda p, b: JM.loss_fn(p, cfg_j, b)[0]))
+    batches = jc.mixed_eval_batches(steps, TUNE_KW["tune_batch"],
+                                    TUNE_KW["seq_len"], seed_salt0=10_000)
+    grads = []
+    for s in range(steps):
+        g = grad(moe_j, {k: v[s] for k, v in batches.items()})
+        grads.append(_flat(jax.tree.map(np.asarray, g)))
+        moe_j, opt, _ = jadamw(g, opt, moe_j, lr=sched(s),
+                               weight_decay=0.01, freeze_mask=mask)
+    return {"params": _flat(jax.tree.map(np.asarray, pj)), "hist": hj,
+            "fraction": jsrv.report["trainable_fraction"], "grads": grads}
+
+
+def _no_bias_correction(update):
+    """A planted fault: AdamW as if at step 10^6, so c1 = c2 = 1."""
+    def faulty(grads, state, params, **kw):
+        state["step"] += 10 ** 6
+        out = update(grads, state, params, **kw)
+        state["step"] -= 10 ** 6
+        return out
+    return faulty
+
+
+def _clip_without_frozen(update):
+    """A planted fault: the clip norm leaves the frozen experts out."""
+    def faulty(grads, state, params, *, freeze_mask=None, **kw):
+        grads = tree_unflatten_like(grads, [
+            g if t else torch.zeros_like(g) for g, t in
+            zip(tree_leaves(grads), tree_leaves(freeze_mask))])
+        return update(grads, state, params, freeze_mask=freeze_mask, **kw)
+    return faulty
+
+
+def _tune_and_compare(ref, use_kernels, fault=None):
+    """The port's ``merge_and_tune`` from the same merge, held to the
+    reference: the loss history 1e-5 relative; every step's gradient of
+    every leaf at ``TOL`` (each side on its own trajectory); every final
+    parameter within ``TOL`` plus ``lr_s · Σ_s |Δ(m̂/(√v̂+eps))|`` from
+    the two sides' own gradients.  Adam divides a gradient by its own
+    scale, so an element whose gradients nearly cancel (an embedding row
+    first met at the last step, |g| 3e-6) turns their f32 noise into a
+    relative error of the step itself: the bound widens there, and only
+    there.  The frozen experts stay the merge's, bit for bit."""
+    cfg = port_cfg(_jcfg(), use_kernels=use_kernels)
     base = merge.base_config_of(cfg)
     bases = _bases(base, 2)
-    kw = dict(tune_steps=3, tune_batch=2, seq_len=16, tune_lr=5e-3, seed=2)
-    jc, tc = _corpus_pair(cfg)
-    jsrv = jserver.DeepFusionServer(jserver.ServerConfig(cfg_j, **kw), jc, [])
-    pj, hj = jsrv.merge_and_tune([_to_jax(b, base) for b in bases])
-    init = _to_port(JM.init_params(jax.random.PRNGKey(kw["seed"] + 303),
-                                   cfg_j), cfg)
-    srv = server.DeepFusionServer(server.ServerConfig(cfg, **kw), tc, [],
-                                  device="cpu")
-    pt, ht = srv.merge_and_tune(bases, init_params=init)
-    np.testing.assert_allclose(ht, hj, rtol=RTOL)
-    assert srv.report["trainable_fraction"] == \
-        jsrv.report["trainable_fraction"]
-    _assert_trees_close(pt, jax.tree.map(np.asarray, pj), **TOL)
+    _, tc = _corpus_pair(cfg)
+    init = _to_port(JM.init_params(jax.random.PRNGKey(TUNE_KW["seed"] + 303),
+                                   _jcfg()), cfg)
+    grads = []
+    from repro_torch.federated import device as dev_mod
+    update = dev_mod.adamw_update if fault is None else fault(
+        dev_mod.adamw_update)
+
+    def recording(g, *a, **kw):
+        grads.append({k: x.detach().numpy().copy()
+                      for k, x in convert.flatten(g).items()})
+        return update(g, *a, **kw)
+
+    srv = server.DeepFusionServer(server.ServerConfig(cfg, **TUNE_KW), tc,
+                                  [], device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dev_mod, "adamw_update", recording)
+        pt, ht = srv.merge_and_tune(bases, init_params=init)
+    np.testing.assert_allclose(ht, ref["hist"], rtol=RTOL)
+    assert srv.report["trainable_fraction"] == ref["fraction"]
+    assert len(grads) == len(ref["grads"])
+    for gt, gj in zip(grads, ref["grads"]):
+        for k in gj:
+            np.testing.assert_allclose(gt[k], gj[k], err_msg=k, **TOL)
+    sched = cosine_schedule(TUNE_KW["tune_lr"], TUNE_KW["tune_steps"],
+                            warmup=1)
+    ut, uj = _adam_directions(grads), _adam_directions(ref["grads"])
+    mask = convert.flatten(tuning.expert_freeze_mask(pt))
+    got = _flat(pt)
+    assert set(got) == set(ref["params"])
+    for k, want in ref["params"].items():
+        if not mask[k]:
+            np.testing.assert_array_equal(got[k], want, err_msg=k)
+            continue
+        bound = sum(sched(s) * np.abs(ut[s][k] - uj[s][k])
+                    for s in range(len(ut)))
+        excess = np.abs(got[k] - want) - (TOL["atol"] + TOL["rtol"] *
+                                          np.abs(want) + bound)
+        assert excess.max() <= 0, (k, float(excess.max()))
+    return cfg, bases, init, pt
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_merge_and_tune_matches_reference(tune_reference, use_kernels):
+    """3 tuning steps from the same merge: the loss history, every
+    step's gradients and every final parameter (``_tune_and_compare``).
+    The clip norm covers the frozen experts, so a port that left them
+    out of the gradient would drift here."""
+    cfg, bases, init, pt = _tune_and_compare(tune_reference, use_kernels)
     # frozen experts are exactly the merge's; trainable leaves moved
     merged = merge.merge_into_moe(None, cfg, bases, params=init)
     mask = tuning.expert_freeze_mask(pt)
     for (k, a), b, m in zip(convert.flatten(pt).items(),
                             tree_leaves(merged), tree_leaves(mask)):
         assert torch.equal(a, b) != m, k
+
+
+@pytest.mark.parametrize("fault", [_no_bias_correction, _clip_without_frozen])
+def test_merge_and_tune_bound_catches_a_planted_fault(tune_reference, fault):
+    with pytest.raises(AssertionError):
+        _tune_and_compare(tune_reference, False, fault=fault)
 
 
 def test_merge_and_tune_default_init_and_on_step():

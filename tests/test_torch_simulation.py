@@ -117,19 +117,29 @@ class InitBridge:
         return hits
 
 
+def _drop_reference_executables():
+    jsim._eval_batch_fn.cache_clear()
+    jserver._distill_epoch_fn.cache_clear()
+    jserver._TUNE_EPOCH_CACHE.clear()
+    jax.clear_caches()
+
+
 @contextlib.contextmanager
 def fast_reference_compiles():
-    """XLA optimizations off for the reference's compiles; restored, and
-    the executables so compiled dropped, on exit."""
+    """XLA optimizations off for the reference's compiles; restored on
+    exit.  The reference's executables are dropped on entry and on exit:
+    the flag is not part of a jitted function's cache key, so what an
+    earlier test in the process compiled with the optimizations on would
+    otherwise run inside (``tests/test_system.py`` run first in the same
+    process moved FedJETS' log-ppl by 9.6e-6 relative, past its 1e-6),
+    and what ran inside would outlive it."""
+    _drop_reference_executables()
     jax.config.update("jax_disable_most_optimizations", True)
     try:
         yield
     finally:
         jax.config.update("jax_disable_most_optimizations", False)
-        jsim._eval_batch_fn.cache_clear()
-        jserver._distill_epoch_fn.cache_clear()
-        jserver._TUNE_EPOCH_CACHE.clear()
-        jax.clear_caches()
+        _drop_reference_executables()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -298,23 +308,34 @@ def test_build_fleet_matches_reference_and_its_errors():
             jsim.build_fleet(sim_j, jcorpus, fam_j,
                              full_cfgs=[jax_cfg(c) for c in bad])
         assert str(e_port.value) == str(e_ref.value)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError) as e_port:
         simulation.build_fleet(sim, corpus, fam, traffic="flaky")
+    with pytest.raises(ValueError) as e_ref:
+        jsim.build_fleet(sim_j, jcorpus, fam_j, traffic="flaky")
+    assert str(e_port.value) == str(e_ref.value)
 
 
 @pytest.mark.parametrize("what", ["traffic", "n_hosts", "schedule"])
 def test_unported_options_refused_before_training(what, monkeypatch):
+    """Multi-host fleets are not ported and raise; a bad straggler
+    profile or schedule is refused as the reference refuses it.  All
+    three before any training."""
     sim, scfg, fam = _configs(port=True)
 
     def no_training(*a, **k):
         raise AssertionError("trained before refusing")
 
     monkeypatch.setattr(simulation, "train_fleet", no_training)
+    monkeypatch.setattr(simulation, "train_fleet_async", no_training)
     kw = {"traffic": dict(traffic="flaky"), "n_hosts": dict(n_hosts=2),
           "schedule": {}}[what]
     if what == "schedule":
-        scfg = dataclasses.replace(scfg, schedule=jserver.AsyncFleetConfig())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+        scfg = dataclasses.replace(scfg, schedule=server.AsyncFleetConfig(
+            deadline_policy="wait-forever"))
+    err, match = ((NotImplementedError, "not ported yet") if what == "n_hosts"
+                  else (ValueError, {"traffic": "straggler profile",
+                                     "schedule": "deadline_policy"}[what]))
+    with pytest.raises(err, match=match):
         simulation.run_deepfusion(_port_sim(sim), scfg, fam, device="cpu",
                                   **kw)
 

@@ -278,7 +278,7 @@ def test_cli_trains_on_the_cpu_and_needs_cuda_by_default(monkeypatch):
     losses = train.main(["--arch", "tinyllama-1.1b", "--device", "cpu",
                          "--steps", "3", "--batch", "2", "--seq", "16"])
     assert len(losses) == 3 and np.all(np.isfinite(losses))
-    for flag in (["--fleet", "4"], ["--production-mesh"]):
+    for flag in (["--n-hosts", "2"], ["--production-mesh"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -289,8 +289,10 @@ def test_cli_trains_on_the_cpu_and_needs_cuda_by_default(monkeypatch):
 def test_unported_training_options_raise():
     cfg = port_cfg(FAMILIES["tinyllama-reduced"])
     params = M.init_params(cfg, generator="meta")
+    spec = tdev.DeviceSpec(0, cfg, 0, 0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        adamw_init(params, policy="int8")
+        tdev.train_fleet([spec], None, steps=1, batch=1, seq_len=4,
+                         n_hosts=2, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         M.loss_fn(params, cfg.replace(remat_policy="dots"),
                   {"tokens": torch.zeros((1, 4), dtype=torch.int32),
