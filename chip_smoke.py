@@ -746,6 +746,10 @@ def kd_cases(gen):
 # reference's capacity max(ceil(T*k/E)*2, 8) = 548 slots per expert
 MOE_T, MOE_K, MOE_E, MOE_D, MOE_F = 4096, 4, 60, 2048, 1408
 MOE_CAP = max(-(-MOE_T * MOE_K // MOE_E) * 2, 8)
+# the same layer in a serve_moe decode step: 8 slots, capacity
+# max(ceil(8*4/60)*2, 8) = 8 slots per expert
+MOE_DECODE_T = 8
+MOE_DECODE_CAP = max(-(-MOE_DECODE_T * MOE_K // MOE_E) * 2, 8)
 
 
 def _nbytes(*ts):
@@ -1071,7 +1075,10 @@ def moe_cases(gen):
            ffn_case(gen, 2, 33, 64, 90, bf),
            ffn_case(gen, 2, 33, 72, 45, bf, act="gelu"),
            ffn_case(gen, 2, 130, 256, 200, bf, off="x"),
-           ffn_case(gen, 2, 130, 256, 200, bf, act="gelu", off="wo")]
+           ffn_case(gen, 2, 130, 256, 200, bf, act="gelu", off="wo"),
+           # the decode shape (serve_moe): every expert's weights read
+           # for at most 8 filled rows each
+           ffn_case(gen, E, MOE_DECODE_CAP, D, Fh, bf, timed=True)]
     # the backward's seven launches at the path's shapes, as it forms
     # them (bf16 model; dg, du and h split on the card), then each
     # instance's edges: ragged M, N and K, K below one 64-deep chunk, odd
@@ -1132,6 +1139,9 @@ def gsa_cases(gen):
             for m in ("dispatch", "combine_bwd")]
     gsa += [gsa_case(gen, "dispatch", 300, 8, 2, 256, bf, bias=3.0, off=True,
                      inst="general")]
+    # the decode shape (serve_moe): 8 tokens, top-4 of 60
+    gsa += [gsa_case(gen, m, MOE_DECODE_T, E, k, D, bf, timed=True)
+            for m in ("dispatch", "combine")]
     return gsa
 
 
@@ -1406,7 +1416,8 @@ def phase_kernels():
              flash_case(gen, 2, 300, 8, 2, 64, bf, window=100),
              flash_case(gen, 1, 200, 4, 4, 64, bf, softcap=30.0),
              flash_case(gen, 2, 77, 4, 2, 32, f32, window=20, softcap=50.0),
-             flash_case(gen, 1, 130, 4, 1, 128, f32)]
+             flash_case(gen, 1, 130, 4, 1, 128, f32),
+             flash_case(gen, 1, 1024, 24, 2, 128, bf)]
     ctx = [int(c) for c in np.linspace(64, 1088, 8)]
     paged = [paged_case(gen, ctx, 1, 32, 4, 64, 16, bf, timed=True),
              paged_case(gen, ctx, 4, 32, 4, 64, 16, bf, timed=True),
@@ -1414,7 +1425,11 @@ def phase_kernels():
                         softcap=30.0),
              paged_case(gen, [1, 200], 1, 4, 4, 128, 16, f32),
              paged_case(gen, [LONG_CTX] * 8, 1, 32, 4, 64, 16, bf,
-                        timed=True)]
+                        timed=True),
+             # serve_moe's heads: the MoEs' 16 x 128 (group 1), and
+             # StarCoder2's 24 over 2 kv heads (12 query rows a kv head)
+             paged_case(gen, ctx, 1, 16, 16, 128, 16, bf),
+             paged_case(gen, ctx, 1, 24, 2, 128, 16, bf)]
     pq = quant_cases(gen)
     hd_flash, hd_paged, hd_quant = head_dim_cases(gen)
     flash += flash_bf16_cases(gen)
@@ -1438,11 +1453,14 @@ def phase_kernels():
 
 def check_logits(params, cfg, M, prompt):
     """Prefill last-token logits and one paged decode step's logits,
-    kernel path against plain path on the same weights and cache."""
+    kernel path against plain path on the same weights and cache; the
+    kernel path must launch flash and paged, the plain path nothing."""
     plain = cfg.replace(use_kernels=False)
     toks = torch.as_tensor(prompt, device="cuda")
-    lk, pc = M.prefill(params, cfg, {"tokens": toks})
-    lp, _ = M.prefill(params, plain, {"tokens": toks})
+    (lk, pc), n_k = _launched(lambda: M.prefill(params, cfg,
+                                                 {"tokens": toks}))
+    (lp, _), n_p = _launched(lambda: M.prefill(params, plain,
+                                               {"tokens": toks}))
     err_prefill = (lk - lp).abs().max().item()
 
     bl, P = 16, prompt.shape[1]
@@ -1457,10 +1475,15 @@ def check_logits(params, cfg, M, prompt):
     bt = torch.tensor([ids + [n_pb + 1]], dtype=torch.int32, device="cuda")
     tok = lk.argmax(-1).to(torch.int32)[:, None]
     pos = torch.tensor([P], dtype=torch.int32, device="cuda")
-    cache2 = {"blocks": {s: {k: v.clone() for k, v in e.items()}
-                         for s, e in cache["blocks"].items()}}
-    dk, _ = M.decode_step(params, cfg, cache, tok, pos, block_tables=bt)
-    dp, _ = M.decode_step(params, plain, cache2, tok, pos, block_tables=bt)
+    cache2 = M._map(torch.clone, cache)
+    (dk, _), m_k = _launched(lambda: M.decode_step(
+        params, cfg, cache, tok, pos, block_tables=bt))
+    (dp, _), m_p = _launched(lambda: M.decode_step(
+        params, plain, cache2, tok, pos, block_tables=bt))
+    if not (n_k["flash_attention"] and m_k["paged_attn"]) or any(
+            n_p.values()) or any(m_p.values()):
+        fail(f"logit check: kernel path launched {n_k} / {m_k}, plain path "
+             f"{n_p} / {m_p}")
     err_decode = (dk - dp).abs().max().item()
     scale = lp.abs().max().item()
     print(f"logits kernel vs plain: prefill max|d|={err_prefill:.4g} "
@@ -2171,6 +2194,409 @@ def phase_serve_ssm():
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: serve the paper's two global MoEs, and StarCoder2-3B
+# ---------------------------------------------------------------------------
+
+SERVE_MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
+MOE_DECODE_STEPS = 4        # (b): decode steps from one shared cache
+MOE_DEAD_SLOT = 3           # the freed slot of the dead-lane check
+STARCODER_REQUESTS = 4
+
+
+def _launched(fn):
+    """(fn's result, the kernel launches it made, by name)."""
+    n0 = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - n0[k] for k, v in _counts().items()}
+
+
+class _RouteTap:
+    """Wraps ``moe.route`` while in use (a ``with`` block): ``record``
+    collects each call's (x, w, idx), or idx alone with ``ids_only``;
+    ``replay`` (a list of another run's idx, in call order: forward,
+    then remat's recompute) makes the run take those expert choices,
+    with weights and load-balance loss from its own router
+    probabilities at them, and counts in ``replaced`` the tokens whose
+    choice it changed."""
+
+    def __init__(self, moe, *, ids_only=False, replay=None):
+        self.moe, self.own = moe, moe.route
+        self.ids_only, self.replay = ids_only, replay
+        self.record, self.replaced = [], []
+
+    def __call__(self, p, c, x, live=None):
+        w, idx, aux = self.own(p, c, x, live)
+        if self.replay is not None:
+            want = self.replay[len(self.replaced)]
+            self.replaced.append(int((torch.sort(idx, -1).values != torch.sort(
+                want, -1).values).any(-1).sum()))
+            probs = torch.softmax(x.float() @ p["router"], dim=-1)
+            w = probs.gather(-1, want)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            if live is not None:
+                w = torch.where(live[:, None], w, torch.zeros_like(w))
+            idx, aux = want, self.moe.load_balance_loss(c, probs, want)
+        self.record.append(idx if self.ids_only else (x, w, idx))
+        return w, idx, aux
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.own
+
+
+def _moe_layer_check(cfg, p, x, w, idx, label):
+    """(a): one MoE layer's routed FFN on the path's own inputs (x, w, idx
+    as the kernel run routed them), each stage of ``moe_ffn`` against its
+    plain version by the kernels phase's per-element rule: the dispatch
+    and the combine against ``gather_scatter_add_ref`` on the same
+    layouts (f32 sums rounded once, as ``gsa_case`` holds them), the
+    grouped FFN against ``grouped_ffn_ref`` on the kernel's buffer.
+    ``moe_ffn`` itself must equal the staged kernels bit for bit; its
+    distance to ``moe_ffn_capacity_ref`` (the same capacity from the
+    reference's plain pieces, whose scatter-adds round each product to
+    bf16) is reported."""
+    from repro_torch.kernels.moe_dispatch import ops as md
+    from repro_torch.kernels.moe_dispatch.ref import gather_scatter_add_ref
+    from repro_torch.kernels.moe_gemm import ops as mg
+    from repro_torch.kernels.moe_gemm import ref as mref
+    T, D = x.shape
+    k = idx.shape[1]
+    wg, wu, wo = p["wi_gate"], p["wi_up"], p["wo"]
+    E = wg.shape[0]
+    cap = max(-(-T * k // E) * 2, 8)
+    flat_e = idx.reshape(-1)
+    flat_tok = torch.arange(T * k, device=x.device) // k
+    pos, keep = md.capacity_positions(flat_e, cap)
+    slot = flat_e * cap + pos
+    lay = md.routing_layouts(flat_tok, slot, keep, E * cap, T, k=k)
+    by_slot, by_token = lay
+    tag = f"{label} T={T} E={E} k={k} cap={cap}"
+    buf = md.token_dispatch(x, flat_tok, slot, keep, E * cap, layouts=lay)
+    rows = [check_close(f"{tag} dispatch", buf, gather_scatter_add_ref(
+        x, by_token.ids, by_slot.ids, keep.float(), E * cap))]
+    xb = buf.reshape(E, cap, D)
+    y = mg.grouped_ffn_fwd(xb, wg, wu, wo, act=cfg.act).reshape(E * cap, D)
+    rows.append(check_close(f"{tag} grouped_ffn", y, mref.grouped_ffn_ref(
+        xb, wg, wu, wo, act=cfg.act).reshape(E * cap, D)))
+    wf = w.reshape(-1)
+    out = md.token_combine(y, flat_tok, slot, keep, wf, T, layouts=lay)
+    rows.append(check_close(f"{tag} combine", out, gather_scatter_add_ref(
+        y, by_slot.ids, by_token.ids, torch.where(keep, wf, 0.0), T)))
+    whole = mg.moe_ffn(x, w, idx, wg, wu, wo, act=cfg.act)
+    if not torch.equal(whole, out.to(x.dtype)):
+        fail(f"{tag}: moe_ffn differs from its own stages")
+    plain = mref.moe_ffn_capacity_ref(x, w, idx, wg, wu, wo, act=cfg.act)
+    return {"layer": label, "T": T, "cap": cap,
+            "dropped": int((~keep).sum()),
+            "stage_err_over_limit": [round(r["err_over_limit"], 4)
+                                     for r in rows],
+            "moe_ffn_vs_capacity_ref_max_abs": (
+                whole.float() - plain.float()).abs().max().item(),
+            "max_abs_out": plain.float().abs().max().item()}
+
+
+def _moe_decode_checks(M, moe, mg_ops, params, cfg, eng, n_moe):
+    """(b), the dead-lane check and (a) at the decode shape, from the
+    engine's cache with its 8 slots live: MOE_DECODE_STEPS greedy steps
+    on the kernel path and the same tokens on the plain path
+    (``use_kernels=False``, replaying the kernel run's expert choices:
+    a near-tied choice resolved the other way by rounding would change
+    which experts a token meets), each from its own copy of the cache;
+    logits of every step within LOGIT_TOL.  Then one decode step twice
+    with slot MOE_DEAD_SLOT freed (trash block, position 0, live False)
+    and different garbage in it (token, trash block contents): the live
+    rows' logits bit-identical, the dead row's routed output exactly 0
+    in every MoE layer."""
+    eng._pre_segment()   # claims the blocks of the coming writes
+    dev = "cuda"
+    bt = torch.as_tensor(eng.block_tables, device=dev)
+    tok0 = torch.as_tensor(eng.tok, device=dev)
+    pos0 = torch.as_tensor(eng.pos, device=dev)
+    plain = cfg.replace(use_kernels=False)
+    cache_k, cache_p = (M._map(torch.clone, eng.cache) for _ in "kp")
+
+    def steps(c, cache, feed=None):
+        tok, pos, out, fed = tok0.clone(), pos0.clone(), [], []
+        for s in range(MOE_DECODE_STEPS):
+            logits, _ = M.decode_step(params, c, cache, tok[:, None], pos,
+                                      block_tables=bt)
+            out.append(logits)
+            fed.append(tok)
+            tok = (feed[s + 1] if feed is not None and s + 1 < len(feed)
+                   else torch.argmax(logits, -1).to(torch.int32))
+            pos = pos + 1
+        return out, fed
+
+    with _RouteTap(moe) as tap_k:
+        (lk, fed), n_k = _launched(lambda: steps(cfg, cache_k))
+    with _RouteTap(moe, replay=[i for _, _, i in tap_k.record]) as tap_p:
+        (lp, _), n_p = _launched(lambda: steps(plain, cache_p, fed))
+    errs = [(a - b).abs().max().item() for a, b in zip(lk, lp)]
+    if not (n_k["paged_attn"] and n_k["grouped_ffn"]
+            and n_k["gather_scatter_add"]) or any(n_p.values()):
+        fail(f"decode check: kernel run launched {n_k}, plain run {n_p}")
+    if not all(math.isfinite(e) and e <= LOGIT_TOL for e in errs):
+        fail(f"decode logits, kernel vs plain path: {errs} > {LOGIT_TOL}")
+    del cache_p
+    decode_rows = [_moe_layer_check(cfg, M._layer(
+        params["blocks"]["sub0"]["moe"], g), *tap_k.record[g],
+        f"moe layer {g} decode") for g in (0, n_moe // 2, n_moe - 1)]
+
+    # the dead lane, twice with different garbage
+    d = MOE_DEAD_SLOT
+    live = torch.ones_like(tok0, dtype=torch.bool)
+    live[d] = False
+    bt_d, pos_d = bt.clone(), pos0.clone()
+    bt_d[d], pos_d[d] = 0, 0
+    routed, own_ffn = [], mg_ops.moe_ffn
+
+    def recording_ffn(*a, **kw):
+        out = own_ffn(*a, **kw)
+        routed.append(out)
+        return out
+    outs = []
+    mg_ops.moe_ffn = recording_ffn
+    try:
+        for garbage in (11, cfg.vocab_size - 7):
+            for leaf in (M._leaves(cache_k)):
+                leaf[:, 0].normal_()       # new garbage in the trash block
+            t = tok0.clone()
+            t[d] = garbage
+            lg, _ = M.decode_step(params, cfg, cache_k, t[:, None], pos_d,
+                                  block_tables=bt_d, live=live)
+            outs.append(lg)
+    finally:
+        mg_ops.moe_ffn = own_ffn
+    torch.cuda.synchronize()
+    if len(routed) != 2 * n_moe:
+        fail(f"dead lane: {len(routed)} routed outputs, expected {2 * n_moe}")
+    dead_nonzero = sum(int((r[d] != 0).sum()) for r in routed)
+    live_same = torch.equal(outs[0][live], outs[1][live])
+    dead_moved = not torch.equal(outs[0][d], outs[1][d])
+    if dead_nonzero or not live_same or not dead_moved:
+        fail(f"dead lane: {dead_nonzero} nonzero routed elements in the "
+             f"dead row, live rows bit-identical {live_same}, the garbage "
+             f"moved the dead row's logits {dead_moved}")
+    return {"decode_logit_err_per_step": errs,
+            "plain_choices_replaced_per_call": sum(tap_p.replaced),
+            "kernel_run_launches": n_k, "plain_run_launches": n_p,
+            "dead_lane": {"live_rows_bit_identical": live_same,
+                          "dead_routed_nonzero": dead_nonzero}}, decode_rows
+
+
+def _serve_moe_model(arch):
+    """One global MoE at full width and depth behind ``PagedServeEngine``
+    (8 slots, block_len 16, seg_len 8), bf16, random weights from seed 0
+    drawn on the card: the checks (a)-(c) and the dead lane, then the
+    serve phase's 16 requests with every launch counted, then a profile
+    of one decode segment."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve import PagedServeEngine
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config(arch, variant="full")
+    if not cfg.use_kernels:
+        fail(f"{arch}: the config does not route through the kernels")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    head = {"arch": arch, "n_params": sum(t.numel()
+                                          for t in tree_leaves(params)),
+            "init_s": time.perf_counter() - t0,
+            "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    lens, prompts = _serve_prompts(cfg)
+    max_new, n_slots, bl, seg_len = 64, 8, 16, 8
+
+    def make_engine():
+        eng = PagedServeEngine(params, cfg, n_slots=n_slots, block_len=bl,
+                               seg_len=seg_len, max_len=max(lens) + max_new,
+                               device="cuda")
+        for p in prompts:
+            eng.submit({"tokens": p}, max_new=max_new)
+        return eng
+
+    with torch.no_grad():
+        # (c) and (a) at the prefill shape: the longest prompt
+        toks = torch.as_tensor(prompts[-1], device="cuda")
+        with _RouteTap(moe) as tap:
+            (lk, _), n_k = _launched(lambda: M.prefill(params, cfg,
+                                                       {"tokens": toks}))
+        (lp, _), n_p = _launched(lambda: M.prefill(
+            params, cfg.replace(use_kernels=False), {"tokens": toks}))
+        if not (n_k["flash_attention"] and n_k["grouped_ffn"]) or any(
+                n_p.values()):
+            fail(f"{arch} prefill check: kernel run launched {n_k}, plain "
+                 f"run {n_p}")
+        prefill_rows = [_moe_layer_check(cfg, M._layer(
+            params["blocks"]["sub0"]["moe"], g), *tap.record[g],
+            f"moe layer {g} prefill") for g in (0, n_moe // 2, n_moe - 1)]
+        prefill_check = {
+            "logit_max_abs_diff_vs_dropless": (lk - lp).abs().max().item(),
+            "max_abs_logit": lp.abs().max().item(),
+            "argmax_equal": bool((lk.argmax(-1) == lp.argmax(-1)).all()),
+            "dropped_per_layer": [_dropped(i, cfg.n_experts)
+                                  for _, _, i in tap.record]}
+        if not math.isfinite(prefill_check["logit_max_abs_diff_vs_dropless"]):
+            fail(f"{arch}: non-finite prefill logits")
+        del tap, lk, lp
+
+        # (b), the dead lane and (a) at the decode shape; the engine then
+        # serves as the profile's warm engine
+        eng = make_engine()
+        eng.step()          # admits the first 8 requests, runs a segment
+        decode_check, decode_rows = _moe_decode_checks(
+            M, moe, mg_ops, params, cfg, eng, n_moe)
+        for r in prefill_rows + decode_rows:
+            print(f"serve_moe layer check ({arch}) " + json.dumps(r))
+        # one decode segment under the profiler (every slot live)
+        seg = profile(eng.step, top=8,
+                      groups={"paged_attn": ("paged_fwd",),
+                              "grouped_ffn": ("ffn_gate_up_tc",
+                                              "ffn_down_tc"),
+                              "gather_scatter_add": ("gsa_vec_kernel",
+                                                     "gsa_kernel")})
+        for g in ("paged_attn", "grouped_ffn", "gather_scatter_add"):
+            if not seg["group_ms"][g] > 0:
+                fail(f"{arch}: the decode profile shows no device time in {g}")
+        seg["launches_per_layer_step"] = seg["device_launches"] / (
+            cfg.n_layers * seg_len)
+        del eng
+
+        # the main path: 16 requests, counts from 0
+        eng = make_engine()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        with _RouteTap(moe, ids_only=True) as tap:
+            t0 = time.perf_counter()
+            comps = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _gsa_all_vec(md_ops, f"serve_moe {arch}")
+    st = eng.stats
+    if sorted(comps) != list(range(len(prompts))):
+        fail(f"{arch}: completed {sorted(comps)}")
+    for uid, c in comps.items():
+        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+            fail(f"{arch} request {uid}: {len(c.tokens)} tokens")
+        if (c.tokens < 0).any() or (c.tokens >= cfg.vocab_size).any():
+            fail(f"{arch} request {uid}: token ids out of range")
+    if eng.alloc.n_free != eng.n_blocks - 1 or eng._slot_blocks:
+        fail(f"{arch}: allocator did not drain")
+    steps = st["segments"] * seg_len
+    calls = st["prefills"] + steps
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": cfg.n_layers * st["prefills"],
+            "paged_attn": cfg.n_layers * steps,
+            "grouped_ffn": n_moe * calls,
+            "gather_scatter_add": 2 * n_moe * calls}
+    if launches != want or steps <= 0:
+        fail(f"{arch}: launches {launches} != expected {want}")
+    if len(tap.record) != n_moe * calls:
+        fail(f"{arch}: {len(tap.record)} routing calls, expected "
+             f"{n_moe * calls}")
+    # a decode step routes T = n_slots rows, a prefill its prompt's
+    drop_pre = sum(_dropped(i, cfg.n_experts) for i in tap.record
+                   if i.shape[0] != n_slots)
+    drop_dec = sum(_dropped(i, cfg.n_experts) for i in tap.record
+                   if i.shape[0] == n_slots)
+    ttft = sorted(c.ttft_s for c in comps.values())
+    res = {**head, "requests": len(comps),
+           "generated_tokens": st["generated_tokens"], "wall_s": wall,
+           "tok_per_s": st["generated_tokens"] / wall,
+           "decode_steps": steps,
+           "ms_per_decode_step": 1e3 * st["decode_s"] / steps,
+           "admit_s": st["admit_s"], "decode_s": st["decode_s"],
+           "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+           "prefills": st["prefills"], "preemptions": st["preemptions"],
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "dropped_per_prefill": drop_pre / st["prefills"],
+           "dropped_per_decode_step": drop_dec / steps,
+           "prefill_check": prefill_check, "decode_check": decode_check}
+    print(f"serve_moe ({CARD}) " + json.dumps(res))
+    print(f"serve_moe profile ({arch}, decode segment of {seg_len} steps) "
+          + json.dumps(seg))
+    del params, eng, comps, tap
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_starcoder():
+    """Full-width StarCoder2-3B (30 layers, 24 query heads over 2 kv heads:
+    12 query rows a kv head; bf16, random weights from seed 0): the logit
+    check of the serve phase (prefill and one paged decode step, kernel
+    path against plain path), then STARCODER_REQUESTS requests (prompts
+    128-1024 tokens, 64 new, 4 slots) with the launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine
+    cfg = get_config("starcoder2-3b", variant="full")
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    lens, prompts = _serve_prompts(cfg)
+    pick = [0, 5, 10, 15][:STARCODER_REQUESTS]
+    max_new, bl, seg_len = 64, 16, 8
+    with torch.no_grad():
+        errs = check_logits(params, cfg, M, prompts[-1])
+        eng = PagedServeEngine(params, cfg, n_slots=STARCODER_REQUESTS,
+                               block_len=bl, seg_len=seg_len,
+                               max_len=max(lens) + max_new, device="cuda")
+        for i in pick:
+            eng.submit({"tokens": prompts[i]}, max_new=max_new)
+        _zero_counts()
+        t0 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    st = eng.stats
+    steps = st["segments"] * seg_len
+    if sorted(comps) != list(range(len(pick))) or any(
+            len(c.tokens) != max_new for c in comps.values()):
+        fail(f"starcoder2-3b: completions {comps}")
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": cfg.n_layers * st["prefills"],
+            "paged_attn": cfg.n_layers * steps}
+    if launches != want or steps <= 0:
+        fail(f"starcoder2-3b: launches {launches} != expected {want}")
+    res = {"arch": cfg.name, "requests": len(comps),
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+           "tok_per_s": st["generated_tokens"] / wall,
+           "ms_per_decode_step": 1e3 * st["decode_s"] / steps,
+           "launches": launches, "logit_err_prefill": errs[0],
+           "logit_err_decode": errs[1]}
+    print(f"serve_moe starcoder2 ({CARD}) " + json.dumps(res))
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moe():
+    """The paper's two global MoEs served at full width and depth
+    (Qwen1.5-MoE-A2.7B, then DeepSeek-MoE-16B with its leading dense
+    layer), one after the other, then StarCoder2-3B.  Returns the main
+    paths' launches, summed."""
+    launches = {}
+    for run in [lambda a=a: _serve_moe_model(a) for a in SERVE_MOE_ARCHS] + [
+            _serve_starcoder]:
+        for k, v in run().items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: train full-width TinyLlama-1.1B
 # ---------------------------------------------------------------------------
 
@@ -2471,7 +2897,10 @@ def _counts():
     from repro_torch.kernels.kd_loss import ops as kd_ops
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.kernels.paged_attn import ops as pa_ops
     return {"flash_attention": fa_ops.LAUNCHES,
+            "paged_attn": pa_ops.LAUNCHES,
+            "paged_attn_quant": pa_ops.LAUNCHES_QUANT,
             "kd_loss": kd_ops.LAUNCHES_BY_MODE["ce"],
             "kd_loss_kd": kd_ops.LAUNCHES_BY_MODE["kd"],
             "grouped_ffn": mg_ops.LAUNCHES["grouped_ffn"],
@@ -2481,12 +2910,14 @@ def _counts():
 
 
 def _zero_counts():
-    """Every count of the kernels a federation runs set to 0."""
+    """Every count of ``_counts()`` set to 0."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kd_loss import ops as kd_ops
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.kernels.paged_attn import ops as pa_ops
     fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
+    pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = 0
     for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE,
               mg_ops.LAUNCHES, mg_ops.LAUNCHES_BY_INSTANCE,
               md_ops.LAUNCHES_BY_INSTANCE):
@@ -2605,48 +3036,29 @@ def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol):
     for t in leaves.values():
         t.requires_grad_(True)
 
-    choices, replaced = [], []
-    own_route = moe.route
-
-    def recording_route(p, c, x):
-        w, idx, aux = own_route(p, c, x)
-        choices.append(idx)
-        return w, idx, aux
-
-    def replaying_route(p, c, x):
-        # the kernel run's choices, in call order (forward, then remat's
-        # recompute); weights and load-balance loss from this run's own
-        # router probabilities at those choices
-        _, idx, _ = own_route(p, c, x)
-        want = choices[len(replaced)]
-        replaced.append(int((torch.sort(idx, -1).values != torch.sort(
-            want, -1).values).any(-1).sum()))
-        probs = torch.softmax(x.float() @ p["router"], dim=-1)
-        w = probs.gather(-1, want)
-        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-        return w, want, moe.load_balance_loss(c, probs, want)
-
-    def run(use_kernels, plain_moe, route):
+    def run(use_kernels, plain_moe, tap):
         kernel_moe_ffn = mg_ops.moe_ffn
         n0 = md_ops.LAUNCHES + sum(mg_ops.LAUNCHES.values())
         if plain_moe:
             mg_ops.moe_ffn = mg_ref.moe_ffn_capacity_ref
-        moe.route = route
         try:
-            loss, _ = M.loss_fn(params, cfg.replace(use_kernels=use_kernels),
-                                batch)
-            gs = torch.autograd.grad(loss, list(leaves.values()))
+            with tap:
+                loss, _ = M.loss_fn(
+                    params, cfg.replace(use_kernels=use_kernels), batch)
+                gs = torch.autograd.grad(loss, list(leaves.values()))
         finally:
             mg_ops.moe_ffn = kernel_moe_ffn
-            moe.route = own_route
         moe_launches = md_ops.LAUNCHES + sum(mg_ops.LAUNCHES.values()) - n0
         grads = {k: (gr if k == "lm_head" else gr[g]).float()
                  for k, gr in zip(leaves, gs)}
         return loss.item(), grads, moe_launches
 
-    lk, gk, nk = run(True, False, recording_route)
-    lc, gc, nc = run(True, True, replaying_route)
-    lp, gp, _ = run(False, False, own_route)
+    rec = _RouteTap(moe, ids_only=True)
+    lk, gk, nk = run(True, False, rec)
+    rpl = _RouteTap(moe, ids_only=True, replay=rec.record)
+    lc, gc, nc = run(True, True, rpl)
+    lp, gp, _ = run(False, False, _RouteTap(moe, ids_only=True))
+    choices, replaced = rec.record, rpl.replaced
     if len(replaced) != len(choices):
         fail(f"tune check: {len(choices)} routing calls in the kernel run, "
              f"{len(replaced)} replayed")
@@ -2724,19 +3136,14 @@ def phase_tune():
     setup_s = time.perf_counter() - t0
     corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
                                    vocab=cfg.vocab_size)
-    marks, choices, step_choices = [], [], []
-    own_route = moe.route
-
-    def recording_route(p, c, x):
-        w, idx, aux = own_route(p, c, x)
-        choices.append(idx)
-        return w, idx, aux
+    marks, step_choices = [], []
+    tap = _RouteTap(moe, ids_only=True)
 
     def on_step(s, loss):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        step_choices.append(choices[:])
-        choices.clear()
+        step_choices.append(tap.record[:])
+        tap.record.clear()
 
     srv = S.DeepFusionServer(scfg, corpus, [], device="cuda",
                              on_step=on_step)
@@ -2744,12 +3151,9 @@ def phase_tune():
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     _zero_counts()
-    moe.route = recording_route
     t0 = time.perf_counter()
-    try:
+    with tap:
         params, losses = srv.merge_and_tune(bases)
-    finally:
-        moe.route = own_route
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3471,8 +3875,8 @@ def phase_pipeline():
 
     choices, own_route = [], moe.route
 
-    def recording_route(p, c, x):
-        w, idx, aux = own_route(p, c, x)
+    def recording_route(p, c, x, live=None):
+        w, idx, aux = own_route(p, c, x, live)
         choices.append((torch.is_grad_enabled(), idx))
         return w, idx, aux
 
@@ -3760,26 +4164,19 @@ def phase_methods():
         fam_k, moe_k, sim_k, scfg_k = _methods_configs(use_kernels)
         sim_k = dataclasses.replace(sim_k, **cut)
         scfg_k = dataclasses.replace(scfg_k, **srv_cut)
-        choices, own_route = [], moe.route
-
-        def recording_route(p, c, x):
-            w, idx, aux = own_route(p, c, x)
-            choices.append(idx)
-            return w, idx, aux
-
         stages = _Stages()
         stages.wrap(S.DeepFusionServer, "merge_and_tune", lambda a, k: "tune")
         stages.wrap(SIM, "evaluate_model", lambda a, k: "eval")
-        moe.route = recording_route
         torch.cuda.synchronize()
         _zero_counts()
         try:
-            params_k, rep = SIM.run_deepfusion(sim_k, scfg_k, fam_k, **quiet)
+            with _RouteTap(moe, ids_only=True) as tap:
+                params_k, rep = SIM.run_deepfusion(sim_k, scfg_k, fam_k,
+                                                   **quiet)
         finally:
-            moe.route = own_route
             stages.restore()
         torch.cuda.synchronize()
-        drops = sum(_dropped(i, moe_k.n_experts) for i in choices)
+        drops = sum(_dropped(i, moe_k.n_experts) for i in tap.record)
         paths[use_kernels] = dict(
             rep=rep, drops=drops, fam=fam_k, sim=sim_k, scfg=scfg_k,
             params=params_k, moe=moe_k, counts=_counts(),
@@ -4267,7 +4664,8 @@ KERNELS = {
 }
 
 # the path phases, in the order they run
-PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_train,
+PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
+         phase_train,
          phase_tune, phase_distill, phase_pipeline, phase_methods,
          phase_fleet)
 

@@ -10,14 +10,18 @@ from typing import Dict, List
 
 from repro_torch.configs.device_models import (BLOOM_1_1B, GPT2,
                                                GPT2_MEDIUM, OLMO_1_2B)
+from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK_MOE_16B
 from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
+from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 from repro_torch.models.config import ModelConfig, reduced
 
 PORTED: Dict[str, ModelConfig] = {
     "tinyllama-1.1b": TINYLLAMA_1_1B,
     "qwen2-moe-a2.7b": QWEN2_MOE_A2_7B,
+    "deepseek-moe-16b": DEEPSEEK_MOE_16B,
+    "starcoder2-3b": STARCODER2_3B,
     "mamba2-1.3b": MAMBA2_1_3B,
     # the paper's on-device families (configs/device_models.py)
     "gpt2": GPT2,

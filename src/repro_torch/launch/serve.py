@@ -13,6 +13,15 @@ features run; the reference's other flags are accepted and refused with
       --variant full --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --variant full --paged --kv-dtype int8 --check-unquantized
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --variant reduced --device cpu --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --variant full --paged
+
+``--arch`` takes every ported architecture (``configs/registry.py``):
+the dense ``tinyllama-1.1b`` and ``starcoder2-3b``, the MoEs
+``qwen2-moe-a2.7b`` and ``deepseek-moe-16b`` (its leading dense layer
+included), ``mamba2-1.3b``, and the on-device families.
 """
 from __future__ import annotations
 

@@ -58,7 +58,8 @@ def dense_init(generator, shape: Tuple[int, ...], in_axis: int = 0,
     t = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
                     device=dev)
     torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
-    return (t * std).to(dtype)
+    # scaled in place: the f32 draw is the init's largest transient
+    return t.mul_(std).to(dtype)
 
 
 def embed_init(generator, shape, dtype=torch.float32):

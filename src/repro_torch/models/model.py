@@ -12,9 +12,13 @@ the backward when ``cfg.remat``, as the reference's ``jax.checkpoint``.
 
 MoE sub-layers (``arch_type="moe"``) hold ``moe`` in place of ``mlp``
 (``models/moe.py``) and add their load-balance loss to the training
-loss.  The MoE family trains and runs prefill; its decode (which takes
-the reference's serving ``live`` mask) is not ported yet and raises, as
-do DeepSeek's leading dense layers (``first_dense_layers``) and MTP.
+loss.  The MoE family trains, prefills and decodes; decode takes the
+reference's serving ``live`` mask (B,), which zeroes dead slots'
+routing weights.  DeepSeek's leading dense layers
+(``first_dense_layers``) are a second stack, ``dense_blocks/sub0/...``
+of shape (first_dense_layers, ...), with a dense MLP of width ``d_ff``;
+they run before ``blocks`` in every forward and decode, and carry their
+own cache entry.  MTP and MLA are not ported yet and raise.
 
 The ssm family (``arch_type="ssm"``, Mamba2) stacks ``{"ln", "mixer"}``
 over its ``n_layers`` (``models/ssm.py``) and serves: prefill through
@@ -71,39 +75,31 @@ def _layer(tree, g: int):
 
 
 def _n_groups(cfg: ModelConfig) -> int:
-    return cfg.n_layers // cfg.layers_per_scan
+    """Groups of ``blocks``: the layers after the leading dense ones."""
+    return (cfg.n_layers - cfg.first_dense_layers) // cfg.layers_per_scan
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     attn_ok = (cfg.arch_type in ("dense", "moe") and cfg.attn_type == "gqa"
                or cfg.arch_type == "ssm")
-    if not attn_ok or cfg.n_mtp or cfg.first_dense_layers:
+    if not attn_ok or cfg.n_mtp:
         raise NotImplementedError(
             f"{cfg.name} is not ported yet: only the dense and MoE GQA "
-            "families without leading dense layers or MTP, and the ssm "
-            "family, are")
-
-
-def _check_decode(cfg: ModelConfig) -> None:
-    _check_ported(cfg)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE decode (with the serving live mask) is not "
-            "ported yet")
+            "families without MTP, and the ssm family, are")
 
 
 # ---------------------------------------------------------------------------
 # transformer block
 # ---------------------------------------------------------------------------
 
-def _init_block(generator, cfg: ModelConfig, dtype, lead):
+def _init_block(generator, cfg: ModelConfig, dtype, lead, *, use_moe: bool):
     dev = layers._source(generator)[1]
     p: Dict[str, Any] = {
         "ln1": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
         "ln2": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
         "attn": layers.init_attention(generator, cfg, dtype, lead),
     }
-    if cfg.is_moe:
+    if use_moe:
         p["moe"] = moe.init_moe(generator, cfg, dtype, lead)
     else:
         p["mlp"] = layers.init_mlp(generator, cfg, cfg.d_model, cfg.d_ff,
@@ -137,13 +133,12 @@ def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
 
 
 def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
-                  block_tables=None, write_tables=None):
+                  block_tables=None, write_tables=None, live=None):
     """Decode / chunk sub-layer.  x: (B, C, D), pos: (B, C) — C=1 is the
     single-token decode step.  ``cache`` is the layer's ``{"k", "v"}``
     (contiguous rows, or block pools when ``block_tables`` is given),
-    updated in place.  Dense sub-layers only: MoE decode is not ported."""
-    if "moe" in p:
-        raise NotImplementedError("MoE decode is not ported yet")
+    updated in place.  ``live`` (B, C) bool masks dead serving rows out
+    of MoE routing weights."""
     window = _window_for(cfg, kind)
     h = layers.apply_norm(p["ln1"], x)
     attn_out, cache = layers.attention_decode(
@@ -153,7 +148,10 @@ def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
         attn_out = layers.apply_norm(p["ln1_post"], attn_out)
     x = x + attn_out
     h = layers.apply_norm(p["ln2"], x)
-    ffn_out = layers.apply_mlp(p["mlp"], cfg, h)
+    if "moe" in p:
+        ffn_out, _ = moe.apply_moe(p["moe"], cfg, h, live=live)
+    else:
+        ffn_out = layers.apply_mlp(p["mlp"], cfg, h)
     if cfg.post_block_norm:
         ffn_out = layers.apply_norm(p["ln2_post"], ffn_out)
     return x + ffn_out, cache
@@ -232,14 +230,14 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
 
 
 def _decode_stack(blocks, cfg: ModelConfig, x, pos, cache, *, pattern,
-                  block_tables=None, write_tables=None):
+                  block_tables=None, write_tables=None, live=None):
     n = next(iter(blocks["sub0"]["ln1"].values())).shape[0]
     for g in range(n):
         gp, gc = _layer(blocks, g), _layer(cache, g)
         for i, kind in enumerate(pattern):
             x, _ = _block_decode(gp[f"sub{i}"], cfg, x, pos, gc[f"sub{i}"],
                                  kind=kind, block_tables=block_tables,
-                                 write_tables=write_tables)
+                                 write_tables=write_tables, live=live)
     return x, cache
 
 
@@ -273,7 +271,13 @@ def init_params(cfg: ModelConfig, *, generator):
                                    (cfg.n_layers,)),
             "mixer": ssm.init_ssm(generator, cfg, dtype, (cfg.n_layers,))}
         return p
-    p["blocks"] = {f"sub{i}": _init_block(generator, cfg, dtype, lead)
+    if cfg.first_dense_layers:
+        # DeepSeek's leading layers: a dense MLP of width d_ff, one
+        # sub-layer a group
+        p["dense_blocks"] = {"sub0": _init_block(
+            generator, cfg, dtype, (cfg.first_dense_layers,), use_moe=False)}
+    p["blocks"] = {f"sub{i}": _init_block(generator, cfg, dtype, lead,
+                                          use_moe=cfg.is_moe)
                    for i in range(cfg.layers_per_scan)}
     return p
 
@@ -336,16 +340,27 @@ def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
+    caches: Dict[str, Any] = {}
     if cfg.arch_type == "ssm":
         x, aux, c, stages = _ssm_backbone(params, cfg, x, collect_cache,
                                           collect_stages)
     else:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        x, aux, c, stages = _run_stack(params["blocks"], cfg, x, positions,
-                                       pattern=cfg.attn_pattern, causal=True,
-                                       collect_cache=collect_cache,
-                                       collect_stages=collect_stages)
-    caches = {"blocks": c} if collect_cache else {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if "dense_blocks" in params:
+            x, aux, dc, _ = _run_stack(params["dense_blocks"], cfg, x,
+                                       positions, pattern=("full",),
+                                       causal=True,
+                                       collect_cache=collect_cache)
+            if collect_cache:
+                caches["dense_blocks"] = dc
+        x, a, c, stages = _run_stack(params["blocks"], cfg, x, positions,
+                                     pattern=cfg.attn_pattern, causal=True,
+                                     collect_cache=collect_cache,
+                                     collect_stages=collect_stages)
+        aux = aux + a
+    if collect_cache:
+        caches["blocks"] = c
     return layers.apply_norm(params["final_norm"], x), aux, caches, stages
 
 
@@ -453,12 +468,14 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
                       policy=None):
     """Zeroed contiguous cache for ``decode_step`` (capacity S): per
     sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh) (with
-    ``k_scale``/``v_scale`` under a quantized ``policy``); for the ssm
+    ``k_scale``/``v_scale`` under a quantized ``policy``), and a
+    ``dense_blocks`` entry of the same form stacked over the leading
+    dense layers; for the ssm
     family the recurrent ``state`` (n_layers, B, H, P, N) in f32 and the
     ``conv`` tail (n_layers, B, K-1, conv_dim), which have no sequence
     axis and ignore the policy: they are read whole every step, so
     quantizing them buys little and costs accuracy."""
-    _check_decode(cfg)
+    _check_ported(cfg)
     if cfg.arch_type == "ssm":
         L = cfg.n_layers
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
@@ -468,10 +485,15 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
                                  device=device),
             "conv": torch.zeros((L, B, cfg.ssm_conv - 1, conv_dim),
                                 dtype=_dtype(cfg), device=device)}}
-    return {"blocks": {
+    c = {"blocks": {
         f"sub{i}": _attn_cache_struct(cfg, (_n_groups(cfg),), B, S,
                                       device=device, policy=policy)
         for i in range(cfg.layers_per_scan)}}
+    if cfg.first_dense_layers:
+        c["dense_blocks"] = {"sub0": _attn_cache_struct(
+            cfg, (cfg.first_dense_layers,), B, S, device=device,
+            policy=policy)}
+    return c
 
 
 def decode_offset(cfg: ModelConfig) -> int:
@@ -526,11 +548,11 @@ def _map(fn, *trees):
 
 def prefill_into_cache(cfg: ModelConfig, decode_cache, prefill_cache):
     """Graft a ``prefill`` cache into a ``decode_step`` cache along the
-    sequence axis of each stacked KV entry (dense family); the ssm
-    family's state and conv tail are position-free and adopted whole."""
-    _check_decode(cfg)
-    return {"blocks": _map(graft_cache_entry, decode_cache["blocks"],
-                           prefill_cache["blocks"])}
+    sequence axis of each stacked KV entry (``blocks`` and, with leading
+    dense layers, ``dense_blocks``); the ssm family's state and conv
+    tail are position-free and adopted whole."""
+    _check_ported(cfg)
+    return _map(graft_cache_entry, decode_cache, prefill_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -644,7 +666,7 @@ def scatter_prefill_paged(cfg: ModelConfig, paged_cache, sub, slot: int,
     ``sub`` is always the full-precision graft: under a quantized policy
     its KV leaves are quantized here, once, so a block's bytes are a pure
     function of its tokens, which prefix sharing relies on."""
-    _check_decode(cfg)
+    _check_ported(cfg)
     pol = quant.policy_of(paged_cache)
     sub = match_cache_policy(paged_cache, sub)
     ids = torch.as_tensor(ids, dtype=torch.long)
@@ -700,13 +722,15 @@ def _ssm_step(bp, cfg: ModelConfig, x, bc, C: int):
 
 
 def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
-                  block_tables=None, write_tables=None):
+                  block_tables=None, write_tables=None, live=None):
     """Shared decode body: pre-embedded inputs x (B, C, D) at positions
     pos (B, C) int32, written into (and attended against) the cache in
-    place.  Returns (final-normed hidden (B, C, D), cache).  The ssm
-    family steps every row's recurrent state and ignores positions and
-    tables (its leaves are slot-resident)."""
-    _check_decode(cfg)
+    place.  Returns (final-normed hidden (B, C, D), cache).  ``live``
+    (B, C) bool masks dead rows out of MoE routing; leading dense layers
+    decode before ``blocks``.  The ssm family steps every row's
+    recurrent state and ignores positions and tables (its leaves are
+    slot-resident)."""
+    _check_ported(cfg)
     if cfg.arch_type == "ssm":
         for g in range(cfg.n_layers):
             bc = _layer(cache["blocks"], g)
@@ -716,25 +740,33 @@ def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
             for k in bc:
                 bc[k].copy_(nc[k])
         return layers.apply_norm(params["final_norm"], x), cache
+    if "dense_blocks" in params:
+        x, cache["dense_blocks"] = _decode_stack(
+            params["dense_blocks"], cfg, x, pos, cache["dense_blocks"],
+            pattern=("full",), block_tables=block_tables,
+            write_tables=write_tables, live=live)
     x, cache["blocks"] = _decode_stack(
         params["blocks"], cfg, x, pos, cache["blocks"],
         pattern=cfg.attn_pattern, block_tables=block_tables,
-        write_tables=write_tables)
+        write_tables=write_tables, live=live)
     return layers.apply_norm(params["final_norm"], x), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
-                block_tables=None):
+                block_tables=None, live=None):
     """One serving step: tokens (B, 1) at positions pos (B,).
 
     With ``block_tables`` (B, nbt) int32 the cache is the paged layout of
-    ``init_paged_cache``, read and written through the tables.  The cache
-    is updated in place.  Returns (logits (B, V) f32, cache).
+    ``init_paged_cache``, read and written through the tables.  ``live``
+    (B,) bool marks rows holding real requests: freed slots are masked
+    out of MoE routing (None: every row live).  The cache is updated in
+    place.  Returns (logits (B, V) f32, cache).
     """
     x = _embed(params, cfg, tokens)
     h, cache = _chunk_hidden(params, cfg, cache, x,
                              pos.to(torch.int32)[:, None],
-                             block_tables=block_tables)
+                             block_tables=block_tables,
+                             live=None if live is None else live[:, None])
     return _head(params, cfg, h)[:, 0], cache
 
 
@@ -779,7 +811,7 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
     for _ in range(steps):
         live = ~done
         logits, cache = decode_step(params, cfg, cache, tok[:, None], pos,
-                                    block_tables=block_tables)
+                                    block_tables=block_tables, live=live)
         sampled = sampler(logits).to(torch.int32)
         rem = rem - live.to(torch.int32)
         done = done | (live & ((sampled == eos) | (rem <= 0)))

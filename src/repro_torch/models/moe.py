@@ -16,9 +16,15 @@ F · n_shared under ``shared``.
 * otherwise the dropless all-experts einsum of the reference's
   ``use_pallas=False`` path.
 
+The serving ``live`` mask (B, S) zeroes dead rows' routing weights,
+so a freed slot's garbage lane combines with weight 0 (its routed
+output is exactly 0).  As in the reference's one-device path, dead rows
+still take capacity ranks in ``moe_ffn``: with at most 8 decode slots
+the capacity (at least 8) holds every assignment, so nothing can drop.
+
 Not ported yet, and refused with ``NotImplementedError``: the
 expert-parallel paths (``moe_impl`` "a2a" and "replicated_ep", and any
-mesh) and the serving ``live`` mask.
+mesh).
 """
 from __future__ import annotations
 
@@ -49,16 +55,21 @@ def init_moe(generator, cfg: ModelConfig, dtype, lead=()):
     return p
 
 
-def route(p, cfg: ModelConfig, x):
+def route(p, cfg: ModelConfig, x, live=None):
     """Returns (weights (T, k) f32, expert ids (T, k), aux loss scalar).
 
     x: (T, D) flat tokens.  Softmax, then top-k, then renormalise, with
     the load-balance auxiliary loss E · Σ_e f_e · p_e (GShard / Switch).
+    ``live`` (T,) bool zeroes dead rows' weights after the
+    renormalisation (the aux loss still sees every row, as in the
+    reference).
     """
     logits = x.float() @ p["router"]                      # (T, E)
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, cfg.top_k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    if live is not None:
+        w = torch.where(live[:, None], w, torch.zeros_like(w))
     return w, idx, load_balance_loss(cfg, probs, idx)
 
 
@@ -72,13 +83,15 @@ def load_balance_loss(cfg: ModelConfig, probs, idx):
     return E * torch.sum(me * fe) * cfg.router_aux_coef
 
 
-def moe_dense(p, cfg: ModelConfig, x):
+def moe_dense(p, cfg: ModelConfig, x, live=None):
     """x: (B, S, D) -> (out (B, S, D), aux).  Routed experts through
     ``moe_ffn`` (``cfg.use_kernels``) or every expert on every token,
-    plus the shared experts."""
+    plus the shared experts.  ``live`` (B, S) bool zeroes dead rows'
+    routing weights."""
     B, S, D = x.shape
     xt = x.reshape(-1, D)
-    w, idx, aux = route(p, cfg, xt)
+    w, idx, aux = route(p, cfg, xt,
+                        None if live is None else live.reshape(-1))
     if cfg.use_kernels:
         out = moe_ops.moe_ffn(xt, w, idx, p["wi_gate"], p["wi_up"], p["wo"],
                               act=cfg.act)
@@ -96,11 +109,10 @@ def moe_dense(p, cfg: ModelConfig, x):
 
 
 def apply_moe(p, cfg: ModelConfig, x, mesh=None, live=None):
-    """The MoE path of one sub-layer: ``moe_dense`` on one device."""
+    """The MoE path of one sub-layer: ``moe_dense`` on one device.
+    ``live`` (B, S) bool is the serving mask (None: every row live)."""
     if cfg.moe_impl in ("a2a", "replicated_ep") or mesh is not None:
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r} (expert parallelism over a mesh) is "
             "not ported yet")
-    if live is not None:
-        raise NotImplementedError("the serving live mask is not ported yet")
-    return moe_dense(p, cfg, x)
+    return moe_dense(p, cfg, x, live)

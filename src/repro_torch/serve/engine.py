@@ -32,10 +32,15 @@ at full precision and quantizes it once; prefix keys carry the policy,
 so a quantized pool never shares blocks written under another dtype.
 The ssm family's recurrent state ignores the policy.
 
+MoE configurations serve as in the reference with ``mesh=None``: the
+engine sets ``moe_dropless`` (which only the expert-parallel paths
+read), and every decode step passes ``live = ~done``, so a finished
+slot's garbage lane combines with routing weight 0.  Leading dense
+layers (``dense_blocks``) are pooled like ``blocks``.
+
 Not ported yet, and refused with ``NotImplementedError``: bucketed
 chunked admission (``chunk_len``/``buckets``), speculative decode,
-sharded serving (``mesh``), MoE configurations (their decode takes the
-reference's ``live`` mask) and the families not ported yet.  The
+sharded serving (``mesh``) and the families not ported yet.  The
 reference's compiled-executable cache has no counterpart: nothing here
 is compiled.
 """
@@ -121,11 +126,11 @@ class ServeEngine:
                                    ("mesh", mesh, None)]:
             if val != default:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE serving (decode with the live mask) is not "
-                "ported yet")
         cfg.validate()
+        if cfg.is_moe and not cfg.moe_dropless:
+            # as the reference engine: serving sizes expert-parallel
+            # buffers to the worst case (one device reads no such buffer)
+            cfg = cfg.replace(moe_dropless=True)
         self.device = resolve_device(device)
         leaf_dev = _first_leaf(params).device
         if leaf_dev.type != self.device.type:

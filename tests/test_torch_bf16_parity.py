@@ -33,7 +33,19 @@ the reference its plain path.
    0.335, 0.370, 0.348 (summation orders differ); D * x rounded to bf16
    before it is added reads 0.593, 0.560, 0.553, 0.551.  ``BLOCK_LIMIT``
    is 0.45, about midway.
+3. One TinyLlama block (attention and gated MLP), the same way: with
+   the reference's silu rounding once, the port's bf16 block output
+   lies within ``DENSE_BLOCK_LIMIT`` of the reference's, in units of the
+   reference's own bf16-vs-f32 distance.  Readings (seeds 1, 2; layers
+   0, 1): 0.030, 0.024, 0.108, 0.085 (the port's flash plain version;
+   0.035-0.106 through its chunked attention).  One extra bf16 rounding
+   breaks it: RoPE without its f32 upcast (in the attention) reads
+   0.720-0.736, the MLP's down projection summed as two bf16-rounded
+   halves 0.413-0.426.  ``DENSE_BLOCK_LIMIT`` is 0.25, about midway
+   between the worst reading and the mildest fault.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +63,7 @@ from repro_torch.models import ssm
 
 FACTOR = {"tinyllama-1.1b": 1.05, "mamba2-1.3b": 0.99}
 BLOCK_LIMIT = 0.45
+DENSE_BLOCK_LIMIT = 0.25
 KEEP_F32 = ("A_log", "D", "dt_bias")   # f32 leaves of a bf16 model
 ARCHS = ["tinyllama-1.1b", "mamba2-1.3b"]
 SEEDS = [1, 2]
@@ -227,3 +240,110 @@ def test_d_term_in_bf16_breaks_the_block_check(blocks, monkeypatch, seed,
     monkeypatch.setattr(ssm, "skip", skip_in_bf16)
     d = _block_distance(blocks, seed, layer)
     assert d > BLOCK_LIMIT, f"only {d:.3f} of the reference's bf16 drift"
+
+
+# ---------------------------------------------------------------------------
+# one TinyLlama block (attention + gated MLP), the reference's silu once
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dense_blocks():
+    """(seed, layer) -> the reference's f32 and bf16 outputs of one
+    TinyLlama sub-layer (its silu rounding once), the port's f32 output,
+    its bf16 sub-layer weights, its bf16 config, the bf16 input and the
+    positions."""
+    out = {}
+    silu = jax.nn.silu
+
+    def silu_once(x):
+        return silu(x.astype(jnp.float32)).astype(x.dtype)
+
+    def make(seed, layer):
+        cfg_j = jax_config("tinyllama-1.1b", variant="reduced").replace(
+            dtype="float32", use_pallas=False)
+        cfg = get_config("tinyllama-1.1b", variant="reduced").replace(
+            dtype="float32")
+        tree, btree = _trees(cfg_j, seed)
+        cfg_bf = cfg.replace(dtype="bfloat16")
+
+        def sub(t):
+            return jax.tree.map(lambda a: a[layer], t["blocks"]["sub0"])
+        x = np.random.default_rng(seed + 10).standard_normal(
+            (4, 128, cfg.d_model)).astype(np.float32)
+        xb = jnp.asarray(x).astype(jnp.bfloat16)
+        pos = np.broadcast_to(np.arange(128, dtype=np.int32)[None], (4, 128))
+        jax.nn.silu = silu_once
+        try:
+            ref = [np.asarray(JM._block_full(
+                jax.tree.map(jnp.asarray, sub(t)), c, xi, jnp.asarray(pos),
+                kind="full", mesh=None, causal=True)[0], np.float32)
+                for t, c, xi in ((tree, cfg_j, jnp.asarray(x)),
+                                 (btree, cfg_j.replace(dtype="bfloat16"),
+                                  xb))]
+        finally:
+            jax.nn.silu = silu
+        post = torch.from_numpy(pos.copy())
+        f32 = M._block_full(M._layer(convert.params_from_jax(
+            tree, cfg)["blocks"]["sub0"], layer), cfg, torch.from_numpy(x),
+            post, kind="full")[0].numpy()
+        return (*ref, f32, M._layer(convert.params_from_jax(
+            btree, cfg_bf)["blocks"]["sub0"], layer), cfg_bf,
+            torch.from_numpy(np.asarray(xb, np.float32)).bfloat16(), post)
+
+    def get(seed, layer):
+        if (seed, layer) not in out:
+            out[seed, layer] = make(seed, layer)
+        return out[seed, layer]
+    return get
+
+
+def _dense_block_distance(dense_blocks, seed, layer):
+    """As ``_block_distance``, for one TinyLlama sub-layer."""
+    ref_f32, ref_bf, f32, p_bf, cfg_bf, xb, pos = dense_blocks(seed, layer)
+    np.testing.assert_allclose(f32, ref_f32, atol=1e-4, rtol=1e-4)
+    got = M._block_full(p_bf, cfg_bf, xb, pos, kind="full")[0]
+    return _rel_rms(got.float().numpy(), ref_bf) / _rel_rms(ref_bf, ref_f32)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_tinyllama_block_rounds_where_the_reference_does(dense_blocks, seed,
+                                                         layer):
+    d = _dense_block_distance(dense_blocks, seed, layer)
+    assert d <= DENSE_BLOCK_LIMIT, f"{d:.3f} of the reference's bf16 drift"
+
+
+def _rope_in_bf16(x, positions, theta: float):
+    """RoPE with its products in x's dtype (the f32 upcast dropped)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32)
+                      * (math.log(theta) / half))
+    angles = positions.float()[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _mlp_split_down(p, cfg, x):
+    """The gated MLP with its down projection summed as two halves, each
+    rounded to bf16 before they are added."""
+    h = layers._act(cfg, layers.mm(x, p["wi_gate"])) * layers.mm(
+        x, p["wi_up"])
+    half = h.shape[-1] // 2
+    return (layers.mm(h[..., :half], p["wo"][:half])
+            + layers.mm(h[..., half:], p["wo"][half:]))
+
+
+@pytest.mark.parametrize("fault", ["rope", "mlp"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_extra_rounding_breaks_the_tinyllama_block_check(dense_blocks,
+                                                         monkeypatch, seed,
+                                                         fault):
+    dense_blocks(seed, 0)   # the f32 reading is taken without the fault
+    if fault == "rope":
+        monkeypatch.setattr(layers, "apply_rope", _rope_in_bf16)
+    else:
+        monkeypatch.setattr(layers, "apply_mlp", _mlp_split_down)
+    d = _dense_block_distance(dense_blocks, seed, 0)
+    assert d > DENSE_BLOCK_LIMIT, f"only {d:.3f} of the reference's bf16 drift"

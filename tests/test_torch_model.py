@@ -147,8 +147,11 @@ def test_paged_generate_matches_reference(models):
 
 
 def test_unported_family_raises():
-    # MoE is ported; DeepSeek's leading dense layers are not
-    cfg = get_config("qwen2-moe-a2.7b", variant="reduced").replace(
-        first_dense_layers=1)
-    with pytest.raises(NotImplementedError):
-        M.init_params(cfg, generator=torch.Generator())
+    # MoE decode and DeepSeek's leading dense layers are ported; the
+    # hybrid family (zamba2's Mamba-2 blocks with shared attention) is not
+    from repro_torch.models.config import ModelConfig
+    cfg_j = jax_config("zamba2-7b", variant="reduced")
+    kw = {f: getattr(cfg_j, f) for f in cfg_j.__dataclass_fields__}
+    kw["use_kernels"] = kw.pop("use_pallas")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.init_params(ModelConfig(**kw), generator=torch.Generator())
