@@ -1436,8 +1436,25 @@ def phase_kernels():
     kd = kd_cases(gen)
     ffn, gmm, split, gsa = moe_cases(gen)
     ssd = ssd_cases(gen)
+    # the hybrid and ssm training slice's shapes: Zamba2's shared attention
+    # (H 32 = KH, D 112) in prefill and in training, and in decode; CE on
+    # the tied heads of Mamba2 (V 50280) and Zamba2 (D 3584, V 32000); the
+    # scan at Zamba2's prefill (H 112, N 64) and Mamba2's train step (B 4)
+    hybrid = [flash_case(gen, 1, 1024, 32, 32, 112, bf, timed=True),
+              flash_case(gen, 4, 1024, 32, 32, 112, bf, timed=True),
+              paged_case(gen, ctx, 1, 32, 32, 112, 16, bf, timed=True),
+              kd_case(gen, 2048, 2048, 0, 50280, bf, timed=True),
+              kd_case(gen, 2048, 3584, 0, 32000, bf, timed=True),
+              ssd_case(gen, 1, 1024, 112, 64, 64, 1, bf, timed=True,
+                       inst="tc"),
+              ssd_case(gen, 1, 1024, 112, 64, 64, 1, bf, slow=True,
+                       inst="tc"),
+              ssd_case(gen, 4, 1024, 64, 64, 128, 1, bf, timed=True,
+                       inst="tc"),
+              ssd_case(gen, 4, 1024, 64, 64, 128, 1, bf, slow=True,
+                       inst="tc")]
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
-                + ffn + gmm + split + gsa + ssd):
+                + ffn + gmm + split + gsa + ssd + hybrid):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
@@ -2068,14 +2085,15 @@ def check_ssm_logits(res):
              f"{SSM_F32_DECODE_TOL}")
 
 
-def _ssd_on_tensor_cores(by_instance, n):
-    """Every scan launch of the serve_ssm run took the tc instance: the
-    model's bf16 views of its conv output (row stride 4352 elements, B
-    and C at byte offsets 8192 and 8448), none on the CUDA cores."""
+def _ssd_on_tensor_cores(by_instance, n, phase="serve_ssm"):
+    """Every scan launch of the phase's run took the tc instance: the
+    model's bf16 views of its conv output (Mamba2: row stride 4352
+    elements, B and C at byte offsets 8192 and 8448), none on the CUDA
+    cores."""
     want = {"tc": n, "general": 0, "f32": 0}
-    print(f"serve_ssm: ssd_scan launches by instance {by_instance}")
+    print(f"{phase}: ssd_scan launches by instance {by_instance}")
     if by_instance != want:
-        fail(f"serve_ssm: ssd_scan launches by instance {by_instance}, "
+        fail(f"{phase}: ssd_scan launches by instance {by_instance}, "
              f"expected {want}")
 
 
@@ -2597,6 +2615,227 @@ def phase_serve_moe():
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: serve the hybrid Zamba2-7B at full width and depth
+# ---------------------------------------------------------------------------
+
+HYBRID_DECODE_STEPS = 4
+# Kernel path against plain path, the prefill's last-token logits and 4
+# teacher-forced paged decode steps of the 81-block model.  In bf16 the
+# two paths round activations at other points and 81 random blocks
+# amplify that (first reading on an H100, 700 W: 2.58 on logits of at
+# most 5.3, the argmax moved), so as for Mamba2 the limit is held in
+# f32, and each bf16 path is held to the f32 model by its RMS distance
+# (the kernel path's at most SSM_BF16_RATIO times the plain path's).
+# Limit set from readings on an H100 (700 W), about 3x the worst (1.81e-3
+# on logits of at most 5.7).
+HYBRID_F32_LOGIT_TOL = 5e-3
+# the shared attention must reach the logits: zeroing its output
+# projection must move the f32 logits by this many times the limit
+HYBRID_ATTN_MARGIN = 3.0
+
+
+def _hybrid_path_logits(M, params, cfg, toks, cont):
+    """Prefill's last-token logits, then HYBRID_DECODE_STEPS paged decode
+    steps fed ``cont`` (teacher-forced): (1 + steps, V) f32."""
+    P, n, bl = toks.shape[1], cont.shape[1], 16
+    logits, pc = M.prefill(params, cfg, {"tokens": toks})
+    n_pb, nb = -(-P // bl), -(-(P + n) // bl)
+    cache = M.init_paged_cache(cfg, 1, nb + 1, bl, device="cuda")
+    sub = M.prefill_into_cache(cfg, M.init_decode_cache(
+        cfg, 1, n_pb * bl, device="cuda"), pc)
+    M.scatter_prefill_paged(cfg, cache, sub, 0, list(range(1, n_pb + 1)),
+                            [True] * n_pb, block_len=bl)
+    bt = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
+    out = [logits[0]]
+    for j in range(n):
+        lg, cache = M.decode_step(params, cfg, cache, cont[:, j:j + 1],
+                                  torch.tensor([P + j], device="cuda"),
+                                  block_tables=bt)
+        out.append(lg[0])
+    return torch.stack(out)
+
+
+def hybrid_logit_check(M, params, cfg, prompt, seed):
+    """On one prompt: (i) the f32 model's kernel-path logits against its
+    plain path's (kernel run: flash and kernel 7 in prefill, the paged
+    kernel in decode; plain run: no kernel), and the shared attention's
+    reach there (the kernel path with the shared block's ``wo`` zeroed);
+    (ii) the bf16 model's kernel and plain paths against the f32 model
+    (plain path), the kernel path's RMS distance at most SSM_BF16_RATIO
+    times the plain path's."""
+    from repro_torch.utils.pytree import tree_map
+    toks = torch.as_tensor(prompt, device="cuda")
+    cont = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, HYBRID_DECODE_STEPS)).astype(np.int32),
+        device="cuda")
+    _, n_groups, tail = M._hybrid_layout(cfg)
+    n_attn = n_groups + (1 if tail else 0)
+    want = {"flash_attention": n_attn, "ssd_scan": cfg.n_layers,
+            "paged_attn": n_attn * HYBRID_DECODE_STEPS}
+
+    def paths(p, c):
+        lk, n_k = _launched(lambda: _hybrid_path_logits(M, p, c, toks, cont))
+        lp, n_p = _launched(lambda: _hybrid_path_logits(
+            M, p, c.replace(use_kernels=False), toks, cont))
+        if {k: n_k[k] for k in want} != want or any(
+                v for k, v in n_k.items() if k not in want) or \
+                any(n_p.values()):
+            fail(f"serve_hybrid logits ({c.dtype}): kernel path launched "
+                 f"{n_k} (expected {want}), plain path {n_p}")
+        return lk, lp
+
+    kb, qb = paths(params, cfg)
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    k32, q32 = paths(p32, cfg32)
+    wo = p32["shared_attn"]["attn"]["wo"]
+    wo.zero_()
+    a32 = _hybrid_path_logits(M, p32, cfg32, toks, cont)
+    del p32
+
+    def rms(a, b):
+        return (a - b).pow(2).mean().sqrt().item()
+
+    err = (k32 - q32).abs().max(-1).values
+    reach = (k32 - a32).abs().max(-1).values
+    res = {"len": toks.shape[1], "max_abs_logit": q32.abs().max().item(),
+           "f32_prefill_kernel_vs_plain": err[0].item(),
+           "f32_decode_kernel_vs_plain": err[1:].max().item(),
+           "f32_attn_reach_min": reach.min().item(),
+           "bf16_kernel_to_f32_rms": rms(kb, q32),
+           "bf16_plain_to_f32_rms": rms(qb, q32),
+           "bf16_kernel_vs_plain_max": (kb - qb).abs().max().item(),
+           "bf16_argmax_equal": bool((kb.argmax(-1) == qb.argmax(-1)).all())}
+    res["bf16_rms_ratio"] = (res["bf16_kernel_to_f32_rms"]
+                             / res["bf16_plain_to_f32_rms"])
+    print(f"serve_hybrid logits ({CARD}) " + json.dumps(res))
+    if not (torch.isfinite(kb).all() and torch.isfinite(k32).all()) or \
+            not err.max() <= HYBRID_F32_LOGIT_TOL:
+        fail(f"serve_hybrid: f32 kernel-path logits differ from the plain "
+             f"path's by {err.max().item()} > {HYBRID_F32_LOGIT_TOL}")
+    if not reach.min() >= HYBRID_ATTN_MARGIN * HYBRID_F32_LOGIT_TOL:
+        fail(f"serve_hybrid: the shared attention moves the logits by only "
+             f"{reach.min().item()}: the check would not see it")
+    if not res["bf16_rms_ratio"] <= SSM_BF16_RATIO:
+        fail(f"serve_hybrid: the bf16 kernel path is "
+             f"{res['bf16_rms_ratio']:.3f}x as far from the f32 model as "
+             f"the plain path (limit {SSM_BF16_RATIO})")
+    return res
+
+
+def phase_serve_hybrid():
+    """Full-width, full-depth Zamba2-7B (bf16, random weights from seed 0)
+    behind ``PagedServeEngine`` with 8 slots: the serve cell's 16 greedy
+    requests of 128-1024 prompt tokens, 64 new tokens each.  Checks the
+    completions, the block pool, the launches on that run (flash 14 and
+    kernel 7 81 a prefill, all tc; the paged kernel 14 a decode step), the
+    logit check on the longest prompt, and profiles one decode
+    segment."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine
+
+    cfg = get_config("zamba2-7b", variant="full")
+    period, n_groups, tail = M._hybrid_layout(cfg)
+    if not (cfg.use_kernels and M.has_paged_leaves(cfg)) or \
+            (period, n_groups, tail) != (6, 13, 3):
+        fail(f"zamba2 config: kernels {cfg.use_kernels}, layout "
+             f"{(period, n_groups, tail)}")
+    n_attn = n_groups + 1
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in convert.flatten(params).values())
+    print(f"serve_hybrid: {cfg.name} {n_params / 1e9:.3f}B params "
+          f"{cfg.dtype}, {cfg.n_layers} Mamba-2 blocks, {n_attn} shared "
+          f"attention applications, init {time.perf_counter() - t0:.1f}s")
+
+    rng = np.random.default_rng(1)
+    lens = [int(p) for p in np.linspace(128, 1024, 16)]
+    prompts = [rng.integers(0, cfg.vocab_size, (1, p)).astype(np.int32)
+               for p in lens]
+    max_new, n_slots, seg_len = 64, 8, 8
+
+    with torch.no_grad():
+        checks = [hybrid_logit_check(M, params, cfg, prompts[15], 15)]
+        torch.cuda.empty_cache()
+
+        def make_engine(ps, new=max_new):
+            eng = PagedServeEngine(params, cfg, n_slots=n_slots,
+                                   seg_len=seg_len,
+                                   max_len=max(lens) + max_new,
+                                   device="cuda")
+            for p in ps:
+                eng.submit({"tokens": p}, max_new=new)
+            return eng
+
+        make_engine(prompts[:2], seg_len).run()   # warm-up
+        eng = make_engine(prompts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        comps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts().items() if v}
+        by_instance = dict(ssd_ops.LAUNCHES_BY_INSTANCE)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    st = eng.stats
+    if sorted(comps) != list(range(len(prompts))):
+        fail(f"zamba2 completed {sorted(comps)}")
+    for uid, c in comps.items():
+        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+            fail(f"zamba2 request {uid}: {len(c.tokens)} tokens, prompt "
+                 f"{c.prompt_len}")
+        if (c.tokens < 0).any() or (c.tokens >= cfg.vocab_size).any():
+            fail(f"zamba2 request {uid}: token ids out of range")
+    if not st["fresh_blocks"] or eng.alloc.n_free != eng.n_blocks - 1:
+        fail(f"zamba2: block pool not used or not returned: {st}")
+    steps = st["segments"] * seg_len
+    want = {"flash_attention": n_attn * st["prefills"],
+            "ssd_scan": cfg.n_layers * st["prefills"],
+            "paged_attn": n_attn * steps}
+    if launches != want or st["prefills"] != len(prompts):
+        fail(f"zamba2 launches {launches} != expected {want} "
+             f"({st['prefills']} prefills, {steps} decode steps)")
+    _ssd_on_tensor_cores(by_instance, want["ssd_scan"], "serve_hybrid")
+    ttft = sorted(c.ttft_s for c in comps.values())
+    res = {"requests": len(comps), "prompt_lens": lens,
+           "generated_tokens": st["generated_tokens"], "wall_s": wall,
+           "tok_per_s": st["generated_tokens"] / wall,
+           "decode_steps": steps,
+           "ms_per_decode_step": 1e3 * st["decode_s"] / steps,
+           "admit_s": st["admit_s"], "decode_s": st["decode_s"],
+           "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+           "ttft_min_s": ttft[0], "prefills": st["prefills"],
+           "peak_live_blocks": st["peak_live_blocks"],
+           "preemptions": st["preemptions"],
+           "launches": launches, "peak_mem_gb": peak_gb,
+           "weights_gb": 2 * n_params / 1e9, "n_params": n_params,
+           "kv_bytes_per_token": M.cache_nbytes(cfg, 1, 2) - M.cache_nbytes(
+               cfg, 1, 1),
+           "recurrent_bytes_per_slot": M.cache_nbytes(cfg, 1, 0),
+           "logit_checks": checks}
+    print(f"serve_hybrid ({CARD}) " + json.dumps(res))
+
+    with torch.no_grad():
+        eng = make_engine(prompts)
+        eng.step()        # admits the first 8 requests, runs a segment
+        seg = decode_profile(eng, cfg, seg_len, "serve_hybrid decode")
+    seg["launches_per_step"] = seg["device_launches"] / seg_len
+    print("profile " + json.dumps({"hybrid_decode_segment_8_steps": seg}))
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: train full-width TinyLlama-1.1B
 # ---------------------------------------------------------------------------
 
@@ -2898,6 +3137,7 @@ def _counts():
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
     from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fa_ops.LAUNCHES,
             "paged_attn": pa_ops.LAUNCHES,
             "paged_attn_quant": pa_ops.LAUNCHES_QUANT,
@@ -2906,7 +3146,8 @@ def _counts():
             "grouped_ffn": mg_ops.LAUNCHES["grouped_ffn"],
             "grouped_matmul": mg_ops.LAUNCHES["grouped_matmul"],
             "split_f32": mg_ops.LAUNCHES["split_f32"],
-            "gather_scatter_add": md_ops.LAUNCHES}
+            "gather_scatter_add": md_ops.LAUNCHES,
+            "ssd_scan": ssd_ops.LAUNCHES}
 
 
 def _zero_counts():
@@ -2916,12 +3157,443 @@ def _zero_counts():
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
     from repro_torch.kernels.paged_attn import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
-    pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = 0
+    pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = ssd_ops.LAUNCHES = 0
     for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE,
               mg_ops.LAUNCHES, mg_ops.LAUNCHES_BY_INSTANCE,
-              md_ops.LAUNCHES_BY_INSTANCE):
+              md_ops.LAUNCHES_BY_INSTANCE, ssd_ops.LAUNCHES_BY_INSTANCE):
         d.update(dict.fromkeys(d, 0))
+
+
+# ---------------------------------------------------------------------------
+# phase 6b/6c: train the ssm family (Mamba2-1.3B) and the hybrid (Zamba2-7B)
+# ---------------------------------------------------------------------------
+
+SSM_TRAIN_STEPS = 8
+HYBRID_TRAIN_STEPS = 4
+# Zamba2-7B trained at full width on 15 of its 81 blocks: two groups of 6
+# behind the shared block, then the shared block before a 3-block tail, as
+# the full model's 81 = 13 x 6 + 3 ends (the only cut: 6.64 B parameters
+# with fp32 AdamW moments do not fit 80 GB)
+HYBRID_TRAIN_LAYERS = 15
+# the first steps' losses held kernel path against plain path (step 0
+# runs at lr 0, so the third is the first after an update)
+TRAIN_LOSS_STEPS = 3
+# Limits set from readings on an H100 (700 W), each about 3x the worst:
+# one full-width Mamba-2 block's gradients, kernel path against plain path
+# (relative L2 of each leaf; readings 4.85e-3 bf16, 1.41e-5 f32)
+SSM_BLOCK_GRAD_TOL = {"bfloat16": 0.015, "float32": 5e-5}
+# ssd_bwd (its f32 recompute) against the same in f64, on the path's scan
+# inputs with random cotangents (relative L2 of each gradient; bf16
+# inputs get bf16 gradients: readings 2.39e-3 bf16, 1.71e-5 f32)
+SSD_BWD_F64_TOL = {"bfloat16": 7e-3, "float32": 5e-5}
+# the first TRAIN_LOSS_STEPS bf16 losses, kernel path against plain path:
+# 48 (Mamba2) or 15 (Zamba2) blocks of bf16 activations rounded at other
+# points (first readings 0.0039 and 0.0112 on losses of about 11)
+TRAIN_LOSS_TOL = {"mamba2-1.3b": 0.012, "zamba2-7b": 0.035}
+# Zamba2's 15 blocks: the loss (absolute) and every gradient (relative
+# L2) on one 1 x 1024 batch.  f32 is the sharp check (readings 3.8e-6 and
+# 1.36e-4); in bf16 the two paths' roundings through 15 random blocks
+# move every gradient by about a quarter (readings 3.75e-3 and 0.288), as
+# they move the served logits (serve_hybrid).
+HYBRID_LOSS_TOL = {"float32": 1.5e-5, "bfloat16": 0.012}
+HYBRID_GRAD_TOL = {"float32": 4e-4, "bfloat16": 0.9}
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def _scan_tap(ssd_ops, seen):
+    """``ssd_ops.ssd`` wrapped to keep a detached copy of each call's
+    inputs and chunk in ``seen``; returns (the kernel's wrapper, tap)."""
+    kernel = ssd_ops.ssd
+
+    def tap(xh, dt, A, Bh, Ch, *, chunk=128, init_state=None):
+        if not seen:
+            seen.append(([None if t is None else t.detach().clone()
+                          for t in (xh, dt, A, Bh, Ch, init_state)], chunk))
+        return kernel(xh, dt, A, Bh, Ch, chunk=chunk, init_state=init_state)
+    return kernel, tap
+
+
+def _ssd_bwd_vs_f64(ssd_ops, saved, chunk, label):
+    """``ssd_bwd`` on the path's scan inputs against the same backward in
+    f64 (the plain version recomputed in f64 and differentiated), with
+    random cotangents of y and of the final state."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xh, Bh = saved[0], saved[3]
+    B, S, H, P = xh.shape
+    dy = torch.randn(xh.shape, generator=gen, device="cuda").to(xh.dtype)
+    dh = torch.randn((B, H, P, Bh.shape[-1]), generator=gen, device="cuda")
+    got = ssd_ops.ssd_bwd(saved, dy, dh, chunk=chunk)
+    want = ssd_ops.ssd_bwd([None if t is None else t.double() for t in saved],
+                           dy.double(), dh.double(), chunk=chunk)
+    res = {f"{n}_rel_l2": _rel_l2(g, w)
+           for n, g, w in zip(("xh", "dt", "A", "Bh", "Ch", "init_state"),
+                              got, want) if w is not None}
+    worst, tol = max(res.values()), SSD_BWD_F64_TOL[str(xh.dtype)[6:]]
+    print(f"{label}: ssd_bwd vs f64 ({CARD}) " + json.dumps(res))
+    if not worst <= tol:
+        fail(f"{label}: ssd_bwd differs from its f64 version by {worst} "
+             f"(relative L2) > {tol}")
+    return worst
+
+
+def _ssm_block_grad_check(cfg, params, dtype):
+    """One full-width Mamba-2 block (layer 0 of ``params``) on x ~ N(0, 1)
+    of 2 x 1024 tokens and a random cotangent: the gradients of x and of
+    every block parameter, kernel path (kernel 7 under autograd) against
+    the plain path (``ssd_chunked``), in ``dtype``.  The kernel run must
+    launch kernel 7 once, the plain run nothing.  Then ``ssd_bwd`` on the
+    scan inputs caught in the kernel run, against f64."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import layers, ssm
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
+    name = str(dtype)[6:]
+    c = cfg.replace(dtype=name)
+    bp = tree_map(lambda t: t[0].to(torch.float32 if t.dtype == torch.float32
+                                    else dtype).clone(), params["blocks"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 1024, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(bp)]
+    x.requires_grad_(True)
+
+    def grads(use_kernels):
+        out = x + ssm.ssm_forward(bp["mixer"], c.replace(
+            use_kernels=use_kernels), layers.apply_norm(bp["ln"], x))
+        return torch.autograd.grad(out, leaves + [x], dy)
+
+    seen = []
+    kernel, tap = _scan_tap(ssd_ops, seen)
+    ssd_ops.ssd = tap
+    try:
+        gk, n_k = _launched(lambda: grads(True))
+    finally:
+        ssd_ops.ssd = kernel
+    gp, n_p = _launched(lambda: grads(False))
+    if n_k["ssd_scan"] != 1 or any(n_p.values()):
+        fail(f"train_ssm block ({name}): kernel path launched {n_k}, plain "
+             f"path {n_p}")
+    res = {p: _rel_l2(a, b)
+           for p, a, b in zip([q for q, _ in tree_paths(bp)] + ["x"], gk,
+                              gp)}
+    worst = max(res, key=res.get)
+    print(f"train_ssm block grads kernel vs plain ({name}, {CARD}) "
+          + json.dumps(res))
+    if not res[worst] <= SSM_BLOCK_GRAD_TOL[name]:
+        fail(f"train_ssm block ({name}): the {worst} gradient differs from "
+             f"the plain path's by {res[worst]} (relative L2) > "
+             f"{SSM_BLOCK_GRAD_TOL[name]}")
+    f64 = _ssd_bwd_vs_f64(ssd_ops, *seen[0], f"train_ssm block ({name})")
+    return {f"block_{name}_worst_leaf": worst,
+            f"block_{name}_grad_rel_l2": res[worst],
+            f"ssd_bwd_vs_f64_{name}": f64}
+
+
+def _train_flops(M, cfg, batch, seq):
+    """Model FLOPs of one training step, PERF.md §2's MFU numerator: 6 x
+    the matmul parameters a token passes (the tied head counted, the
+    shared block once per application) x tokens, plus causal attention and
+    the SSD scan (``ssd_bound_ms``'s count), each forward and twice in the
+    backward."""
+    D, T = cfg.d_model, batch * seq
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    mamba = D * (2 * cfg.d_inner + 2 * G * N + H) + cfg.d_inner * D
+    scan = ssd_bound_ms(batch, seq, H, cfg.ssm_head_dim, N, G,
+                        min(cfg.ssm_chunk, seq), torch.bfloat16,
+                        False)[2] * 1e9
+    n_attn = 0
+    attn = attn_ops = 0.0
+    if cfg.arch_type == "hybrid":
+        _, n_groups, tail = M._hybrid_layout(cfg)
+        n_attn = n_groups + (1 if tail else 0)
+        Ha, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        attn = (2 * D * Ha * Dh + 2 * D * KH * Dh
+                + (3 if cfg.mlp_gated else 2) * D * cfg.d_ff)
+        attn_ops = 4 * Ha * Dh * batch * seq * (seq + 1) / 2
+    return (6 * T * (cfg.n_layers * mamba + n_attn * attn
+                     + cfg.vocab_size * D)
+            + 3 * (cfg.n_layers * scan + n_attn * attn_ops))
+
+
+def _step_readings(D, M, cfg, corpus, batch, seq, lr, total):
+    """ms of three synchronised ``train_step``s after a warm-up, from
+    fresh seed-0 weights, the peak memory over them, and on a fourth step
+    (CUDA events) the share of its time spent in ``ssd_bwd``."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.optim import adamw_init, cosine_schedule
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    sched = cosine_schedule(lr, total, warmup=1)
+    bs = corpus.device_batches(0, 5, batch, seq)
+    bs = [{k: v[s].cuda() for k, v in bs.items()} for s in range(5)]
+    D.train_step(params, opt, cfg, bs[0], sched(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for b in bs[1:4]:
+        t0 = time.perf_counter()
+        D.train_step(params, opt, cfg, b, sched(2))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spans, own = [], ssd_ops.ssd_bwd
+
+    transient = []
+
+    def timed_bwd(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        out = own(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        transient.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ssd_ops.ssd_bwd = timed_bwd
+    try:
+        ev[0].record()
+        D.train_step(params, opt, cfg, bs[4], sched(2))
+        ev[1].record()
+        torch.cuda.synchronize()
+    finally:
+        ssd_ops.ssd_bwd = own
+    del params, opt, bs
+    torch.cuda.empty_cache()
+    step_ev = ev[0].elapsed_time(ev[1])
+    bwd = sum(a.elapsed_time(b) for a, b in spans)
+    ms = sorted(step_ms)[len(step_ms) // 2]
+    flops = _train_flops(M, cfg, batch, seq)
+    return {"step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": batch * seq / (ms / 1e3),
+            "mfu": flops / (ms / 1e3) / PEAK_BF16,
+            "model_tflop_per_step": flops / 1e12, "peak_mem_gb": peak,
+            "events_step_ms": step_ev, "ssd_bwd_ms": bwd,
+            "ssd_bwd_calls": len(spans), "ssd_bwd_share": bwd / step_ev,
+            "ssd_bwd_transient_gb": max(transient) / 1e9}
+
+
+def _train_family(D, M, cfg, corpus, steps, want, label):
+    """``train_device`` (the main path, counts from 0) for ``steps`` steps
+    of TRAIN_BATCH x TRAIN_SEQ tokens; checks finite, falling losses, the
+    launches against ``want`` and every scan launch in the tc instance;
+    then the first TRAIN_LOSS_STEPS losses of the plain path (no kernel
+    launched) against the kernel path's."""
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    spec = D.DeviceSpec(0, cfg, 0, int(corpus.device_domain[0]))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    up = D.train_device(spec, corpus, steps=steps, batch=TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in _counts().items() if k in want}
+    others = {k: v for k, v in _counts().items() if k not in want and v}
+    by_inst = dict(ssd_ops.LAUNCHES_BY_INSTANCE)
+    losses = up["losses"]
+    del up
+    print(f"{label}: {steps} steps in {wall:.2f}s, losses "
+          f"{[round(x, 4) for x in losses]}, launches {got}, scan by "
+          f"instance {by_inst}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: loss did not fall: {losses}")
+    if got != want or others:
+        fail(f"{label}: launches {got} (others {others}) != expected {want}")
+    if by_inst["tc"] != want["ssd_scan"]:
+        fail(f"{label}: scan launches by instance {by_inst}, not all tc")
+    _all_wgmma(kd_ops, label)
+    plain_spec = dataclasses.replace(spec, cfg=cfg.replace(use_kernels=False))
+    plain, n_p = _launched(lambda: _first_losses(
+        D, plain_spec, corpus, TRAIN_LOSS_STEPS, steps))
+    d = max(abs(a - b) for a, b in zip(losses, plain))
+    tol = TRAIN_LOSS_TOL[cfg.name]
+    print(f"{label}: first {TRAIN_LOSS_STEPS} losses kernel "
+          f"{losses[:TRAIN_LOSS_STEPS]} plain {plain} (max |d| {d})")
+    if any(n_p.values()) or not d <= tol:
+        fail(f"{label}: plain-path losses {plain} (launches {n_p}) differ "
+             f"from the kernel path's by {d} > {tol}")
+    return got, losses, wall, d
+
+
+def _first_losses(D, spec, corpus, steps, total):
+    """The first ``steps`` losses of a ``total``-step ``train_device`` run:
+    the same seed-0 weights, batches and schedule."""
+    params, opt = D._device_init(spec, 0, torch.device("cuda"))
+    losses = D.train_round(spec, corpus, params, opt, start=0, steps=steps,
+                           total_steps=total, batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+                           warmup=max(total // 20, 1), device="cuda")
+    out = [float(x) for x in losses.cpu()]
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_ssm():
+    """``train_device`` on full-width, full-depth Mamba2-1.3B (bf16, remat,
+    random weights from seed 0): 8 steps of 4 x 1024 tokens from the train
+    cell's corpus, kernel 7 under autograd.  Checks as ``_train_family``,
+    one block's gradients kernel vs plain in bf16 and f32 and ``ssd_bwd``
+    against f64; reports ms a step, tokens/s, MFU, peak memory and the
+    scan backward's share of a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import device as D
+    from repro_torch.models import model as M
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config("mamba2-1.3b", variant="full")
+    if not (cfg.use_kernels and cfg.remat):
+        fail("mamba2 config does not train through the kernels with remat")
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    chunks = TRAIN_SEQ // cfg.loss_chunk
+    # each block and each loss chunk is rematerialised once (cfg.remat)
+    want = {"ssd_scan": SSM_TRAIN_STEPS * cfg.n_layers * 2,
+            "kd_loss": SSM_TRAIN_STEPS * chunks * 2}
+    launches, losses, wall, loss_d = _train_family(
+        D, M, cfg, corpus, SSM_TRAIN_STEPS, want, "train_ssm")
+    params = M.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    checks = {}
+    for dt in (torch.bfloat16, torch.float32):
+        checks.update(_ssm_block_grad_check(cfg, params, dt))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    res = {"arch": cfg.name, "steps": SSM_TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "losses": losses, "train_device_wall_s": wall,
+           "launches": launches, "n_params": n_params,
+           "first_losses_max_abs_diff": loss_d, **checks,
+           **_step_readings(D, M, cfg, corpus, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_LR, SSM_TRAIN_STEPS)}
+    print(f"train_ssm ({CARD}) " + json.dumps(res))
+    return launches
+
+
+def _hybrid_grad_check(M, cfg, params, batch, dtype):
+    """Loss and every gradient of the 15-block Zamba2 on one batch, kernel
+    path against plain path, in ``dtype``: the shared block's gradient
+    sums its three applications (two groups and the tail), flash's
+    backward at D 112.  The kernel run must launch flash, kernel 7 and
+    kd_loss; the plain run nothing."""
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_paths
+    name = str(dtype)[6:]
+    c = cfg.replace(dtype=name)
+    p = tree_map(lambda t: t.to(torch.float32 if t.dtype == torch.float32
+                                else dtype), params)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+    out = {}
+    for uk in (True, False):
+        def run():
+            loss, _ = M.loss_fn(p, c.replace(use_kernels=uk), batch)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+        out[uk] = _launched(run)
+    (lk, gk), n_k = out[True]
+    (lp, gp), n_p = out[False]
+    if not (n_k["flash_attention"] and n_k["ssd_scan"] and n_k["kd_loss"]) \
+            or any(n_p.values()):
+        fail(f"train_hybrid grads ({name}): kernel path launched {n_k}, "
+             f"plain {n_p}")
+    res = {q: _rel_l2(a, b)
+           for (q, _), a, b in zip(tree_paths(p), gk, gp)}
+    del p, leaves, gk, gp, out
+    worst = max(res, key=res.get)
+    shared = max(v for q, v in res.items() if q.startswith("shared_attn"))
+    print(f"train_hybrid grads kernel vs plain ({name}, {CARD}): loss "
+          f"{lk} / {lp}, " + json.dumps(res))
+    if not abs(lk - lp) <= HYBRID_LOSS_TOL[name]:
+        fail(f"train_hybrid ({name}): kernel-path loss {lk} differs from "
+             f"the plain path's {lp} by more than {HYBRID_LOSS_TOL[name]}")
+    if not res[worst] <= HYBRID_GRAD_TOL[name]:
+        fail(f"train_hybrid ({name}): the {worst} gradient differs from the "
+             f"plain path's by {res[worst]} (relative L2) > "
+             f"{HYBRID_GRAD_TOL[name]}")
+    return {f"{name}_loss_abs_err": abs(lk - lp),
+            f"{name}_grad_worst_leaf": worst,
+            f"{name}_grad_worst_rel_l2": res[worst],
+            f"{name}_shared_attn_worst_rel_l2": shared}
+
+
+def phase_train_hybrid():
+    """``train_device`` on Zamba2-7B at full width, 15 of its 81 blocks
+    (bf16, remat, random weights from seed 0): 4 steps of 4 x 1024 tokens.
+    Checks as ``_train_family``, the loss and every gradient of the model
+    kernel vs plain on a 1 x 1024 batch, and ``ssd_bwd`` against f64 at
+    Zamba2's scan shape; reports ms a step, tokens/s, MFU, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import device as D
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config("zamba2-7b", variant="full").replace(
+        n_layers=HYBRID_TRAIN_LAYERS)
+    period, n_groups, tail = M._hybrid_layout(cfg)
+    if (period, n_groups, tail) != (6, 2, 3) or not (cfg.use_kernels
+                                                     and cfg.remat):
+        fail(f"zamba2 cut: {(period, n_groups, tail)}, kernels "
+             f"{cfg.use_kernels}, remat {cfg.remat}")
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    chunks = TRAIN_SEQ // cfg.loss_chunk
+    n_attn = n_groups + (1 if tail else 0)
+    # a step: every block and shared-block application once forward; each
+    # group recomputed (remat) short of its last Mamba-2 block, whose
+    # input is all the group's backward keeps (torch.utils.checkpoint's
+    # early stop), then each Mamba-2 block of a group or the tail
+    # recomputed in its own backward
+    want = {"ssd_scan": HYBRID_TRAIN_STEPS * (
+                cfg.n_layers + n_groups * (2 * period - 1) + tail),
+            "flash_attention": HYBRID_TRAIN_STEPS * (n_attn + n_groups),
+            "kd_loss": HYBRID_TRAIN_STEPS * chunks * 2}
+    launches, losses, wall, loss_d = _train_family(
+        D, M, cfg, corpus, HYBRID_TRAIN_STEPS, want, "train_hybrid")
+    params = M.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    batch = {k: v[:1].cuda() for k, v in corpus.device_batch(
+        0, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+    check = {}
+    for dt in (torch.float32, torch.bfloat16):
+        check.update(_hybrid_grad_check(M, cfg, params, batch, dt))
+    # ssd_bwd against f64 on the scan inputs of a forward's first block
+    seen = []
+    kernel, tap = _scan_tap(ssd_ops, seen)
+    ssd_ops.ssd = tap
+    try:
+        with torch.no_grad():
+            M.loss_fn(params, cfg, batch)
+    finally:
+        ssd_ops.ssd = kernel
+    check["ssd_bwd_vs_f64"] = _ssd_bwd_vs_f64(ssd_ops, *seen[0],
+                                               "train_hybrid")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params, seen
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "steps": HYBRID_TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "losses": losses, "train_device_wall_s": wall,
+           "launches": launches, "n_params": n_params,
+           "first_losses_max_abs_diff": loss_d, **check,
+           **_step_readings(D, M, cfg, corpus, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_LR, HYBRID_TRAIN_STEPS)}
+    print(f"train_hybrid ({CARD}) " + json.dumps(res))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4665,7 +5337,7 @@ KERNELS = {
 
 # the path phases, in the order they run
 PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
-         phase_train,
+         phase_serve_hybrid, phase_train, phase_train_ssm, phase_train_hybrid,
          phase_tune, phase_distill, phase_pipeline, phase_methods,
          phase_fleet)
 

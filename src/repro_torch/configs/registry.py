@@ -15,6 +15,7 @@ from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 from repro_torch.models.config import ModelConfig, reduced
 
 PORTED: Dict[str, ModelConfig] = {
@@ -23,6 +24,7 @@ PORTED: Dict[str, ModelConfig] = {
     "deepseek-moe-16b": DEEPSEEK_MOE_16B,
     "starcoder2-3b": STARCODER2_3B,
     "mamba2-1.3b": MAMBA2_1_3B,
+    "zamba2-7b": ZAMBA2_7B,
     # the paper's on-device families (configs/device_models.py)
     "gpt2": GPT2,
     "gpt2-medium": GPT2_MEDIUM,

@@ -28,9 +28,17 @@ A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises — nothing falls back.  ``LAUNCHES`` counts
 the calls that launch the kernel (three CUDA launches on one stream
 each), ``LAUNCHES_BY_INSTANCE`` the same calls by instance, so a run can
-show the path went through it.  The kernel has no backward (the
-reference's ``ssd`` has no VJP either): a call that would need one
-raises.
+show the path went through it.
+
+Under autograd a CUDA call runs inside ``_SSD``, a
+``torch.autograd.Function``: its forward is the kernel, and it saves the
+inputs.  Its backward is ``ssd_bwd``, which recomputes the plain
+version ``ref.ssd_scan_ref`` on the saved inputs and differentiates it
+with the cotangents of y and of the final state, as the reference
+trains through XLA's autodiff of its ``ssd_chunked`` (its Pallas scan
+has no VJP).  The plain version's group expansion sums the gradients of
+B and C over the heads of each group, and its ``cumsum`` carries the
+cotangent of dt·A back through the chunk.  There is no backward kernel.
 """
 from __future__ import annotations
 
@@ -139,7 +147,6 @@ def ssd(xh, dt, A, Bh, Ch, *, chunk: int = 128, init_state=None):
     init_state (B, H, P, N) f32 or None.  Returns (y (B, S, H, P) in xh's
     dtype, final state (B, H, P, N) f32), as
     ``repro.kernels.ssd_scan.ops.ssd``."""
-    global LAUNCHES
     ts = _check_inputs(xh, dt, A, Bh, Ch, init_state)
     if xh.device.type == "cpu":
         return ssd_scan_ref(xh, dt, A, Bh, Ch, chunk=chunk,
@@ -147,9 +154,48 @@ def ssd(xh, dt, A, Bh, Ch, *, chunk: int = 128, init_state=None):
     if xh.device.type != "cuda":
         raise ValueError(f"ssd: unsupported device {xh.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "ssd: the kernel has no backward (ssm training is not ported "
-            "yet); call it under torch.no_grad()")
+        return _SSD.apply(xh, dt, A, Bh, Ch, init_state, int(chunk))
+    return _ssd_fwd(xh, dt, A, Bh, Ch, chunk=chunk, init_state=init_state)
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bh, Ch, init_state, chunk):
+        ctx.save_for_backward(xh, dt, A, Bh, Ch, init_state)
+        ctx.chunk = chunk
+        return _ssd_fwd(xh, dt, A, Bh, Ch, chunk=chunk,
+                        init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        return (*ssd_bwd(ctx.saved_tensors, dy, dh_final, chunk=ctx.chunk),
+                None)
+
+
+def ssd_bwd(saved, dy, dh_final, *, chunk: int):
+    """Gradients of ``ssd`` with respect to (xh, dt, A, Bh, Ch,
+    init_state), each in its input's dtype and shape (None for an absent
+    ``init_state``): the plain version recomputed on ``saved`` (those six
+    inputs) and differentiated with the cotangents ``dy`` of y and
+    ``dh_final`` of the final state (None: zero).  Bh/Ch given per group
+    (B, S, G, N) get the sum over each group's heads."""
+    ins = [None if t is None else t.detach().requires_grad_(True)
+           for t in saved]
+    xh, dt, A, Bh, Ch, h0 = ins
+    with torch.enable_grad():
+        y, h = ssd_scan_ref(xh, dt, A, Bh, Ch, chunk=chunk, init_state=h0)
+    outs, cots = [y], [dy]
+    if dh_final is not None:
+        outs.append(h)
+        cots.append(dh_final)
+    wrt = [t for t in ins if t is not None]
+    grads = iter(torch.autograd.grad(outs, wrt, cots))
+    return tuple(None if t is None else next(grads) for t in ins)
+
+
+def _ssd_fwd(xh, dt, A, Bh, Ch, *, chunk, init_state):
+    """The kernel launch (CUDA tensors)."""
+    global LAUNCHES
     for name, t in (("xh", xh), ("Bh", Bh), ("Ch", Ch)):
         if t.stride(3) != 1:
             raise ValueError(f"ssd: {name} needs unit stride along its last "

@@ -1,5 +1,5 @@
 """Model assembly of the port: init / loss / prefill / decode, dense,
-MoE and ssm (Mamba-2) families.
+MoE, ssm (Mamba-2) and hybrid (Zamba-2) families.
 
 Counterpart of ``repro.models.model``.  The parameter layout is the
 reference's: nested dicts with the same keys, layer parameters stacked
@@ -21,15 +21,24 @@ they run before ``blocks`` in every forward and decode, and carry their
 own cache entry.  MTP and MLA are not ported yet and raise.
 
 The ssm family (``arch_type="ssm"``, Mamba2) stacks ``{"ln", "mixer"}``
-over its ``n_layers`` (``models/ssm.py``) and serves: prefill through
-the SSD scan, decode through the O(1) recurrence.  Its training (the
-``ssd_chunked`` backward) and chunked prefill are not ported yet and
-raise.
+over its ``n_layers`` (``models/ssm.py``): prefill through the SSD scan,
+decode through the O(1) recurrence, training through the scan's
+autograd (each block rematerialised when ``cfg.remat``).  The hybrid
+family (``arch_type="hybrid"``, Zamba2) stacks the same blocks as
+``mamba_groups`` (n_groups, period, ...) and, when ``n_layers % period``,
+``mamba_tail`` (tail, ...), with ONE ``shared_attn`` block (attention +
+MLP) run at the top of every group and once more before the tail; its
+gradient is the sum over those applications.  Chunked prefill with a
+carried state (C > 1 in ``_chunk_hidden``) is not ported yet and
+raises.
 
 Caches follow the reference's layout too.  Contiguous decode cache:
 ``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh); for the ssm
 family ``blocks/{state,conv}`` of shape (n_layers, B, H, P, N) in f32
-and (n_layers, B, K-1, conv_dim).  Paged cache: the sequence-carrying
+and (n_layers, B, K-1, conv_dim); for the hybrid family ``mamba`` of
+shape (n_groups, period, B, ...), ``attn`` ``{"k", "v"}`` with one entry
+per shared-attention application (n_groups, plus one with a tail) and
+``tail`` (tail, B, ...).  Paged cache: the sequence-carrying
 leaves as block pools (n_groups, n_blocks, block_len, KH, Dh), where
 block id b is row b of every pool and block 0 is the trash block;
 leaves without a sequence axis (the ssm state and conv tail) keep one
@@ -80,12 +89,18 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    attn_ok = (cfg.arch_type in ("dense", "moe") and cfg.attn_type == "gqa"
-               or cfg.arch_type == "ssm")
+    attn_ok = (cfg.arch_type in ("dense", "moe", "hybrid")
+               and cfg.attn_type == "gqa" or cfg.arch_type == "ssm")
     if not attn_ok or cfg.n_mtp:
         raise NotImplementedError(
-            f"{cfg.name} is not ported yet: only the dense and MoE GQA "
-            "families without MTP, and the ssm family, are")
+            f"{cfg.name} is not ported yet: only the dense, MoE and hybrid "
+            "GQA families without MTP, and the ssm family, are")
+
+
+def _hybrid_layout(cfg: ModelConfig):
+    """(period, n_groups, tail) of the hybrid family's Mamba-2 blocks."""
+    period = cfg.shared_attn_every
+    return (period, *divmod(cfg.n_layers, period))
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +280,22 @@ def init_params(cfg: ModelConfig, *, generator):
                                          (cfg.d_model, cfg.vocab_size), 0,
                                          dtype)
     lead = (_n_groups(cfg),)
+
+    def mamba_blocks(lead):
+        return {"ln": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
+                "mixer": ssm.init_ssm(generator, cfg, dtype, lead)}
+
     if cfg.arch_type == "ssm":
-        p["blocks"] = {
-            "ln": layers.init_norm(cfg, cfg.d_model, dtype, dev,
-                                   (cfg.n_layers,)),
-            "mixer": ssm.init_ssm(generator, cfg, dtype, (cfg.n_layers,))}
+        p["blocks"] = mamba_blocks((cfg.n_layers,))
+        return p
+    if cfg.arch_type == "hybrid":
+        period, n_groups, tail = _hybrid_layout(cfg)
+        p["mamba_groups"] = mamba_blocks((n_groups, period))
+        if tail:
+            p["mamba_tail"] = mamba_blocks((tail,))
+        # ONE shared attention + MLP block, run at the top of every group
+        p["shared_attn"] = _init_block(generator, cfg, dtype, (),
+                                       use_moe=False)
         return p
     if cfg.first_dense_layers:
         # DeepSeek's leading layers: a dense MLP of width d_ff, one
@@ -302,37 +328,106 @@ def _head(params, cfg: ModelConfig, h):
     return logits
 
 
+def _mamba_stack(stack, cfg: ModelConfig, x, n: int, collect_cache: bool,
+                 collect_outs: bool = False):
+    """x + ssm_forward(ln(x)) through the ``n`` stacked Mamba-2 blocks of
+    ``stack``.  Returns (x, cache, outputs): with ``collect_cache`` the
+    blocks' decode cache entries stacked on the block axis (else None),
+    and with ``collect_outs`` each block's output (else empty).  Without ``collect_cache`` each block is
+    rematerialised in the backward when ``cfg.remat``, as the
+    reference's per-block ``jax.checkpoint``: a block's chunk
+    intermediates live in its own backward only."""
+
+    def block(x, bp):
+        return x + ssm.ssm_forward(bp["mixer"], cfg,
+                                   layers.apply_norm(bp["ln"], x))
+
+    block = _maybe_remat(cfg, block)
+    caches = {"state": [], "conv": []}
+    outs = []
+    for bp in _groups(stack, n):
+        if collect_cache:
+            out, c = ssm.ssm_forward(bp["mixer"], cfg,
+                                     layers.apply_norm(bp["ln"], x),
+                                     return_cache=True)
+            x = x + out
+            for k in caches:
+                caches[k].append(c[k])
+        else:
+            x = block(x, bp)
+        if collect_outs:
+            outs.append(x)
+    cache = ({k: torch.stack(v) for k, v in caches.items()}
+             if collect_cache else None)
+    return x, cache, outs
+
+
 def _ssm_backbone(params, cfg: ModelConfig, x, collect_cache: bool,
                   collect_stages: bool = False):
-    """x + ssm_forward(ln(x)) per layer; the per-layer decode cache
-    entries stacked on the layer axis when ``collect_cache``, and each
-    layer's output stacked (n_layers, B, S, D) when ``collect_stages``
-    (else None)."""
-    caches = {"state": [], "conv": []}
-    stages = []
-    for bp in _groups(params["blocks"], cfg.n_layers):
-        h = layers.apply_norm(bp["ln"], x)
+    """The ssm family's blocks; the per-layer decode cache entries
+    stacked on the layer axis when ``collect_cache``, and each layer's
+    output stacked (n_layers, B, S, D) when ``collect_stages`` (else
+    None)."""
+    x, cache, outs = _mamba_stack(params["blocks"], cfg, x, cfg.n_layers,
+                                  collect_cache, collect_stages)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stages = torch.stack(outs) if collect_stages else None
+    return x, aux, (cache if collect_cache else {}), stages
+
+
+def _hybrid_backbone(params, cfg: ModelConfig, x, positions,
+                     collect_cache: bool, collect_stages: bool = False):
+    """The shared attention block at the top of every group of ``period``
+    Mamba-2 blocks, then, with a tail, once more before the tail's
+    blocks.  Training rematerialises each group (the shared block and its
+    Mamba-2 blocks) and, nested in it, each Mamba-2 block, as the
+    reference does.  Returns (x, caches, stages): ``caches`` (with
+    ``collect_cache``) holds the groups' shared-attention K/V as
+    ``attn`` and their Mamba-2 entries as ``mamba``, stacked on the group
+    axis, and with a tail ``tail_attn`` and ``tail``; ``stages`` each
+    group's output (n_groups, B, S, D) with ``collect_stages``."""
+    shared = params["shared_attn"]
+    period, n_groups, tail = _hybrid_layout(cfg)
+
+    def group_fn(x, gp):
+        x, _, kv = _block_full(shared, cfg, x, positions, kind="full")
+        x, mc, _ = _mamba_stack(gp, cfg, x, period, collect_cache)
+        return (x, kv, mc) if collect_cache else x
+
+    if not collect_cache:
+        group_fn = _maybe_remat(cfg, group_fn)
+    kvs, mcs, stages = [], [], []
+    for gp in _groups(params["mamba_groups"], n_groups):
         if collect_cache:
-            out, c = ssm.ssm_forward(bp["mixer"], cfg, h, return_cache=True)
-            caches["state"].append(c["state"])
-            caches["conv"].append(c["conv"])
+            x, kv, mc = group_fn(x, gp)
+            kvs.append(kv)
+            mcs.append(mc)
         else:
-            out = ssm.ssm_forward(bp["mixer"], cfg, h)
-        x = x + out
+            x = group_fn(x, gp)
         if collect_stages:
             stages.append(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    stages = torch.stack(stages) if collect_stages else None
-    if not collect_cache:
-        return x, aux, {}, stages
-    return x, aux, {k: torch.stack(v) for k, v in caches.items()}, stages
+    caches: Dict[str, Any] = {}
+
+    def stack(entries):
+        return {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+
+    if collect_cache:
+        caches = {"attn": stack(kvs), "mamba": stack(mcs)}
+    if tail:
+        x, _, kv = _block_full(shared, cfg, x, positions, kind="full")
+        x, tc, _ = _mamba_stack(params["mamba_tail"], cfg, x, tail,
+                                collect_cache)
+        if collect_cache:
+            caches["tail_attn"], caches["tail"] = kv, tc
+    return x, caches, (torch.stack(stages) if collect_stages else None)
 
 
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
              collect_cache: bool = False, collect_stages: bool = False):
-    """Full-sequence forward of the dense, MoE and ssm families.  Returns
-    (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 but for MoE),
-    caches, stages) — ``caches`` is ``{"blocks": ...}`` when
+    """Full-sequence forward of the dense, MoE, ssm and hybrid families.
+    Returns (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 but
+    for MoE), caches, stages) — ``caches`` is ``{"blocks": ...}`` (the
+    hybrid family: ``_hybrid_backbone``'s entries) when
     ``collect_cache``, else empty; ``stages`` the per-group hidden states
     (n_groups, B, S, D) before the final norm, the representation stages
     the VAA distiller reads, when ``collect_stages``, else None."""
@@ -344,6 +439,13 @@ def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     if cfg.arch_type == "ssm":
         x, aux, c, stages = _ssm_backbone(params, cfg, x, collect_cache,
                                           collect_stages)
+    elif cfg.arch_type == "hybrid":
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x, caches, stages = _hybrid_backbone(params, cfg, x, positions,
+                                             collect_cache, collect_stages)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return (layers.apply_norm(params["final_norm"], x), aux, caches,
+                stages)
     else:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -416,11 +518,7 @@ def chunked_ce(params, cfg: ModelConfig, h, labels, mask):
 def loss_fn(params, cfg: ModelConfig, batch):
     """Autoregressive LM loss (Eq. 2) plus the MoE load-balance loss.
     Returns (loss + aux, metrics) with the reference's keys; ``aux_loss``
-    is 0 for the dense family."""
-    if cfg.arch_type == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: ssm training (the ssd_chunked backward) is not "
-            "ported yet")
+    is 0 but for the MoE family."""
     h, aux, _, _ = backbone(params, cfg, batch)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -474,17 +572,31 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
     family the recurrent ``state`` (n_layers, B, H, P, N) in f32 and the
     ``conv`` tail (n_layers, B, K-1, conv_dim), which have no sequence
     axis and ignore the policy: they are read whole every step, so
-    quantizing them buys little and costs accuracy."""
+    quantizing them buys little and costs accuracy.  The hybrid family:
+    ``mamba`` (n_groups, period, B, ...), ``attn`` with one entry per
+    shared-attention application (n_groups, plus one with a tail), and
+    with a tail ``tail`` (tail, B, ...)."""
     _check_ported(cfg)
-    if cfg.arch_type == "ssm":
-        L = cfg.n_layers
+
+    def mamba(lead):
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        return {"blocks": {
-            "state": torch.zeros((L, B, cfg.ssm_heads, cfg.ssm_head_dim,
-                                  cfg.ssm_state), dtype=torch.float32,
-                                 device=device),
-            "conv": torch.zeros((L, B, cfg.ssm_conv - 1, conv_dim),
-                                dtype=_dtype(cfg), device=device)}}
+        return {
+            "state": torch.zeros(lead + (B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                         cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+            "conv": torch.zeros(lead + (B, cfg.ssm_conv - 1, conv_dim),
+                                dtype=_dtype(cfg), device=device)}
+
+    if cfg.arch_type == "ssm":
+        return {"blocks": mamba((cfg.n_layers,))}
+    if cfg.arch_type == "hybrid":
+        period, n_groups, tail = _hybrid_layout(cfg)
+        c = {"mamba": mamba((n_groups, period)),
+             "attn": _attn_cache_struct(cfg, (n_groups + (1 if tail else 0),),
+                                        B, S, device=device, policy=policy)}
+        if tail:
+            c["tail"] = mamba((tail,))
+        return c
     c = {"blocks": {
         f"sub{i}": _attn_cache_struct(cfg, (_n_groups(cfg),), B, S,
                                       device=device, policy=policy)
@@ -547,12 +659,25 @@ def _map(fn, *trees):
 
 
 def prefill_into_cache(cfg: ModelConfig, decode_cache, prefill_cache):
-    """Graft a ``prefill`` cache into a ``decode_step`` cache along the
-    sequence axis of each stacked KV entry (``blocks`` and, with leading
-    dense layers, ``dense_blocks``); the ssm family's state and conv
-    tail are position-free and adopted whole."""
+    """Graft a ``prefill`` cache into a ``decode_step`` cache, in place,
+    along the sequence axis of each stacked KV entry (``blocks`` and,
+    with leading dense layers, ``dense_blocks``); the ssm family's state
+    and conv tail are position-free and adopted whole.  The hybrid
+    family adopts its Mamba-2 entries, grafts the groups' shared-attention
+    K/V into the first n_groups entries of ``attn``, and folds the
+    separately collected ``tail_attn`` into its last entry."""
     _check_ported(cfg)
-    return _map(graft_cache_entry, decode_cache, prefill_cache)
+    if cfg.arch_type != "hybrid":
+        return _map(graft_cache_entry, decode_cache, prefill_cache)
+    _map(graft_cache_entry, decode_cache["mamba"], prefill_cache["mamba"])
+    n_groups = _hybrid_layout(cfg)[1]
+    for k, dst in decode_cache["attn"].items():
+        graft_cache_entry(dst[:n_groups], prefill_cache["attn"][k])
+        if "tail" in decode_cache:
+            graft_cache_entry(dst[n_groups], prefill_cache["tail_attn"][k])
+    if "tail" in decode_cache:
+        _map(graft_cache_entry, decode_cache["tail"], prefill_cache["tail"])
+    return decode_cache
 
 
 # ---------------------------------------------------------------------------
@@ -721,6 +846,40 @@ def _ssm_step(bp, cfg: ModelConfig, x, bc, C: int):
     return ssm.ssm_prefill_chunk(bp["mixer"], cfg, h, bc)
 
 
+def _mamba_decode(stack, cfg: ModelConfig, x, cache, n: int):
+    """x through the ``n`` stacked Mamba-2 blocks of ``stack``, each
+    block's ``{"state", "conv"}`` row of ``cache`` stepped in place."""
+    for i in range(n):
+        bc = _layer(cache, i)
+        out, nc = _ssm_step(_layer(stack, i), cfg, x, bc, x.shape[1])
+        x = x + out
+        for k in bc:
+            bc[k].copy_(nc[k])
+    return x
+
+
+def _hybrid_decode(params, cfg: ModelConfig, x, pos, cache, *,
+                   block_tables=None, write_tables=None, live=None):
+    """The hybrid family's decode body: the shared block over ``attn``
+    entry g at the top of group g, then the group's Mamba-2 blocks; with
+    a tail, the shared block over the last ``attn`` entry, then the tail.
+    The cache is stepped in place."""
+    shared = params["shared_attn"]
+    period, n_groups, tail = _hybrid_layout(cfg)
+    kw = dict(kind="full", block_tables=block_tables,
+              write_tables=write_tables, live=live)
+    for g in range(n_groups):
+        x, _ = _block_decode(shared, cfg, x, pos, _layer(cache["attn"], g),
+                             **kw)
+        x = _mamba_decode(_layer(params["mamba_groups"], g), cfg, x,
+                          _layer(cache["mamba"], g), period)
+    if tail:
+        x, _ = _block_decode(shared, cfg, x, pos,
+                             _layer(cache["attn"], n_groups), **kw)
+        x = _mamba_decode(params["mamba_tail"], cfg, x, cache["tail"], tail)
+    return x
+
+
 def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
                   block_tables=None, write_tables=None, live=None):
     """Shared decode body: pre-embedded inputs x (B, C, D) at positions
@@ -729,16 +888,17 @@ def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
     (B, C) bool masks dead rows out of MoE routing; leading dense layers
     decode before ``blocks``.  The ssm family steps every row's
     recurrent state and ignores positions and tables (its leaves are
-    slot-resident)."""
+    slot-resident); the hybrid family's shared attention reads and
+    writes through them."""
     _check_ported(cfg)
     if cfg.arch_type == "ssm":
-        for g in range(cfg.n_layers):
-            bc = _layer(cache["blocks"], g)
-            out, nc = _ssm_step(_layer(params["blocks"], g), cfg, x, bc,
-                                x.shape[1])
-            x = x + out
-            for k in bc:
-                bc[k].copy_(nc[k])
+        x = _mamba_decode(params["blocks"], cfg, x, cache["blocks"],
+                          cfg.n_layers)
+        return layers.apply_norm(params["final_norm"], x), cache
+    if cfg.arch_type == "hybrid":
+        x = _hybrid_decode(params, cfg, x, pos, cache,
+                           block_tables=block_tables,
+                           write_tables=write_tables, live=live)
         return layers.apply_norm(params["final_norm"], x), cache
     if "dense_blocks" in params:
         x, cache["dense_blocks"] = _decode_stack(

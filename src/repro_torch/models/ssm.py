@@ -5,8 +5,10 @@ chunked SSD scan: within a chunk a masked quadratic form, across chunks
 a recurrent (B, H, P, N) state.  With ``cfg.use_kernels`` the scan is
 the hand-written CUDA kernel of ``repro_torch.kernels.ssd_scan`` (its
 plain version on CPU tensors); otherwise ``ssd_chunked``, the
-reference's XLA path.  Decode is the O(1)-per-token recurrence
-``ssm_decode``, plain PyTorch as in the reference.
+reference's XLA path.  Both train: the kernel's wrapper differentiates
+its plain version (``ops.ssd_bwd``), as the reference trains through
+XLA's autodiff of ``ssd_chunked``.  Decode is the O(1)-per-token
+recurrence ``ssm_decode``, plain PyTorch as in the reference.
 
 The causal conv is K shifted multiply-adds, as in the reference, not
 ``F.conv1d``: cuDNN would run an f32 convolution in TF32 on the card.

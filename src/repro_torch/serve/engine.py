@@ -22,7 +22,9 @@ youngest request is preempted (and replayed) when the pool runs dry.
 A family whose decode state is all per-slot recurrent (the ssm family)
 has no paged leaves: the paged engine then keeps no block pool, shares
 no prefix and never preempts, and admission overwrites the slot's state
-and conv tail whole, as in the reference.
+and conv tail whole, as in the reference.  The hybrid family pools its
+shared attention's K/V like any attention leaf, while its Mamba-2 state
+and conv tails stay one row per slot, overwritten whole at admission.
 
 ``kv_dtype`` (``quant.KV_DTYPES``) is the KV cache's storage policy:
 ``""`` keeps the parameters' dtype, ``"bf16"``/``"fp32"`` change it,
@@ -30,7 +32,7 @@ and conv tail whole, as in the reference.
 kv-head) f32 scale (``models/quant.py``).  Admission grafts the prefill
 at full precision and quantizes it once; prefix keys carry the policy,
 so a quantized pool never shares blocks written under another dtype.
-The ssm family's recurrent state ignores the policy.
+The recurrent state of the ssm and hybrid families ignores the policy.
 
 MoE configurations serve as in the reference with ``mesh=None``: the
 engine sets ``moe_dropless`` (which only the expert-parallel paths
@@ -93,14 +95,16 @@ def _first_leaf(tree):
     return tree
 
 
-def _scatter_slot_row(cache, sub, slot: int):
-    """Write a B=1 contiguous cache into row ``slot`` (axis 1, behind the
-    group axis) of the engine cache, in place."""
+def _scatter_slot_row(cache, sub, slot: int, axes):
+    """Write a B=1 contiguous cache into row ``slot`` of the engine cache,
+    in place, along each leaf's batch axis (``axes`` from
+    ``decode_cache_batch_axes``: behind one stacked axis, or two for the
+    hybrid family's Mamba-2 groups)."""
     if isinstance(cache, dict):
         for k in cache:
-            _scatter_slot_row(cache[k], sub[k], slot)
+            _scatter_slot_row(cache[k], sub[k], slot, axes[k])
         return cache
-    cache[:, slot] = sub[:, 0].to(cache.dtype)
+    cache.select(axes, slot).copy_(sub.select(axes, 0))
     return cache
 
 
@@ -250,7 +254,8 @@ class ServeEngine:
         # graft at full precision, then quantize the whole slot row to
         # the cache's policy (adds the scale leaves)
         _scatter_slot_row(self.cache, M.match_cache_policy(self.cache, sub),
-                          slot)
+                          slot, M.decode_cache_batch_axes(self.cfg,
+                                                          self.policy))
 
     def _release_slot(self, slot: int) -> None:
         self.slot_uid[slot] = -1

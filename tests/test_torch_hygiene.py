@@ -122,7 +122,7 @@ def test_unported_launcher_flags_raise(flag):
         serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-7b", "nope"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "whisper-small", "nope"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not ported yet"):
         get_config(arch)

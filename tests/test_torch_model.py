@@ -147,10 +147,10 @@ def test_paged_generate_matches_reference(models):
 
 
 def test_unported_family_raises():
-    # MoE decode and DeepSeek's leading dense layers are ported; the
-    # hybrid family (zamba2's Mamba-2 blocks with shared attention) is not
+    # the dense, MoE, ssm and hybrid families are ported; the
+    # encoder-decoder family (whisper) is not
     from repro_torch.models.config import ModelConfig
-    cfg_j = jax_config("zamba2-7b", variant="reduced")
+    cfg_j = jax_config("whisper-small", variant="reduced")
     kw = {f: getattr(cfg_j, f) for f in cfg_j.__dataclass_fields__}
     kw["use_kernels"] = kw.pop("use_pallas")
     with pytest.raises(NotImplementedError, match="not ported"):
