@@ -52,12 +52,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``cross_entropy``, ``torch.bmm``, ``index_add_``: yardsticks the
    port never calls; none for the SSD scan) from CUDA events
    with L2 flushed before each call, and the least time the card could
-   take (bytes over 3.35 TB/s, flops over the type's peak);
+   take (bytes over 3.35 TB/s, flops over the type's peak); bucketed
+   chunked admission's shapes: the paged kernel with 256 query rows a
+   slot (TinyLlama's and Zamba2's heads, ctx up to 1024) and the SSD
+   scan over one 256-row chunk from a carried state (Mamba2's and
+   Zamba2's shapes, fast and slow decay);
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
    behind ``PagedServeEngine``: 16 greedy requests, prompts of 128-1024
    tokens, 64 new tokens each.  Checks the completions, the allocator,
    the kernels' launch counts on that run, and the kernel path's logits
-   against the plain path's;
+   against the plain path's.  Then the same traffic through bucketed
+   chunked admission (chunks of CHUNK_LEN = 256 rows, the default
+   ladder 256-2048; ``_bucketed_serve``): the completions, the launches
+   (the paged kernel at 256 rows, 22 a chunk; no flash), TTFT, admission
+   time, ms a decode step, tok/s and peak beside the unbucketed run's;
+   and the f32 model (the weights cast) served unbucketed and bucketed,
+   its completions equal token for token;
 5. profile: torch.profiler over one 1024-token prefill (flash's share
    read apart) and one decode segment (the paged kernel's share read
    apart, failing at zero; device launches a layer-step);
@@ -77,7 +87,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    prompts (f32 kernel path against the plain version; bf16 paths
    against the f32 model; prefill + decode against one prefill), and
    profiles one 1024-token prefill (the scan's three launches read
-   apart) and one decode segment;
+   apart) and one decode segment; then bucketed admission through the
+   contiguous engine as in phase 4 (the scan from a carried state, 48 a
+   chunk, all ``tc``), f32 completions equal to the unbucketed ones;
+5c. serve_moe: Qwen1.5-MoE-A2.7B, then DeepSeek-MoE-16B, at full width
+   and depth, then StarCoder2-3B (``_serve_moe_model``).  On Qwen also
+   bucketed admission: ``prefill_chunked`` at chunks of 8 kernel vs
+   plain (nothing can drop), 8 of the requests unbucketed and bucketed
+   with the chunks' dropped assignments, and each bf16 path's distance
+   to the f32 model on its own path;
+5d. serve_hybrid: Zamba2-7B at full width and depth: the logit checks
+   (with the bucketed prefill: f32 against the plain path, bf16 against
+   the f32 model), 16 requests, then 8 of them unbucketed and bucketed;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run
@@ -1453,15 +1474,42 @@ def phase_kernels():
                        inst="tc"),
               ssd_case(gen, 4, 1024, 64, 64, 128, 1, bf, slow=True,
                        inst="tc")]
+    chunked = chunked_admission_cases(gen)
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
-                + ffn + gmm + split + gsa + ssd + hybrid):
+                + ffn + gmm + split + gsa + ssd + hybrid + chunked):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
             "grouped_ffn": ffn[0],
             "grouped_matmul": gmm[0], "split_f32": split[0],
             "gather_scatter_add": gsa[0],
-            "ssd_scan": ssd[0]}
+            "ssd_scan": ssd[0], "paged_attn_chunk": chunked[0],
+            "ssd_scan_h0": chunked[4]}
+
+
+def chunked_admission_cases(gen):
+    """Bucketed chunked admission's shapes (one slot, CHUNK_LEN rows a
+    chunk): kernel 2 with 256 query rows at TinyLlama's serve heads (H 32
+    over KH 4, D 64) at the longest prompt's last chunk (ctx 1024, timed)
+    and its first (ctx 256), at Zamba2's (H 32 = KH, D 112, timed) and
+    at Qwen1.5-MoE's (H 16 = KH, D 128, timed);
+    kernel 7 from a carried state (h0) over one 256-row chunk at
+    Mamba2's serve shape (H 64, P 64, N 128) and Zamba2's (H 112, N 64),
+    timed, each again with slow decay, where h0 must show."""
+    bf = torch.bfloat16
+    C = CHUNK_LEN
+    return [paged_case(gen, [1024], C, 32, 4, 64, 16, bf, timed=True),
+            paged_case(gen, [C], C, 32, 4, 64, 16, bf),
+            paged_case(gen, [1024], C, 32, 32, 112, 16, bf, timed=True),
+            paged_case(gen, [1024], C, 16, 16, 128, 16, bf, timed=True),
+            ssd_case(gen, 1, C, 64, 64, 128, 1, bf, with_h0=True,
+                     timed=True, inst="tc"),
+            ssd_case(gen, 1, C, 64, 64, 128, 1, bf, with_h0=True, slow=True,
+                     inst="tc"),
+            ssd_case(gen, 1, C, 112, 64, 64, 1, bf, with_h0=True,
+                     timed=True, inst="tc"),
+            ssd_case(gen, 1, C, 112, 64, 64, 1, bf, with_h0=True,
+                     slow=True, inst="tc")]
 
 
 # ---------------------------------------------------------------------------
@@ -1539,12 +1587,12 @@ def phase_serve():
     with torch.no_grad():
         errs = check_logits(params, cfg, M, prompts[-1])
 
-        def make_engine():
+        def make_engine(ps=prompts, **kw):
             eng = PagedServeEngine(params, cfg, n_slots=n_slots,
                                    block_len=bl, seg_len=seg_len,
                                    max_len=max(lens) + max_new,
-                                   device="cuda")
-            for p in prompts:
+                                   device="cuda", **kw)
+            for p in ps:
                 eng.submit({"tokens": p}, max_new=max_new)
             return eng
 
@@ -1595,8 +1643,17 @@ def phase_serve():
            "logit_err_decode": errs[1],
            "peak_mem_gb": peak_gb}
     print("serve " + json.dumps(res))
+    unbucketed = _serve_readings(eng, comps, wall, peak_gb, seg_len)
+    del eng      # its pool must not count in the bucketed run's peak
+    with torch.no_grad():
+        _, chunk_launches = _bucketed_serve(
+            "serve", make_engine, prompts[:2], prompts, lens, max_new, cfg,
+            seg_len, unbucketed, n_attn=cfg.n_layers)
+        _f32_token_identity("serve", params, cfg, PagedServeEngine, prompts,
+                            max_new, n_slots=n_slots, block_len=bl,
+                            seg_len=seg_len, max_len=max(lens) + max_new)
     phase_profile(params, cfg, prompts[-1], make_engine, seg_len)
-    return launches
+    return _sum_counts(launches, chunk_launches)
 
 
 def profile(fn, top: int = 8, groups=None, ranges=()):
@@ -1677,6 +1734,167 @@ def phase_profile(params, cfg, prompt, make_engine, seg_len):
         seg = decode_profile(eng, cfg, seg_len, "serve decode")
     print("profile " + json.dumps({"prefill_1024": pre,
                                    "decode_segment_8_steps": seg}))
+
+
+# ---------------------------------------------------------------------------
+# bucketed chunked admission, run inside the serve phases
+# ---------------------------------------------------------------------------
+
+# the serve phases' prefill chunk: Mamba2's and Zamba2's ssm_chunk, so a
+# prefill chunk is one scan chunk from the carried state.  The default
+# ladder over the serve traffic (max_len 1088): 256, 512, 1024, 2048
+CHUNK_LEN = 256
+# the MoE's kernel-vs-plain check of prefill_chunked: chunks of 8 rows,
+# whose capacity max(ceil(8 * 4 / 60) * 2, 8) = 8 holds every assignment,
+# so the kernel path computes the plain path's dropless function
+MOE_CHECK_CHUNK = 8
+MOE_CHECK_LENS = (21, 13)
+
+
+def _engine_run(make_engine):
+    """One run of a fresh engine from counts at 0 and a reset peak:
+    (engine, completions, wall s, launches, peak GB)."""
+    eng = make_engine()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    comps = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (eng, comps, wall, _counts(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _serve_readings(eng, comps, wall, peak_gb, seg_len):
+    """The serving metrics of one engine run."""
+    st = eng.stats
+    steps = st["segments"] * seg_len
+    ttft = sorted(c.ttft_s for c in comps.values())
+    return {"requests": len(comps), "wall_s": wall,
+            "tok_per_s": st["generated_tokens"] / wall,
+            "ms_per_decode_step": 1e3 * st["decode_s"] / steps,
+            "admit_s": st["admit_s"], "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_max_s": ttft[-1], "peak_mem_gb": peak_gb,
+            "prefills": st["prefills"],
+            "prefill_chunks": st["prefill_chunks"], "decode_steps": steps}
+
+
+def _check_served(label, eng, comps, lens, max_new, vocab):
+    """Every request completed with max_new in-vocabulary tokens; a paged
+    engine's pool drained."""
+    if sorted(comps) != list(range(len(lens))):
+        fail(f"{label}: completed {sorted(comps)}")
+    for uid, c in comps.items():
+        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+            fail(f"{label} request {uid}: {len(c.tokens)} tokens, prompt "
+                 f"{c.prompt_len}")
+        if (c.tokens < 0).any() or (c.tokens >= vocab).any():
+            fail(f"{label} request {uid}: token ids out of range")
+    alloc = getattr(eng, "alloc", None)
+    if alloc is not None and (alloc.n_free != eng.n_blocks - 1
+                              or eng._slot_blocks):
+        fail(f"{label}: the block pool did not drain")
+
+
+def _bucketed_launches(label, eng, launches, seg_len, *, n_attn, n_ssm=0,
+                       n_moe=0):
+    """The bucketed run went through chunked admission alone: per prefill
+    chunk n_attn paged launches of CHUNK_LEN rows, n_ssm scans from a
+    carried state, a MoE layer's grouped FFN and two dispatch/combine;
+    per decode step n_attn paged launches of one row and the MoE's; no
+    flash (no one-shot prefill)."""
+    chunks = eng.stats["prefill_chunks"]
+    steps = eng.stats["segments"] * seg_len
+    calls = chunks + steps
+    want = {**dict.fromkeys(launches, 0),
+            "paged_attn": n_attn * calls, "paged_attn_chunk": n_attn * chunks,
+            "ssd_scan": n_ssm * chunks, "ssd_scan_h0": n_ssm * chunks,
+            "grouped_ffn": n_moe * calls,
+            "gather_scatter_add": 2 * n_moe * calls}
+    if launches != want or not (chunks and steps):
+        fail(f"{label}: bucketed launches {launches} != expected {want} "
+             f"({chunks} prefill chunks, {steps} decode steps)")
+
+
+def _bucketed_serve(label, make_engine, warm, prompts, lens, max_new, cfg,
+                    seg_len, unbucketed, **n):
+    """The phase's traffic through its engine with chunk_len CHUNK_LEN
+    (default ladder), after a warm-up on ``warm``: the completions, the
+    launches (``_bucketed_launches``), the readings beside the unbucketed
+    run's (``unbucketed``, from ``_serve_readings``).  Returns (readings,
+    launches)."""
+    make_engine(warm, chunk_len=CHUNK_LEN).run()
+    eng, comps, wall, launches, peak = _engine_run(
+        lambda: make_engine(prompts, chunk_len=CHUNK_LEN))
+    if eng.buckets != (256, 512, 1024, 2048):
+        fail(f"{label}: ladder {eng.buckets}")
+    _check_served(f"{label} bucketed", eng, comps, lens, max_new,
+                  cfg.vocab_size)
+    _bucketed_launches(f"{label} bucketed", eng, launches, seg_len, **n)
+    res = {"chunk_len": CHUNK_LEN, "ladder": list(eng.buckets),
+           "bucketed": _serve_readings(eng, comps, wall, peak, seg_len),
+           "unbucketed": unbucketed, "launches": launches}
+    print(f"{label} bucketed ({CARD}) " + json.dumps(res))
+    return res, launches
+
+
+def _f32_token_identity(label, params, cfg, cls, prompts, max_new, **kw):
+    """The f32 model (these weights cast) served unbucketed and bucketed
+    (chunks of CHUNK_LEN) through ``cls`` on the same traffic: the
+    completions must be equal token for token."""
+    from repro_torch.utils.pytree import tree_map
+    p32 = tree_map(lambda t: t.float(), params)
+    c32 = cfg.replace(dtype="float32")
+    runs = []
+    for bkw in ({}, {"chunk_len": CHUNK_LEN}):
+        eng = cls(p32, c32, device="cuda", **kw, **bkw)
+        for p in prompts:
+            eng.submit({"tokens": p}, max_new=max_new)
+        runs.append({u: c.tokens.tolist() for u, c in eng.run().items()})
+        del eng
+    del p32
+    torch.cuda.empty_cache()
+    plain, bucketed = runs
+    diff = [(u, next(i for i, (a, b) in enumerate(zip(t, bucketed[u]))
+                     if a != b))
+            for u, t in plain.items() if t != bucketed[u]]
+    res = {"requests": len(plain), "tokens": sum(map(len, plain.values())),
+           "requests_differing": len(diff)}
+    print(f"{label} f32 bucketed vs unbucketed ({CARD}) " + json.dumps(res))
+    if diff or sorted(plain) != sorted(bucketed):
+        fail(f"{label}: f32 bucketed completions differ from unbucketed "
+             f"ones at (request, first position) {diff}")
+    return res
+
+
+def _chunked_prefill_logits(M, params, cfg, toks, C, bl=16):
+    """``prefill_chunked`` of one prompt toks (1, P) in chunks of C through
+    a fresh one-slot paged cache (rung: P rounded up to C): the last real
+    token's logits (1, V)."""
+    P = toks.shape[1]
+    rung = -(-P // C) * C
+    W = -(-rung // bl)
+    cache = M.init_paged_cache(cfg, 1, W + 1, bl, device="cuda")
+    table = torch.arange(1, W + 1, dtype=torch.int32, device="cuda")[None]
+    padded = torch.zeros((1, rung), dtype=torch.int32, device="cuda")
+    padded[:, :P] = toks
+    logits, _ = M.prefill_chunked(params, cfg, cache, {"tokens": padded}, P,
+                                  chunk_len=C, block_tables=table)
+    return logits
+
+
+def _sum_counts(*runs):
+    """Launch counts of several runs, summed by name."""
+    out = {}
+    for run in runs:
+        for k, v in run.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _rms(a, b):
+    return (a.float() - b.float()).pow(2).mean().sqrt().item()
 
 
 # ---------------------------------------------------------------------------
@@ -2046,15 +2264,12 @@ def ssm_logit_readings(M, params, cfg, prompt):
     db = _prefill_decode_logits(M, params, cfg, toks, n)
     del p32
 
-    def rms(a, b):
-        return (a - b).pow(2).mean().sqrt().item()
-
     res = {"len": S, "max_abs_logit": q32.abs().max().item(),
            "f32_kernel_vs_plain": (k32 - q32).abs().max().item(),
            "f32_kernel_to_f64_scan": (k32 - o64).abs().max().item(),
            "f32_plain_to_f64_scan": (q32 - o64).abs().max().item(),
-           "bf16_kernel_to_f32_rms": rms(kb, q32),
-           "bf16_plain_to_f32_rms": rms(qb, q32),
+           "bf16_kernel_to_f32_rms": _rms(kb, q32),
+           "bf16_plain_to_f32_rms": _rms(qb, q32),
            "bf16_kernel_to_f32_max": (kb - q32).abs().max().item(),
            "bf16_plain_to_f32_max": (qb - q32).abs().max().item(),
            "bf16_kernel_vs_plain_max": (kb - qb).abs().max().item(),
@@ -2109,7 +2324,7 @@ def phase_serve_ssm():
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import model as M
-    from repro_torch.serve import PagedServeEngine
+    from repro_torch.serve import PagedServeEngine, ServeEngine
 
     cfg = get_config("mamba2-1.3b", variant="full")
     if not cfg.use_kernels or M.has_paged_leaves(cfg):
@@ -2192,6 +2407,27 @@ def phase_serve_ssm():
            "n_params": n_params, "logit_checks": checks}
     print("serve_ssm " + json.dumps(res))
 
+    # bucketed admission through the contiguous engine (the unbucketed
+    # run's paged engine holds no pool for this family: the same layout)
+    def make_contiguous(ps, **kw):
+        e = ServeEngine(params, cfg, n_slots=n_slots, seg_len=seg_len,
+                        max_len=max(lens) + max_new, device="cuda", **kw)
+        for p in ps:
+            e.submit({"tokens": p}, max_new=max_new)
+        return e
+
+    unbucketed = _serve_readings(eng, comps, wall, peak_gb, seg_len)
+    del eng      # its state must not count in the bucketed run's peak
+    with torch.no_grad():
+        _, chunk_launches = _bucketed_serve(
+            "serve_ssm", make_contiguous, prompts[:2], prompts, lens,
+            max_new, cfg, seg_len, unbucketed, n_attn=0, n_ssm=cfg.n_layers)
+        _ssd_on_tensor_cores(dict(ssd_ops.LAUNCHES_BY_INSTANCE),
+                             chunk_launches["ssd_scan"], "serve_ssm bucketed")
+        _f32_token_identity("serve_ssm", params, cfg, ServeEngine, prompts,
+                            max_new, n_slots=n_slots, seg_len=seg_len,
+                            max_len=max(lens) + max_new)
+
     toks = torch.as_tensor(prompts[-1], device="cuda")
     groups = {"ssd_scan": ("ssd_chunk", "ssd_state"),
               "ssd_chunk_state": ("ssd_chunk_state",),
@@ -2208,7 +2444,7 @@ def phase_serve_ssm():
                                     if k != "ssd_scan"}))
     print("profile " + json.dumps({"ssm_prefill_1024": pre,
                                    "ssm_decode_segment_8_steps": seg}))
-    return launches
+    return _sum_counts(launches, chunk_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2406,6 +2642,164 @@ def _moe_decode_checks(M, moe, mg_ops, params, cfg, eng, n_moe):
                           "dead_routed_nonzero": dead_nonzero}}, decode_rows
 
 
+class _LiveTap(_RouteTap):
+    """A route tap recording each call's (idx, live), and in ``chunk`` the
+    (x, w, idx, live) of the first ``n`` calls of CHUNK_LEN rows: every
+    MoE layer of the first prefill chunk (no host sync to pick it)."""
+
+    def __init__(self, moe, n):
+        super().__init__(moe)
+        self.n, self.chunk = n, []
+
+    def __call__(self, p, c, x, live=None):
+        w, idx, aux = self.own(p, c, x, live)
+        self.record.append((idx, live))
+        if x.shape[0] == CHUNK_LEN and len(self.chunk) < self.n:
+            self.chunk.append((x, w, idx, live))
+        return w, idx, aux
+
+
+def _dropped_live(idx, live, n_experts):
+    """(assignments of live rows that ``moe_ffn``'s capacity drops, live
+    assignments) for one call.  Dead rows (bucket pads) take capacity
+    ranks, after every live row of the chunk: they never crowd one out."""
+    from repro_torch.kernels.moe_dispatch.ops import capacity_positions
+    T, k = idx.shape
+    _, keep = capacity_positions(idx.reshape(-1),
+                                 max(-(-T * k // n_experts) * 2, 8))
+    real = live.reshape(T, 1).expand(T, k).reshape(-1)
+    return int((~keep & real).sum()), int(real.sum())
+
+
+def _moe_chunk_check(M, moe, params, cfg, n_moe):
+    """``prefill_chunked`` in chunks of MOE_CHECK_CHUNK rows on two short
+    prompts (pads in each last chunk), kernel path against plain path
+    (replaying the kernel run's expert choices), last-token logits within
+    LOGIT_TOL; nothing dropped; the kernel run launched the paged kernel
+    at C rows and the MoE's kernels once a layer a chunk, the plain run
+    nothing."""
+    rng = np.random.default_rng(7)
+    C, rows = MOE_CHECK_CHUNK, []
+    for P in MOE_CHECK_LENS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, P)).astype(
+            np.int32), device="cuda")
+        with _RouteTap(moe, ids_only=True) as tap:
+            lk, n_k = _launched(lambda: _chunked_prefill_logits(
+                M, params, cfg, toks, C))
+        with _RouteTap(moe, replay=tap.record) as tap_p:
+            lp, n_p = _launched(lambda: _chunked_prefill_logits(
+                M, params, cfg.replace(use_kernels=False), toks, C))
+        chunks = -(-P // C)
+        want = {**dict.fromkeys(n_k, 0),
+                "paged_attn": cfg.n_layers * chunks,
+                "paged_attn_chunk": cfg.n_layers * chunks,
+                "grouped_ffn": n_moe * chunks,
+                "gather_scatter_add": 2 * n_moe * chunks}
+        drops = sum(_dropped(i, cfg.n_experts) for i in tap.record)
+        err = (lk - lp).abs().max().item()
+        rows.append({"prompt": P, "chunk": C, "chunks": chunks,
+                     "logit_max_abs_diff": err,
+                     "max_abs_logit": lp.abs().max().item(),
+                     "dropped": drops,
+                     "plain_choices_replaced": sum(tap_p.replaced)})
+        if n_k != want or any(n_p.values()):
+            fail(f"chunked MoE check: kernel run launched {n_k} (expected "
+                 f"{want}), plain run {n_p}")
+        if drops or not (math.isfinite(err) and err <= LOGIT_TOL):
+            fail(f"chunked MoE check at C {C}: {drops} dropped, logits "
+                 f"kernel vs plain {err} (limit {LOGIT_TOL})")
+    return rows
+
+
+def _moe_bucketed(M, moe, params, cfg, prompts, lens, max_new, make_engine,
+                  seg_len, n_moe):
+    """Bucketed admission on the MoE: the chunk check, then 8 of the 16
+    requests (every other, the longest included) unbucketed and bucketed,
+    the assignments the bucketed run's chunks drop (live rows only), and
+    the bf16 last-token logits of the longest prompt through each path
+    for ``_moe_f32_distance``.  Returns (readings, launches of the
+    bucketed run, (bucketed, unbucketed) logits)."""
+    pick = list(range(1, len(prompts), 2))
+    ps, ls = [prompts[i] for i in pick], [lens[i] for i in pick]
+    check = _moe_chunk_check(M, moe, params, cfg, n_moe)
+    eng, comps, wall, _, peak = _engine_run(lambda: make_engine(ps))
+    unbucketed = _serve_readings(eng, comps, wall, peak, seg_len)
+    del eng
+    with _LiveTap(moe, n_moe) as tap:
+        res, launches = _bucketed_serve(
+            f"serve_moe {cfg.name}", make_engine, ps[:1], ps, ls, max_new,
+            cfg, seg_len, unbucketed, n_attn=cfg.n_layers, n_moe=n_moe)
+    # (a) at the bucketed chunk's shape: the first prompt's one chunk
+    # (ls[0] real rows, the rest bucket pads, dead in ``live``) as the
+    # engine routed it, each MoE stage against its plain version
+    if len(tap.chunk) != n_moe:
+        fail(f"serve_moe bucketed: {len(tap.chunk)} chunk calls recorded")
+    dead = CHUNK_LEN - int(tap.chunk[0][3].sum())
+    if dead != CHUNK_LEN - ls[0]:
+        fail(f"serve_moe bucketed: {dead} dead rows in the first chunk, "
+             f"expected {CHUNK_LEN - ls[0]}")
+    chunk_rows = [{**_moe_layer_check(cfg, M._layer(
+        params["blocks"]["sub0"]["moe"], g), *tap.chunk[g][:3],
+        f"moe layer {g} bucketed chunk"), "dead_rows": dead}
+        for g in (0, n_moe // 2, n_moe - 1)]
+    for r in chunk_rows:
+        print(f"serve_moe layer check ({cfg.name}) " + json.dumps(r))
+    b = res["bucketed"]
+    calls = n_moe * (b["prefill_chunks"] + b["decode_steps"])
+    chunk_calls = [(i, lv) for i, lv in tap.record[-calls:]
+                   if i.shape[0] == CHUNK_LEN]
+    if len(chunk_calls) != n_moe * b["prefill_chunks"]:
+        fail(f"serve_moe bucketed: {len(chunk_calls)} chunk routing calls")
+    dropped, real = map(sum, zip(*(_dropped_live(i, lv, cfg.n_experts)
+                                   for i, lv in chunk_calls)))
+    toks = torch.as_tensor(prompts[-1], device="cuda")
+    logits = (_chunked_prefill_logits(M, params, cfg, toks, CHUNK_LEN),
+              M.prefill(params, cfg, {"tokens": toks})[0])
+    out = {"chunk_check": check, "chunk_layer_check": chunk_rows,
+           "dropped_per_chunk": dropped
+           / b["prefill_chunks"], "dropped_share_in_chunks": dropped / real,
+           "chunks": b["prefill_chunks"]}
+    print(f"serve_moe bucketed drops and chunk check ({CARD}) "
+          + json.dumps(out))
+    return {**res, **out}, launches, logits
+
+
+# the bf16 MoE's bucketed (chunks of 256) and unbucketed prefill logits,
+# each to the f32 model on its own path (RMS): the bucketed path's
+# distance at most this many times the unbucketed path's, as the hybrid's
+# SSM_BF16_RATIO.  Reading on an H100 (700 W): 0.0237 / 0.0420 = 0.565
+MOE_BF16_RATIO = 1.5
+
+
+def _moe_f32_distance(M, cfg, toks, logits_bf16):
+    """The f32 model, the same seed's draws unrounded (the bf16 weights
+    are their rounding; it does not fit beside them), through each path
+    on the longest prompt: each bf16 path's RMS distance to it."""
+    c32 = cfg.replace(dtype="float32")
+    p32 = M.init_params(
+        c32, generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        t = torch.as_tensor(toks, device="cuda")
+        l32 = (_chunked_prefill_logits(M, p32, c32, t, CHUNK_LEN),
+               M.prefill(p32, c32, {"tokens": t})[0])
+    del p32
+    torch.cuda.empty_cache()
+    lb, lu = logits_bf16
+    res = {"bf16_bucketed_to_f32_rms": _rms(lb, l32[0]),
+           "bf16_unbucketed_to_f32_rms": _rms(lu, l32[1]),
+           "f32_bucketed_vs_unbucketed_rms": _rms(l32[0], l32[1]),
+           "max_abs_logit": l32[1].abs().max().item()}
+    res["ratio"] = (res["bf16_bucketed_to_f32_rms"]
+                    / res["bf16_unbucketed_to_f32_rms"])
+    print(f"serve_moe {cfg.name} bf16 paths to the f32 model ({CARD}) "
+          + json.dumps(res))
+    if not (torch.isfinite(l32[0]).all() and res["ratio"] <= MOE_BF16_RATIO):
+        fail(f"serve_moe: the bucketed bf16 path is {res['ratio']:.3f}x as "
+             f"far from the f32 model as the unbucketed (limit "
+             f"{MOE_BF16_RATIO})")
+    return res
+
+
 def _serve_moe_model(arch):
     """One global MoE at full width and depth behind ``PagedServeEngine``
     (8 slots, block_len 16, seg_len 8), bf16, random weights from seed 0
@@ -2435,11 +2829,11 @@ def _serve_moe_model(arch):
     lens, prompts = _serve_prompts(cfg)
     max_new, n_slots, bl, seg_len = 64, 8, 16, 8
 
-    def make_engine():
+    def make_engine(ps=prompts, **kw):
         eng = PagedServeEngine(params, cfg, n_slots=n_slots, block_len=bl,
                                seg_len=seg_len, max_len=max(lens) + max_new,
-                               device="cuda")
-        for p in prompts:
+                               device="cuda", **kw)
+        for p in ps:
             eng.submit({"tokens": p}, max_new=max_new)
         return eng
 
@@ -2546,9 +2940,21 @@ def _serve_moe_model(arch):
     print(f"serve_moe ({CARD}) " + json.dumps(res))
     print(f"serve_moe profile ({arch}, decode segment of {seg_len} steps) "
           + json.dumps(seg))
-    del params, eng, comps, tap
+    del eng, comps, tap
+    if arch != SERVE_MOE_ARCHS[0]:
+        del params
+        torch.cuda.empty_cache()
+        return launches
+    # bucketed admission on the first MoE (Qwen1.5-MoE-A2.7B)
+    with torch.no_grad():
+        _, chunk_launches, logits = _moe_bucketed(
+            M, moe, params, cfg, prompts, lens, max_new, make_engine,
+            seg_len, n_moe)
+    _gsa_all_vec(md_ops, f"serve_moe {arch} bucketed")
+    del params
     torch.cuda.empty_cache()
-    return launches
+    _moe_f32_distance(M, cfg, prompts[-1], logits)
+    return _sum_counts(launches, chunk_launches)
 
 
 def _serve_starcoder():
@@ -2684,17 +3090,30 @@ def hybrid_logit_check(M, params, cfg, prompt, seed):
                  f"{n_k} (expected {want}), plain path {n_p}")
         return lk, lp
 
+    # bucketed admission's prefill: chunks of CHUNK_LEN, no flash
+    chunks = -(-toks.shape[1] // CHUNK_LEN)
+    want_c = {"paged_attn": n_attn * chunks, "paged_attn_chunk": n_attn * chunks,
+              "ssd_scan": cfg.n_layers * chunks,
+              "ssd_scan_h0": cfg.n_layers * chunks}
+
+    def chunked(p, c):
+        lc, n_c = _launched(lambda: _chunked_prefill_logits(
+            M, p, c, toks, CHUNK_LEN))
+        if {**dict.fromkeys(n_c, 0), **want_c} != n_c:
+            fail(f"serve_hybrid chunked logits ({c.dtype}): launched {n_c} "
+                 f"(expected {want_c})")
+        return lc[0]
+
     kb, qb = paths(params, cfg)
+    cb = chunked(params, cfg)
     cfg32 = cfg.replace(dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
     k32, q32 = paths(p32, cfg32)
+    c32 = chunked(p32, cfg32)
     wo = p32["shared_attn"]["attn"]["wo"]
     wo.zero_()
     a32 = _hybrid_path_logits(M, p32, cfg32, toks, cont)
     del p32
-
-    def rms(a, b):
-        return (a - b).pow(2).mean().sqrt().item()
 
     err = (k32 - q32).abs().max(-1).values
     reach = (k32 - a32).abs().max(-1).values
@@ -2702,12 +3121,18 @@ def hybrid_logit_check(M, params, cfg, prompt, seed):
            "f32_prefill_kernel_vs_plain": err[0].item(),
            "f32_decode_kernel_vs_plain": err[1:].max().item(),
            "f32_attn_reach_min": reach.min().item(),
-           "bf16_kernel_to_f32_rms": rms(kb, q32),
-           "bf16_plain_to_f32_rms": rms(qb, q32),
+           "bf16_kernel_to_f32_rms": _rms(kb, q32),
+           "bf16_plain_to_f32_rms": _rms(qb, q32),
            "bf16_kernel_vs_plain_max": (kb - qb).abs().max().item(),
-           "bf16_argmax_equal": bool((kb.argmax(-1) == qb.argmax(-1)).all())}
+           "bf16_argmax_equal": bool((kb.argmax(-1) == qb.argmax(-1)).all()),
+           "f32_bucketed_prefill_vs_plain": (c32 - q32[0]).abs().max().item(),
+           "bf16_bucketed_prefill_to_f32_rms": _rms(cb, q32[0]),
+           "bf16_unbucketed_prefill_to_f32_rms": _rms(kb[0], q32[0])}
     res["bf16_rms_ratio"] = (res["bf16_kernel_to_f32_rms"]
                              / res["bf16_plain_to_f32_rms"])
+    res["bf16_bucketed_rms_ratio"] = (
+        res["bf16_bucketed_prefill_to_f32_rms"]
+        / res["bf16_unbucketed_prefill_to_f32_rms"])
     print(f"serve_hybrid logits ({CARD}) " + json.dumps(res))
     if not (torch.isfinite(kb).all() and torch.isfinite(k32).all()) or \
             not err.max() <= HYBRID_F32_LOGIT_TOL:
@@ -2720,6 +3145,15 @@ def hybrid_logit_check(M, params, cfg, prompt, seed):
         fail(f"serve_hybrid: the bf16 kernel path is "
              f"{res['bf16_rms_ratio']:.3f}x as far from the f32 model as "
              f"the plain path (limit {SSM_BF16_RATIO})")
+    if not (torch.isfinite(c32).all()
+            and res["f32_bucketed_prefill_vs_plain"] <= HYBRID_F32_LOGIT_TOL):
+        fail(f"serve_hybrid: f32 bucketed prefill logits differ from the "
+             f"plain path's by {res['f32_bucketed_prefill_vs_plain']} > "
+             f"{HYBRID_F32_LOGIT_TOL}")
+    if not res["bf16_bucketed_rms_ratio"] <= SSM_BF16_RATIO:
+        fail(f"serve_hybrid: the bf16 bucketed prefill is "
+             f"{res['bf16_bucketed_rms_ratio']:.3f}x as far from the f32 "
+             f"model as the unbucketed (limit {SSM_BF16_RATIO})")
     return res
 
 
@@ -2764,11 +3198,11 @@ def phase_serve_hybrid():
         checks = [hybrid_logit_check(M, params, cfg, prompts[15], 15)]
         torch.cuda.empty_cache()
 
-        def make_engine(ps, new=max_new):
+        def make_engine(ps, new=max_new, **kw):
             eng = PagedServeEngine(params, cfg, n_slots=n_slots,
                                    seg_len=seg_len,
                                    max_len=max(lens) + max_new,
-                                   device="cuda")
+                                   device="cuda", **kw)
             for p in ps:
                 eng.submit({"tokens": p}, max_new=new)
             return eng
@@ -2824,6 +3258,22 @@ def phase_serve_hybrid():
            "logit_checks": checks}
     print(f"serve_hybrid ({CARD}) " + json.dumps(res))
 
+    # bucketed admission on 8 of the requests (every other, the longest
+    # included), beside the same 8 unbucketed
+    pick = list(range(1, len(prompts), 2))
+    ps, ls = [prompts[i] for i in pick], [lens[i] for i in pick]
+    del eng      # its pool must not count in the runs' peaks below
+    with torch.no_grad():
+        e8, c8, w8, _, pk8 = _engine_run(lambda: make_engine(ps))
+        unbucketed = _serve_readings(e8, c8, w8, pk8, seg_len)
+        del e8
+        _, chunk_launches = _bucketed_serve(
+            "serve_hybrid", make_engine, ps[:1], ps, ls, max_new, cfg,
+            seg_len, unbucketed, n_attn=n_attn, n_ssm=cfg.n_layers)
+        _ssd_on_tensor_cores(dict(ssd_ops.LAUNCHES_BY_INSTANCE),
+                             chunk_launches["ssd_scan"],
+                             "serve_hybrid bucketed")
+
     with torch.no_grad():
         eng = make_engine(prompts)
         eng.step()        # admits the first 8 requests, runs a segment
@@ -2832,7 +3282,7 @@ def phase_serve_hybrid():
     print("profile " + json.dumps({"hybrid_decode_segment_8_steps": seg}))
     del params, eng
     torch.cuda.empty_cache()
-    return launches
+    return _sum_counts(launches, chunk_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3147,7 +3597,9 @@ def _counts():
             "grouped_matmul": mg_ops.LAUNCHES["grouped_matmul"],
             "split_f32": mg_ops.LAUNCHES["split_f32"],
             "gather_scatter_add": md_ops.LAUNCHES,
-            "ssd_scan": ssd_ops.LAUNCHES}
+            "ssd_scan": ssd_ops.LAUNCHES,
+            "paged_attn_chunk": pa_ops.LAUNCHES_CHUNK,
+            "ssd_scan_h0": ssd_ops.LAUNCHES_H0}
 
 
 def _zero_counts():
@@ -3160,6 +3612,7 @@ def _zero_counts():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
     pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = ssd_ops.LAUNCHES = 0
+    pa_ops.LAUNCHES_CHUNK = ssd_ops.LAUNCHES_H0 = 0
     for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE,
               mg_ops.LAUNCHES, mg_ops.LAUNCHES_BY_INSTANCE,
               md_ops.LAUNCHES_BY_INSTANCE, ssd_ops.LAUNCHES_BY_INSTANCE):
@@ -5333,6 +5786,14 @@ KERNELS = {
     "ssd_scan": {
         "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:91"},
+    # chunked admission: the paged kernel with CHUNK_LEN query rows a slot
+    "paged_attn_chunk": {
+        "route": "cuda", "source": "src/repro_torch/csrc/paged_attn.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:159"},
+    # chunked admission: the scan from a carried state (init_state)
+    "ssd_scan_h0": {
+        "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:91"},
 }
 
 # the path phases, in the order they run
@@ -5355,11 +5816,19 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     name = phase_card()
     phase_build()
+    t0 = time.perf_counter()
     rows = phase_kernels()
-    # launches: the counts of every path run that drives the kernel
-    paths = [run() for run in PATHS]
+    print(f"phase kernels: {time.perf_counter() - t0:.1f}s")
+    # launches: the counts of every path run that drives the kernel; each
+    # phase's wall time, so that the script's growth stays visible
+    paths = []
+    for run in PATHS:
+        t0 = time.perf_counter()
+        paths.append(run())
+        print(f"phase {run.__name__[6:]}: {time.perf_counter() - t0:.1f}s")
     launches = {k: sum(path.get(k, 0) for path in paths) for k in KERNELS}
     line = []
     for kname in KERNELS:
@@ -5373,6 +5842,7 @@ def main() -> int:
                      "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"],
                      "library_ms": main_row["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

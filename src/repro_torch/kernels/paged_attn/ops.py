@@ -30,7 +30,9 @@ reference, and required for quantized pools.
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises — nothing falls back.  ``LAUNCHES``
 counts launches over unquantized pools and ``LAUNCHES_QUANT`` over
-quantized ones, so a run can show which branch the path went through.
+quantized ones, so a run can show which branch the path went through;
+``LAUNCHES_CHUNK`` counts the launches of either with more than one
+query row a slot (C > 1: chunked admission).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
 LAUNCHES = 0
 LAUNCHES_QUANT = 0
+LAUNCHES_CHUNK = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 _POOL_DTYPES = {**_DTYPES, **_QUANT_DTYPES}
@@ -187,7 +190,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
     ``k_scale``/``v_scale``: f32 (n_blocks, block_len, KH) for int8/fp8
     pools, which need ``out_dtype``.
     """
-    global LAUNCHES, LAUNCHES_QUANT
+    global LAUNCHES, LAUNCHES_QUANT, LAUNCHES_CHUNK
     _check_inputs(q, k_pool, v_pool, block_table, pos, k_scale, v_scale,
                   out_dtype)
     quantized = k_scale is not None
@@ -243,4 +246,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, *,
         LAUNCHES_QUANT += 1
     else:
         LAUNCHES += 1
+    if C > 1:
+        LAUNCHES_CHUNK += 1
     return out

@@ -27,7 +27,9 @@ and pointers alone, before the launch:
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises — nothing falls back.  ``LAUNCHES`` counts
 the calls that launch the kernel (three CUDA launches on one stream
-each), ``LAUNCHES_BY_INSTANCE`` the same calls by instance, so a run can
+each), ``LAUNCHES_BY_INSTANCE`` the same calls by instance, and
+``LAUNCHES_H0`` those of them that start from a carried ``init_state``
+(chunked admission), so a run can
 show the path went through it.
 
 Under autograd a CUDA call runs inside ``_SSD``, a
@@ -51,6 +53,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 LAUNCHES = 0
 LAUNCHES_BY_INSTANCE = {"tc": 0, "general": 0, "f32": 0}
+LAUNCHES_H0 = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 1024
 TC_MAX_N = 256   # csrc/ssd_scan.cu: the tc instance's shared tiles
@@ -195,7 +198,7 @@ def ssd_bwd(saved, dy, dh_final, *, chunk: int):
 
 def _ssd_fwd(xh, dt, A, Bh, Ch, *, chunk, init_state):
     """The kernel launch (CUDA tensors)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_H0
     for name, t in (("xh", xh), ("Bh", Bh), ("Ch", Ch)):
         if t.stride(3) != 1:
             raise ValueError(f"ssd: {name} needs unit stride along its last "
@@ -241,4 +244,6 @@ def _ssd_fwd(xh, dt, A, Bh, Ch, *, chunk, init_state):
     _build.check(err, f"ssd ({inst})", err_str)
     LAUNCHES += 1
     LAUNCHES_BY_INSTANCE[inst] += 1
+    if init_state is not None:
+        LAUNCHES_H0 += 1
     return y, hout

@@ -17,6 +17,9 @@ features run; the reference's other flags are accepted and refused with
       --variant reduced --device cpu --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --variant full --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --variant reduced --device cpu --mixed --bucket --chunk-len 4 \\
+      --check-unbucketed
 
 ``--arch`` takes every ported architecture (``configs/registry.py``):
 the dense ``tinyllama-1.1b`` and ``starcoder2-3b``, the MoEs
@@ -41,10 +44,6 @@ from repro_torch.utils.device import resolve_device
 _NOT_PORTED = [
     ("--temperature", {"type": float, "default": 0.0}),
     ("--top-k", {"type": int, "default": 0}),
-    ("--bucket", {"action": "store_true"}),
-    ("--chunk-len", {"type": int, "default": 0}),
-    ("--buckets", {"default": ""}),
-    ("--check-unbucketed", {"action": "store_true"}),
     ("--sharded", {"action": "store_true"}),
     ("--overlap-a2a", {"action": "store_true"}),
     ("--check-unsharded", {"action": "store_true"}),
@@ -91,11 +90,26 @@ def parse_args(argv=None):
     ap.add_argument("--check-unquantized", action="store_true",
                     help="replay the same traffic at full precision and "
                          "fail unless greedy completions match")
+    ap.add_argument("--bucket", action="store_true",
+                    help="bucketed chunked-prefill admission: prompts "
+                         "padded up a ladder, prefilled in chunks")
+    ap.add_argument("--chunk-len", type=int, default=4,
+                    help="bucketed admission: tokens per prefill chunk")
+    ap.add_argument("--buckets", default="",
+                    help="comma-separated bucket ladder (default: "
+                         "powers-of-two chunk multiples)")
+    ap.add_argument("--check-unbucketed", action="store_true",
+                    help="replay the same traffic through the unbucketed "
+                         "engine and fail unless completions match")
     for flag, kw in _NOT_PORTED:
         ap.add_argument(flag, help="not ported yet", **kw)
     args = ap.parse_args(argv)
     if args.check_unquantized and args.kv_dtype not in ("int8", "fp8"):
         ap.error("--check-unquantized requires a quantized --kv-dtype")
+    if args.buckets and not args.bucket:
+        ap.error("--buckets requires --bucket")
+    if args.check_unbucketed and not args.bucket:
+        ap.error("--check-unbucketed requires --bucket")
     for flag, kw in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) != kw.get("default",
                                                               False):
@@ -119,15 +133,21 @@ def main(argv=None):
     params = M.init_params(cfg, generator=gen)
     kw = dict(n_slots=args.slots, max_len=max_len, sampler=Greedy(),
               seg_len=args.seg_len, device=device)
+    bucket_kw = {}
+    if args.bucket:
+        bucket_kw["chunk_len"] = args.chunk_len
+        if args.buckets:
+            bucket_kw["buckets"] = [int(b) for b in args.buckets.split(",")]
 
-    def make_engine(kv_dtype):
+    def make_engine(kv_dtype, bucketed=True):
+        bkw = bucket_kw if bucketed else {}
         if args.paged:
             eng = PagedServeEngine(params, cfg, block_len=args.block_len,
                                    n_blocks=args.blocks or None,
                                    lazy=not args.eager_blocks,
-                                   kv_dtype=kv_dtype, **kw)
+                                   kv_dtype=kv_dtype, **kw, **bkw)
         else:
-            eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, **kw)
+            eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, **kw, **bkw)
         for prompt, (_, g) in zip(prompts, lengths):
             eng.submit({"tokens": prompt}, max_new=g)
         return eng
@@ -152,6 +172,9 @@ def main(argv=None):
     print(f"{args.arch} ({args.variant}) on {dev_name}: {len(comps)} "
           f"requests, {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
           f"{st['segments']} segments, slot util {util:.0%})")
+    if args.bucket:
+        print(f"bucketed: chunk_len={engine.chunk_len} "
+              f"ladder={list(engine.buckets)} admit_s={st['admit_s']:.3f}")
     if args.paged:
         read_path = (paged_read_path(cfg) if M.has_paged_leaves(cfg)
                      else "none, the state is per slot")
@@ -180,6 +203,17 @@ def main(argv=None):
                              f"full precision: {got} != {want}")
         print(f"check-unquantized: {args.kv_dtype} completions match full "
               f"precision")
+    if args.check_unbucketed:
+        # the same layout and KV policy, one-shot prefill admission
+        ref = make_engine(args.kv_dtype, bucketed=False)
+        want = {u: c.tokens.tolist() for u, c in ref.run().items()}
+        got = {u: c.tokens.tolist() for u, c in comps.items()}
+        if got != want:
+            raise SystemExit(f"bucketed completions diverged from "
+                             f"unbucketed: {got} != {want}")
+        print(f"check-unbucketed: completions match (admit_s "
+              f"{st['admit_s']:.3f} bucketed, {ref.stats['admit_s']:.3f} "
+              f"unbucketed)")
     return comps
 
 

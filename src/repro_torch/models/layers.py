@@ -341,11 +341,13 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
     are then quantized at write time (so the same tokens always give the
     same block bytes), the gather path dequantizes the attended view to
     x's dtype, and the kernel takes the scales and dequantizes each row
-    in registers.  Attention over the prompt (prefill) never sees the
-    quantized cache.
+    in registers.  One-shot prefill never sees the quantized cache; a
+    chunked prefill's queries attend over the quantized rows the prompt's
+    earlier chunks (and their own) wrote, as in the reference.
 
     Contiguous (``block_table=None``): caches (B,Smax,KH,Dh), written at
-    ``pos``.  Paged: caches are block pools (n_blocks,block_len,KH,Dh),
+    ``pos``; positions >= Smax (a chunked prefill's bucket pads) are not
+    written.  Paged: caches are block pools (n_blocks,block_len,KH,Dh),
     written through ``write_table`` (defaults to ``block_table``) and
     read through ``block_table`` by the kernel or the gather.  The cache
     tensors are updated in place; returns (out, cache).
@@ -362,9 +364,17 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
         new = {"k": codes[0], "v": codes[1], "k_scale": scales[0],
                "v_scale": scales[1]}
     if block_table is None:
-        bidx = torch.arange(B, device=x.device)[:, None]
+        rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+        cols = pos
+        if C > 1:
+            # a chunked prefill's bucket pads past the capacity are
+            # dropped, as the reference's scatter drops out-of-range rows
+            # (a boolean selection: one host sync a chunk and layer)
+            keep = pos < cache["k"].shape[1]
+            rows, cols = rows[keep], pos[keep]
+            new = {key: val[keep] for key, val in new.items()}
         for key, val in new.items():
-            cache[key][bidx, pos] = val.to(cache[key].dtype)
+            cache[key][rows, cols] = val.to(cache[key].dtype)
         kg, vg = cache["k"], cache["v"]
         if quantized:
             kg = quant.dequantize(kg, cache["k_scale"], x.dtype)

@@ -28,9 +28,10 @@ family (``arch_type="hybrid"``, Zamba2) stacks the same blocks as
 ``mamba_groups`` (n_groups, period, ...) and, when ``n_layers % period``,
 ``mamba_tail`` (tail, ...), with ONE ``shared_attn`` block (attention +
 MLP) run at the top of every group and once more before the tail; its
-gradient is the sum over those applications.  Chunked prefill with a
-carried state (C > 1 in ``_chunk_hidden``) is not ported yet and
-raises.
+gradient is the sum over those applications.  ``prefill_chunked``
+feeds a prompt through the decode body in fixed chunks (bucketed
+admission): C > 1 in ``_chunk_hidden``, the Mamba-2 blocks through
+``ssm_prefill_chunk`` with a carried state.
 
 Caches follow the reference's layout too.  Contiguous decode cache:
 ``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh); for the ssm
@@ -837,21 +838,22 @@ def paged_cache_nbytes(cfg: ModelConfig, n_slots: int, n_blocks: int,
 # serving: decode
 # ---------------------------------------------------------------------------
 
-def _ssm_step(bp, cfg: ModelConfig, x, bc, C: int):
-    """One Mamba-2 block: the O(1) recurrence for C=1; the C>1 chunk path
-    (``ssm_prefill_chunk``) is not ported yet and raises."""
+def _ssm_step(bp, cfg: ModelConfig, x, bc, C: int, n_valid=None):
+    """One Mamba-2 block: the O(1) recurrence for C=1, the SSD chunk path
+    (state and conv carry, pads frozen by ``n_valid``) for C>1."""
     h = layers.apply_norm(bp["ln"], x)
     if C == 1:
         return ssm.ssm_decode(bp["mixer"], cfg, h, bc)
-    return ssm.ssm_prefill_chunk(bp["mixer"], cfg, h, bc)
+    return ssm.ssm_prefill_chunk(bp["mixer"], cfg, h, bc, n_valid)
 
 
-def _mamba_decode(stack, cfg: ModelConfig, x, cache, n: int):
+def _mamba_decode(stack, cfg: ModelConfig, x, cache, n: int, n_valid=None):
     """x through the ``n`` stacked Mamba-2 blocks of ``stack``, each
     block's ``{"state", "conv"}`` row of ``cache`` stepped in place."""
     for i in range(n):
         bc = _layer(cache, i)
-        out, nc = _ssm_step(_layer(stack, i), cfg, x, bc, x.shape[1])
+        out, nc = _ssm_step(_layer(stack, i), cfg, x, bc, x.shape[1],
+                            n_valid)
         x = x + out
         for k in bc:
             bc[k].copy_(nc[k])
@@ -859,11 +861,13 @@ def _mamba_decode(stack, cfg: ModelConfig, x, cache, n: int):
 
 
 def _hybrid_decode(params, cfg: ModelConfig, x, pos, cache, *,
-                   block_tables=None, write_tables=None, live=None):
+                   block_tables=None, write_tables=None, n_valid=None,
+                   live=None):
     """The hybrid family's decode body: the shared block over ``attn``
     entry g at the top of group g, then the group's Mamba-2 blocks; with
     a tail, the shared block over the last ``attn`` entry, then the tail.
-    The cache is stepped in place."""
+    ``n_valid`` reaches every Mamba-2 block of every group and of the
+    tail.  The cache is stepped in place."""
     shared = params["shared_attn"]
     period, n_groups, tail = _hybrid_layout(cfg)
     kw = dict(kind="full", block_tables=block_tables,
@@ -872,33 +876,47 @@ def _hybrid_decode(params, cfg: ModelConfig, x, pos, cache, *,
         x, _ = _block_decode(shared, cfg, x, pos, _layer(cache["attn"], g),
                              **kw)
         x = _mamba_decode(_layer(params["mamba_groups"], g), cfg, x,
-                          _layer(cache["mamba"], g), period)
+                          _layer(cache["mamba"], g), period, n_valid)
     if tail:
         x, _ = _block_decode(shared, cfg, x, pos,
                              _layer(cache["attn"], n_groups), **kw)
-        x = _mamba_decode(params["mamba_tail"], cfg, x, cache["tail"], tail)
+        x = _mamba_decode(params["mamba_tail"], cfg, x, cache["tail"], tail,
+                          n_valid)
     return x
 
 
 def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
-                  block_tables=None, write_tables=None, live=None):
-    """Shared decode body: pre-embedded inputs x (B, C, D) at positions
-    pos (B, C) int32, written into (and attended against) the cache in
-    place.  Returns (final-normed hidden (B, C, D), cache).  ``live``
-    (B, C) bool masks dead rows out of MoE routing; leading dense layers
-    decode before ``blocks``.  The ssm family steps every row's
-    recurrent state and ignores positions and tables (its leaves are
-    slot-resident); the hybrid family's shared attention reads and
-    writes through them."""
+                  block_tables=None, write_tables=None, n_valid=None,
+                  live=None):
+    """Shared decode / chunked-prefill body: pre-embedded inputs x
+    (B, C, D) at positions pos (B, C) int32, written into (and attended
+    against) the cache in place.  Returns (final-normed hidden (B, C, D),
+    cache).
+
+    C=1 is the decode step.  C>1 is one chunked-prefill chunk: attention
+    needs no extra masking (per-query causal masks, and bucket-pad
+    writes land past every real query's reach), but the Mamba-2
+    recurrence integrates everything it sees, so ``n_valid`` (B,) freezes
+    state and conv-tail updates at pad positions.  ``live`` (B, C) bool
+    masks dead rows out of MoE routing; when omitted it is derived from
+    ``n_valid``, so bucket pads are dead rows too.  Leading dense layers
+    decode before ``blocks``.  The ssm family ignores positions and
+    tables (its leaves are slot-resident); the hybrid family's shared
+    attention reads and writes through them."""
     _check_ported(cfg)
+    C = x.shape[1]
+    if live is None and n_valid is not None:
+        live = (torch.arange(C, device=x.device)[None, :]
+                < n_valid.to(x.device)[:, None])
     if cfg.arch_type == "ssm":
         x = _mamba_decode(params["blocks"], cfg, x, cache["blocks"],
-                          cfg.n_layers)
+                          cfg.n_layers, n_valid)
         return layers.apply_norm(params["final_norm"], x), cache
     if cfg.arch_type == "hybrid":
         x = _hybrid_decode(params, cfg, x, pos, cache,
                            block_tables=block_tables,
-                           write_tables=write_tables, live=live)
+                           write_tables=write_tables, n_valid=n_valid,
+                           live=live)
         return layers.apply_norm(params["final_norm"], x), cache
     if "dense_blocks" in params:
         x, cache["dense_blocks"] = _decode_stack(
@@ -928,6 +946,72 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
                              block_tables=block_tables,
                              live=None if live is None else live[:, None])
     return _head(params, cfg, h)[:, 0], cache
+
+
+def _zero_recurrent(cfg: ModelConfig, cache) -> None:
+    """Zero the leaves without a sequence axis (the Mamba-2 state and
+    conv tail), in place."""
+    seq = decode_cache_seq_axes(cfg, policy=quant.policy_of(cache))
+    _map(lambda leaf, ax: leaf.zero_() if ax < 0 else leaf, cache, seq)
+
+
+def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
+                    chunk_len: int, block_tables=None, write_tables=None):
+    """Prefill a prompt THROUGH the decode cache in fixed-size chunks.
+
+    ``batch["tokens"]`` (B, T_pad) is padded (any values) so that the
+    input sequence, ``decode_offset(cfg) + T_pad``, is a multiple of
+    ``chunk_len``; ``prompt_len`` (int or (B,)) is the true token count.
+    ``cache`` is a decode cache, updated in place: contiguous, or the
+    paged slot view plus pools with ``block_tables`` (B, nbt) wide enough
+    for every padded position, written through ``write_tables`` (default
+    ``block_tables``).  Each chunk runs the shared ``_chunk_hidden``
+    decode body, so prompt processing and decode are one code path; the
+    chunks are a Python loop.
+
+    Pad positions continue past the prompt: their attention writes land
+    beyond every real query's causal reach (decode overwrites a position
+    before attending to it), their contiguous writes past the cache's
+    capacity are dropped (``layers.attention_decode``), their paged
+    writes go through table rows pointing at the trash block, they are
+    dead rows for MoE routing, and the ssm/hybrid recurrence is frozen
+    for them (``n_valid``).  Recurrent leaves (no sequence axis) are
+    zeroed first, so a reused slot's stale state never leaks into the
+    new request.
+
+    Returns (logits of the last real token (B, V) f32, cache).
+    """
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    B, T_pad = tokens.shape
+    offset = decode_offset(cfg)
+    S_total = offset + T_pad
+    C = chunk_len
+    if S_total % C:
+        raise ValueError(
+            f"padded input length {S_total} (offset {offset} + tokens "
+            f"{T_pad}) must be a multiple of chunk_len {C}")
+    dev = tokens.device
+    _zero_recurrent(cfg, cache)
+    x_full = _embed(params, cfg, tokens)
+    total_real = offset + torch.as_tensor(
+        prompt_len, dtype=torch.int64, device=dev).reshape(-1).expand(B)
+    rows = torch.arange(B, device=dev)
+    ar = torch.arange(C, device=dev)
+    h_last = torch.zeros((B, x_full.shape[-1]), dtype=x_full.dtype,
+                         device=dev)
+    for start in range(0, S_total, C):
+        pos_c = (start + ar).to(torch.int32)[None].expand(B, C)
+        n_valid = torch.clamp(total_real - start, 0, C)
+        h, cache = _chunk_hidden(params, cfg, cache,
+                                 x_full[:, start:start + C], pos_c,
+                                 block_tables=block_tables,
+                                 write_tables=write_tables, n_valid=n_valid)
+        off = total_real - 1 - start
+        here = (off >= 0) & (off < C)
+        h_sel = h[rows, torch.clamp(off, 0, C - 1)]
+        h_last = torch.where(here[:, None], h_sel, h_last)
+    return _head(params, cfg, h_last[:, None])[:, 0], cache
 
 
 def greedy_sample(logits):

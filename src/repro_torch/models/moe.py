@@ -21,6 +21,8 @@ so a freed slot's garbage lane combines with weight 0 (its routed
 output is exactly 0).  As in the reference's one-device path, dead rows
 still take capacity ranks in ``moe_ffn``: with at most 8 decode slots
 the capacity (at least 8) holds every assignment, so nothing can drop.
+A chunked prefill's bucket pads are dead rows at the chunk's tail: they
+rank after every live row, so they never crowd one out.
 
 Not ported yet, and refused with ``NotImplementedError``: the
 expert-parallel paths (``moe_impl`` "a2a" and "replicated_ep", and any

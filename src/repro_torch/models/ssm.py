@@ -12,8 +12,9 @@ recurrence ``ssm_decode``, plain PyTorch as in the reference.
 
 The causal conv is K shifted multiply-adds, as in the reference, not
 ``F.conv1d``: cuDNN would run an f32 convolution in TF32 on the card.
-Chunked prefill with a carried state (``ssm_prefill_chunk``) waits for
-bucketed admission and raises.
+Bucketed admission feeds a prompt through ``ssm_prefill_chunk`` in
+chunks: the same scan from the carried state (the kernel's
+``init_state``), with bucket pads frozen out by ``n_valid``.
 """
 from __future__ import annotations
 
@@ -60,14 +61,18 @@ def _split_proj(cfg: ModelConfig, proj):
     return z, xBC, dt
 
 
-def _causal_conv(cfg: ModelConfig, xBC, conv_w, conv_b, conv_cache=None):
-    """Depthwise causal conv along S.  xBC: (B, S, C)."""
-    K = cfg.ssm_conv
-    S = xBC.shape[1]
+def _conv_input(cfg: ModelConfig, xBC, conv_cache=None):
+    """(B, K-1+S, C): the carried conv tail (zeros without one) before
+    xBC, the window the causal conv and the next tail read."""
     if conv_cache is not None:
-        xp = torch.cat([conv_cache.to(xBC.dtype), xBC], dim=1)
-    else:
-        xp = F.pad(xBC, (0, 0, K - 1, 0))
+        return torch.cat([conv_cache.to(xBC.dtype), xBC], dim=1)
+    return F.pad(xBC, (0, 0, cfg.ssm_conv - 1, 0))
+
+
+def _causal_conv(cfg: ModelConfig, xp, conv_w, conv_b):
+    """Depthwise causal conv along S over ``_conv_input``'s xp."""
+    K = cfg.ssm_conv
+    S = xp.shape[1] - (K - 1)
     out = sum(xp[:, i:i + S] * conv_w[i] for i in range(K))
     return F.silu(out + conv_b)
 
@@ -143,21 +148,38 @@ def skip(y, xs, D):
 
 
 def ssm_forward(p, cfg: ModelConfig, x, *, conv_cache=None, init_state=None,
-                return_cache: bool = False):
+                return_cache: bool = False, n_valid=None):
     """Full-sequence Mamba-2 block.  x: (B, S, D) -> (B, S, D); with
-    ``return_cache`` also the decode cache entry ``{"state", "conv"}``."""
+    ``return_cache`` also the decode cache entry ``{"state", "conv"}``.
+    The scan starts from ``init_state`` (kernel 7's ``init_state`` on the
+    kernel path) and the conv from the carried ``conv_cache``.
+
+    ``n_valid`` (B,) masks bucket padding at the tail of a chunked
+    prefill's chunk: positions ``>= n_valid`` contribute nothing to the
+    carried state (their softplus'd dt is zeroed, so the decay is
+    exp(0) = 1 and the update term vanishes), and each row's carried
+    conv tail is the K-1 inputs ending at its own ``n_valid``, gathered
+    per row.
+    """
     B, S, D = x.shape
     H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    d_inner, G = cfg.d_inner, cfg.ssm_groups
+    d_inner, G, K = cfg.d_inner, cfg.ssm_groups, cfg.ssm_conv
     proj = x @ p["in_proj"]
     z, xBC, dt = _split_proj(cfg, proj)
-    xBC_conv = _causal_conv(cfg, xBC, p["conv_w"], p["conv_b"], conv_cache)
+    xp = _conv_input(cfg, xBC, conv_cache)
+    xBC_conv = _causal_conv(cfg, xp, p["conv_w"], p["conv_b"])
     # views of the conv output: the kernel reads them through strides
     xs = xBC_conv[..., :d_inner].reshape(B, S, H, Pd)
     Bs = xBC_conv[..., d_inner:d_inner + G * N].reshape(B, S, G, N)
     Cs = xBC_conv[..., d_inner + G * N:].reshape(B, S, G, N)
     dt = F.softplus(dt.float() + p["dt_bias"])
+    if n_valid is not None:
+        n_valid = torch.clamp(n_valid.to(x.device).long(), 0, S)
+        valid = torch.arange(S, device=x.device)[None, :] < n_valid[:, None]
+        dt = torch.where(valid[..., None], dt, torch.zeros_like(dt))
     A = -torch.exp(p["A_log"])
+    if init_state is not None:
+        init_state = init_state.float().contiguous()
 
     if cfg.use_kernels:
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -173,27 +195,27 @@ def ssm_forward(p, cfg: ModelConfig, x, *, conv_cache=None, init_state=None,
     y = skip(y, xs, p["D"]).reshape(B, S, d_inner).to(x.dtype)
     y = layers.apply_norm(p["norm"], y * F.silu(z))
     out = y @ p["out_proj"]
-    if return_cache:
-        K = cfg.ssm_conv
-        if conv_cache is not None:
-            # short continuation chunks: the carried tail still holds the
-            # older inputs the next window needs
-            tail = torch.cat([conv_cache.to(xBC.dtype), xBC],
-                             dim=1)[:, -(K - 1):]
-        elif S >= K - 1:
-            tail = xBC[:, -(K - 1):]
-        else:
-            tail = F.pad(xBC, (0, 0, K - 1 - S, 0))
-        return out, {"state": h_final, "conv": tail}
-    return out
+    if not return_cache:
+        return out
+    # the tail: the K-1 inputs of xp (the carried tail, or zeros, before
+    # xBC) ending at S, or at each row's n_valid
+    if n_valid is None:
+        tail = xp[:, -(K - 1):]
+    else:
+        idx = n_valid[:, None] + torch.arange(K - 1, device=x.device)[None]
+        tail = torch.gather(xp, 1, idx[..., None].expand(B, K - 1,
+                                                          xp.shape[2]))
+    return out, {"state": h_final, "conv": tail}
 
 
 def ssm_prefill_chunk(p, cfg: ModelConfig, x, cache, n_valid=None):
-    """One chunked-prefill chunk with recurrent state and conv-tail carry:
-    the reference's bucketed admission path."""
-    raise NotImplementedError(
-        "ssm_prefill_chunk (chunked admission with a carried state) is not "
-        "ported yet")
+    """One chunked-prefill chunk through a Mamba-2 block: ``ssm_forward``
+    over C tokens from the carried state and conv tail, with bucket pads
+    masked by ``n_valid``.  x: (B, C, D); cache as in ``ssm_decode``
+    (read, not written).  Returns (out (B, C, D), new cache entry)."""
+    return ssm_forward(p, cfg, x, conv_cache=cache["conv"],
+                       init_state=cache["state"], return_cache=True,
+                       n_valid=n_valid)
 
 
 def ssm_decode(p, cfg: ModelConfig, x, cache):

@@ -1,8 +1,9 @@
 """Serving engine of the port: continuous batching, contiguous or paged."""
+from repro_torch.serve.bucketing import bucket_for, bucket_ladder
 from repro_torch.serve.engine import (Completion, PagedServeEngine, Request,
                                       ServeEngine)
 from repro_torch.serve.paged import PagedAllocator
 from repro_torch.serve.sampling import Greedy
 
 __all__ = ["Completion", "Greedy", "PagedAllocator", "PagedServeEngine",
-           "Request", "ServeEngine"]
+           "Request", "ServeEngine", "bucket_for", "bucket_ladder"]

@@ -1,8 +1,7 @@
 """Slot-based continuous-batching generation engine.
 
-Counterpart of ``repro.serve.engine``, with unbucketed admission.  The
-engine serves a queue of variable-length requests through a fixed set
-of ``n_slots`` batch rows:
+Counterpart of ``repro.serve.engine``.  The engine serves a queue of
+variable-length requests through a fixed set of ``n_slots`` batch rows:
 
   admit    : prefill a queued request at B=1, graft its cache into a
              free slot, sample emission #1 from the prefill logits.
@@ -34,17 +33,33 @@ at full precision and quantizes it once; prefix keys carry the policy,
 so a quantized pool never shares blocks written under another dtype.
 The recurrent state of the ssm and hybrid families ignores the policy.
 
+With ``chunk_len`` set, admission is **bucketed chunked prefill**, as in
+the reference: each prompt takes a rung of a bucket ladder (``buckets``,
+by default powers-of-two multiples of ``chunk_len``;
+``serve/bucketing.py``) and runs through the shared decode body in
+``chunk_len``-token chunks (``model.prefill_chunked``) straight into
+the slot's B=1 view of the engine cache (narrowed, so the writes land in
+place: nothing is grafted or scattered back).  Prefill memory is bounded
+by the chunk, not the prompt.  The paged engine hands it rung-wide read
+and write tables; the write table sends already-pooled shared prefix
+blocks to the trash block, so shared rows are never rewritten.  The
+reference keys its compiled admission executables on the rung, pads the
+prompt to it and counts their builds (``CompiledLRU``,
+``compiles_built``); the port compiles nothing and has neither.  So the
+rung here only bounds what a request may occupy (its capacity check and
+the tables' width): the prompt is padded to the next multiple of
+``chunk_len`` alone, and the rung's all-pad chunks after it, which
+``n_valid`` freezes and which would change no state and no token, are
+not run.
+
 MoE configurations serve as in the reference with ``mesh=None``: the
 engine sets ``moe_dropless`` (which only the expert-parallel paths
 read), and every decode step passes ``live = ~done``, so a finished
 slot's garbage lane combines with routing weight 0.  Leading dense
 layers (``dense_blocks``) are pooled like ``blocks``.
 
-Not ported yet, and refused with ``NotImplementedError``: bucketed
-chunked admission (``chunk_len``/``buckets``), speculative decode,
-sharded serving (``mesh``) and the families not ported yet.  The
-reference's compiled-executable cache has no counterpart: nothing here
-is compiled.
+Not ported yet, and refused with ``NotImplementedError``: speculative
+decode, sharded serving (``mesh``) and the families not ported yet.
 """
 from __future__ import annotations
 
@@ -59,6 +74,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models import quant
 from repro_torch.models.config import ModelConfig
+from repro_torch.serve import bucketing as bk
 from repro_torch.serve import paged as pg
 from repro_torch.serve.sampling import Greedy
 from repro_torch.utils.device import resolve_device
@@ -95,6 +111,20 @@ def _first_leaf(tree):
     return tree
 
 
+def _slot_view(cache, slot: int, bat, seq=None):
+    """The B=1 view of row ``slot`` of the engine cache along each leaf's
+    batch axis (``bat`` from ``decode_cache_batch_axes``); writes to it
+    land in the engine cache.  Leaves with a sequence axis in ``seq``
+    (paged pools) pass through whole."""
+    if isinstance(cache, dict):
+        return {k: _slot_view(cache[k], slot, bat[k],
+                              None if seq is None else seq[k])
+                for k in cache}
+    if seq is not None and seq >= 0:
+        return cache
+    return cache.narrow(bat, slot, 1)
+
+
 def _scatter_slot_row(cache, sub, slot: int, axes):
     """Write a B=1 contiguous cache into row ``slot`` of the engine cache,
     in place, along each leaf's batch axis (``axes`` from
@@ -115,7 +145,9 @@ class ServeEngine:
     ``pop_completions()`` under sustained traffic.
 
     ``device`` defaults to the card and must hold ``params``; pass
-    ``device="cpu"`` to serve on the CPU.
+    ``device="cpu"`` to serve on the CPU.  ``chunk_len`` switches
+    admission to bucketed chunked prefill (module docstring); ``buckets``
+    overrides its ladder and needs ``chunk_len``.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 4,
@@ -124,9 +156,7 @@ class ServeEngine:
                  device="cuda", history_limit: int = 4096,
                  chunk_len: Optional[int] = None, buckets=None,
                  speculate: int = 0, kv_dtype: str = "", mesh=None):
-        for name, val, default in [("chunk_len", chunk_len, None),
-                                   ("buckets", buckets, None),
-                                   ("speculate", speculate, 0),
+        for name, val, default in [("speculate", speculate, 0),
                                    ("mesh", mesh, None)]:
             if val != default:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -146,6 +176,15 @@ class ServeEngine:
         self.n_slots, self.max_len, self.seg_len = n_slots, max_len, seg_len
         self.sampler = sampler if sampler is not None else Greedy()
         self.eos_id = eos_id
+        self.chunk_len = chunk_len
+        if chunk_len is not None:
+            ladder = (bk.bucket_ladder(chunk_len, max_len)
+                      if buckets is None else buckets)
+            self.buckets = bk.validate_ladder(ladder, chunk_len)
+        else:
+            if buckets is not None:
+                raise ValueError("buckets requires chunk_len")
+            self.buckets = None
         self._init_cache()
         # per-slot host state
         self.tok = np.zeros((n_slots,), np.int32)
@@ -166,7 +205,8 @@ class ServeEngine:
         # and only the cache graft queued after the last read spills into
         # the next segment's time
         self.stats = {"generated_tokens": 0, "segments": 0, "prefills": 0,
-                      "slot_steps": 0, "live_slot_steps": 0,
+                      "prefill_chunks": 0, "slot_steps": 0,
+                      "live_slot_steps": 0,
                       "peak_live_requests": 0, "admit_s": 0.0,
                       "decode_s": 0.0}
         self._t_submit: Dict[int, float] = {}
@@ -238,10 +278,26 @@ class ServeEngine:
             self._ttft.pop(uid))
         self._t_submit.pop(uid)
 
+    def _bucket_rung(self, P: int) -> int:
+        """Bucket for a P-token prompt: the padded input length (modality
+        frontend + tokens) rounded up the ladder."""
+        return bk.bucket_for(M.decode_pos0(self.cfg, P), self.buckets,
+                             self.chunk_len)
+
+    def _padded_batch(self, req: Request, length: int):
+        """The request's batch on the device, tokens right-padded with 0 so
+        the input sequence is exactly ``length`` long (pads are masked out
+        of cache and state by ``prefill_chunked``)."""
+        toks = np.zeros((1, length - M.decode_offset(self.cfg)), np.int32)
+        toks[:, :req.prompt_len] = req.batch["tokens"]
+        return {"tokens": torch.as_tensor(toks, device=self.device)}
+
     def _plan(self, req: Request):
-        """Admission plan (paged: block keys/counts); None = nothing to
-        plan."""
-        return None
+        """Admission plan (bucket rung; paged adds block keys/counts).
+        None = nothing to plan (unbucketed contiguous admission)."""
+        if self.chunk_len is None:
+            return None
+        return {"rung": self._bucket_rung(req.prompt_len)}
 
     def _fits(self, plan) -> bool:
         """Can the planned request be placed right now?"""
@@ -256,6 +312,29 @@ class ServeEngine:
         _scatter_slot_row(self.cache, M.match_cache_policy(self.cache, sub),
                           slot, M.decode_cache_batch_axes(self.cfg,
                                                           self.policy))
+
+    def _admit_chunked_into(self, slot: int, req: Request, plan, **tables):
+        """Run the bucketed chunked prefill straight into ``slot``'s B=1
+        view of the cache (paged: pools whole, read and written through
+        ``tables``), over the chunks that hold real tokens (the rung's
+        all-pad chunks would change nothing); returns the last real
+        token's logits (1, V)."""
+        C = self.chunk_len
+        n_chunks = -(-M.decode_pos0(self.cfg, req.prompt_len) // C)
+        bat = M.decode_cache_batch_axes(self.cfg, self.policy)
+        seq = (M.decode_cache_seq_axes(self.cfg, self.policy) if tables
+               else None)
+        self.stats["prefill_chunks"] += n_chunks
+        logits, _ = M.prefill_chunked(
+            self.params, self.cfg, _slot_view(self.cache, slot, bat, seq),
+            self._padded_batch(req, n_chunks * C), req.prompt_len,
+            chunk_len=self.chunk_len, **tables)
+        return logits
+
+    def _rollback_place(self, slot: int, req: Request) -> None:
+        """Undo a chunked placement whose request finished at prefill: the
+        slot was never marked live, so only layout resources (paged
+        blocks) go back."""
 
     def _release_slot(self, slot: int) -> None:
         self.slot_uid[slot] = -1
@@ -272,11 +351,18 @@ class ServeEngine:
                 break  # blocked on pool space: keep arrival order
             self.queue.popleft()
             self._pending.discard(req.uid)
-            # slotless B=1 prefill; the graft is deferred so a request
-            # finishing at prefill never touches the cache
             slot = free[0]
-            toks = torch.as_tensor(req.batch["tokens"], device=self.device)
-            logits, pc = M.prefill(self.params, self.cfg, {"tokens": toks})
+            if self.chunk_len is None:
+                # slotless B=1 prefill; the graft is deferred so a request
+                # finishing at prefill never touches the cache
+                toks = torch.as_tensor(req.batch["tokens"],
+                                       device=self.device)
+                logits, pc = M.prefill(self.params, self.cfg,
+                                       {"tokens": toks})
+            else:
+                # bucketed: the chunked prefill IS the placement, through
+                # the slot's cache row / block tables
+                logits = self._admit_chunked_into(slot, req, plan)
             e0 = int(self.sampler(logits)[0])
             # a preempted request's replay keeps its first answer's time
             self._ttft.setdefault(req.uid,
@@ -289,9 +375,12 @@ class ServeEngine:
             if req.max_new <= 1 or (self.eos_id is not None
                                     and e0 == self.eos_id):
                 self._finish(req.uid)  # done at prefill: no slot consumed
+                if self.chunk_len is not None:
+                    self._rollback_place(slot, req)
                 continue
             free.pop(0)
-            self._place(slot, req, pc, plan)
+            if self.chunk_len is None:
+                self._place(slot, req, pc, plan)
             self.slot_uid[slot] = req.uid
             self._slot_seq[slot] = self._admit_seq
             self._admit_seq += 1
@@ -437,8 +526,11 @@ class PagedServeEngine(ServeEngine):
                  // self.block_len)
 
     def _plan(self, req: Request):
+        rung = (self._bucket_rung(req.prompt_len)
+                if self.chunk_len is not None else None)
         if not self._has_paged:
-            return {"keys": [], "n_pb": 0, "n_alloc": 0, "missing": 0}
+            return {"rung": rung, "keys": [], "n_pb": 0, "n_alloc": 0,
+                    "missing": 0}
         bl = self.block_len
         pos0 = M.decode_pos0(self.cfg, req.prompt_len)
         n_pb = -(-pos0 // bl)
@@ -455,7 +547,7 @@ class PagedServeEngine(ServeEngine):
         # change between segments while the request waits for blocks
         missing = n_alloc - sum(1 for k in keys
                                 if self.alloc.lookup(k) is not None)
-        return {"keys": keys, "n_pb": n_pb, "n_alloc": n_alloc,
+        return {"rung": rung, "keys": keys, "n_pb": n_pb, "n_alloc": n_alloc,
                 "missing": missing}
 
     def _fits(self, plan) -> bool:
@@ -483,17 +575,43 @@ class PagedServeEngine(ServeEngine):
                                              self.alloc.n_live)
         return ids, fresh
 
-    def _place(self, slot: int, req: Request, pc, plan) -> None:
-        ids, fresh = self._acquire_blocks(req.uid, plan)
-        n_pb, bl = plan["n_pb"], self.block_len
+    def _set_table_row(self, slot: int, ids) -> None:
         row = np.full((self.max_blocks,), pg.TRASH, np.int32)
         row[:len(ids)] = ids
         self.block_tables[slot] = row
+
+    def _place(self, slot: int, req: Request, pc, plan) -> None:
+        ids, fresh = self._acquire_blocks(req.uid, plan)
+        n_pb, bl = plan["n_pb"], self.block_len
+        self._set_table_row(slot, ids)
         sub = M.prefill_into_cache(
             self.cfg, M.init_decode_cache(self.cfg, 1, n_pb * bl,
                                           device=self.device), pc)
         M.scatter_prefill_paged(self.cfg, self.cache, sub, slot, ids[:n_pb],
                                 fresh[:n_pb], block_len=bl)
+
+    def _admit_chunked_into(self, slot: int, req: Request, plan):
+        """Chunked admission against the paged layout: rung-wide read and
+        write tables holding the prompt's blocks (every padded position
+        fits; pads past the prompt's blocks land in the trash block).
+        The write table sends already-pooled shared prefix blocks to the
+        trash block, so content other requests read is never rewritten.
+        Eager mode's decode blocks enter the slot's segment table only."""
+        rung, bl = plan["rung"], self.block_len
+        W = -(-rung // bl)
+        read = np.full((1, W), pg.TRASH, np.int32)
+        write = np.full((1, W), pg.TRASH, np.int32)
+        if self._has_paged:
+            ids, fresh = self._acquire_blocks(req.uid, plan)
+            n_pb = plan["n_pb"]      # <= W, since pos0 <= rung
+            read[0, :n_pb] = ids[:n_pb]
+            write[0, :n_pb] = [bid if fr else pg.TRASH
+                               for bid, fr in zip(ids[:n_pb], fresh[:n_pb])]
+            self._set_table_row(slot, ids)
+        dev = self.device
+        return super()._admit_chunked_into(
+            slot, req, plan, block_tables=torch.as_tensor(read, device=dev),
+            write_tables=torch.as_tensor(write, device=dev))
 
     def _rollback_place(self, slot: int, req: Request) -> None:
         for bid in self._slot_blocks.pop(req.uid, []):

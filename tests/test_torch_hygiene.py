@@ -104,22 +104,38 @@ def test_launcher_serves_on_the_cpu_when_asked():
     assert [len(c.tokens) for _, c in sorted(comps.items())] == [6, 3, 2]
 
 
-@pytest.mark.parametrize("kw", [{"chunk_len": 4}, {"buckets": [8, 16]},
-                                {"speculate": 2}, {"mesh": object()}],
-                         ids=lambda kw: next(iter(kw)))
+# bucketed admission is ported: its cases hold the engine's validation
+# (a chunk length under 1, a ladder without a chunk length) instead
+@pytest.mark.parametrize("kw,err,match", [
+    ({"chunk_len": 0}, ValueError, "chunk_len must be >= 1"),
+    ({"buckets": [8, 16]}, ValueError, "buckets requires chunk_len"),
+    ({"speculate": 2}, NotImplementedError, "not ported yet"),
+    ({"mesh": object()}, NotImplementedError, "not ported yet")],
+    ids=["chunk_len", "buckets", "speculate", "mesh"])
 @pytest.mark.parametrize("cls", [ServeEngine, PagedServeEngine])
-def test_unported_engine_options_raise(small, cls, kw):
+def test_unported_engine_options_raise(small, cls, kw, err, match):
     cfg, params = small
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(err, match=match):
         cls(params, cfg, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--bucket"], ["--speculate"],
+@pytest.mark.parametrize("flag", [["--top-k", "4"], ["--speculate"],
                                   ["--sharded"], ["--temperature", "0.7"]])
 def test_unported_launcher_flags_raise(flag):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="not ported yet"):
         serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--buckets", "8,16"],
+                                  ["--check-unbucketed"]])
+def test_bucket_flags_need_bucket(flag, capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit) as exc:
+        serve.parse_args(["--arch", "tinyllama-1.1b", "--device", "cpu",
+                          *flag])
+    assert exc.value.code == 2
+    assert "requires --bucket" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "whisper-small", "nope"])
