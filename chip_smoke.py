@@ -56,7 +56,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    chunked admission's shapes: the paged kernel with 256 query rows a
    slot (TinyLlama's and Zamba2's heads, ctx up to 1024) and the SSD
    scan over one 256-row chunk from a carried state (Mamba2's and
-   Zamba2's shapes, fast and slow decay);
+   Zamba2's shapes, fast and slow decay); DeepSeek-V3's shapes: the
+   grouped FFN over its 256 expert stacks (3.76 G elements each) at C 8
+   and C 64 with expert 255's rows held apart, the dispatch and combine
+   at T 1024, top-8, D 7168, and CE at T 2048, D 7168, V 129,280;
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
    behind ``PagedServeEngine``: 16 greedy requests, prompts of 128-1024
    tokens, 64 new tokens each.  Checks the completions, the allocator,
@@ -99,6 +102,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5d. serve_hybrid: Zamba2-7B at full width and depth: the logit checks
    (with the bucketed prefill: f32 against the plain path, bf16 against
    the f32 model), 16 requests, then 8 of them unbucketed and bucketed;
+5e. serve_mla: DeepSeek-V3 at full width, cut to its 3 leading dense
+   layers and 1 MoE layer (256 experts, top-8; MLA's latent cache; the
+   MTP head built): one full-width MLA layer in f32 (a dense layer's and
+   the MTP block's), the absorbed-matrix decode over a paged latent pool
+   (chunks of CHUNK_LEN, then single steps) against ``mla_full``'s rows,
+   wk_b's transpose absorbed and RoPE on the nope half each breaking the
+   limit; the prefill and decode MoE checks of serve_moe (expert 255's
+   weights read in every step); the 16 requests from a bf16, an int8 and
+   an fp8 latent pool (launches: kernels 4 and 6 once a MoE layer a
+   prefill or decode step, no flash or paged attention), the pools'
+   bytes and decode logits (dropped scales breaking the limit); 8
+   requests unbucketed and bucketed; the bf16 model's distance to the
+   f32 model (RoPE on the nope half breaking it);
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run
@@ -111,6 +127,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    checked, losses against the fp32 run's at the reference's limits,
    2e-2 and 5e-2) and, per policy, ms per step, tokens/s, the resident
    state and the peak;
+6d. train_mla: ``train_device`` on DeepSeek-V3 at full width cut to 4
+   layers and 32 experts (top-8 kept), bf16 AdamW moments, 4 steps of 2 x
+   1024 tokens with the MTP loss: finite, falling losses, launches
+   (kd_loss twice a loss chunk of the main and the MTP CE, all wgmma;
+   the MoE layer's products on tensor cores, the dispatch in vec), the
+   MTP chain at depth 1 equal to ``_mtp_loss``, the kernel path's loss
+   and gradients against its plain version in bf16 and f32; ms a step,
+   tokens/s, MFU, peak;
 7. tune: Phase III on Qwen1.5-MoE-A2.7B at full width, 12 of its 24
    layers (bf16, random weights): K = 4 random base models merged by
    ``merge_into_moe`` on the card (the merge rule checked exactly), then
@@ -1475,8 +1499,9 @@ def phase_kernels():
               ssd_case(gen, 4, 1024, 64, 64, 128, 1, bf, slow=True,
                        inst="tc")]
     chunked = chunked_admission_cases(gen)
+    wide = mla_cases(gen)
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
-                + ffn + gmm + split + gsa + ssd + hybrid + chunked):
+                + ffn + gmm + split + gsa + ssd + hybrid + chunked + wide):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
@@ -1510,6 +1535,78 @@ def chunked_admission_cases(gen):
                      timed=True, inst="tc"),
             ssd_case(gen, 1, C, 112, 64, 64, 1, bf, with_h0=True,
                      slow=True, inst="tc")]
+
+
+# DeepSeek-V3's expert layer (serve_mla): 256 routed experts of width 2048
+# over D 7168, top-8; capacity max(ceil(T*8/256)*2, 8): 8 slots an expert
+# in an 8-slot decode step, 64 in a 1024-token prefill.  Each expert stack
+# is 256 x 7168 x 2048 = 3.76 G elements, past 2^31.
+V3_E, V3_K, V3_D, V3_F, V3_V = 256, 8, 7168, 2048, 129280
+
+
+def _wide_stack(gen, shape, scale):
+    """A bf16 (E, ...) expert stack ~N(0, scale^2), drawn 32 experts at a
+    time (an f32 draw of the whole stack would take 15 GB)."""
+    t = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+    for e in range(0, shape[0], 32):
+        n = min(32, shape[0] - e)
+        t[e:e + n] = (torch.randn((n,) + tuple(shape[1:]), generator=gen,
+                                  device="cuda") * scale).to(torch.bfloat16)
+    return t
+
+
+def ffn_wide_cases(gen):
+    """Kernel 4 at DeepSeek-V3's expert stacks with C 8 (decode) and C 64
+    (a 1024-token prefill), timed as ``ffn_case``; expert 255's rows held
+    apart by the same rule (an int32 offset would wrap there first)."""
+    from repro_torch.kernels.moe_gemm import ops, ref
+    bf = torch.bfloat16
+    E, D, Fh = V3_E, V3_D, V3_F
+    wg, wu = (_wide_stack(gen, (E, D, Fh), D ** -0.5) for _ in "gu")
+    wo = _wide_stack(gen, (E, Fh, D), Fh ** -0.5)
+    rows = []
+    for C in (8, 64):
+        x = _randn(gen, (E, C, D), bf)
+        out = ops.grouped_ffn_fwd(x, wg, wu, wo)
+        want = ref.grouped_ffn_ref(x, wg, wu, wo)
+        torch.cuda.synchronize()
+        name = f"grouped_ffn E={E} C={C} D={D} F={Fh} bfloat16 silu"
+        row = check_close(name, out, want)
+        last = check_close(name + " expert 255", out[E - 1], want[E - 1])
+        if not want[E - 1].abs().max() > 0:
+            fail(f"{name}: expert 255's plain rows are 0")
+        row.update(expert_255_max_abs_err=last["max_abs_err"],
+                   expert_255_err_over_limit=last["err_over_limit"])
+        del want
+
+        def library():  # a torch.bmm chain in bf16
+            return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wo)
+
+        row.update(ms=time_ms(lambda: ops.grouped_ffn_fwd(x, wg, wu, wo)),
+                   plain_ms=time_ms(lambda: ref.grouped_ffn_ref(x, wg, wu,
+                                                                wo), iters=5),
+                   library_ms=time_ms(library))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _nbytes(x, wg, wu, wo, out), 6 * E * C * D * Fh, bf)
+        rows.append(row)
+        del x, out
+    del wg, wu, wo
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mla_cases(gen):
+    """The kernels at serve_mla's and train_mla's new shapes: kernel 4 at
+    DeepSeek-V3's expert stacks (``ffn_wide_cases``), kernel 6's dispatch
+    and combine at a 1024-token prefill (T 1024, top-8 of 256, D 7168:
+    rows of 14,336 bytes), and kernel 3's CE at two 1024-token rows of
+    train_mla (T 2048, D 7168, V 129,280), each timed."""
+    bf = torch.bfloat16
+    rows = ffn_wide_cases(gen)
+    rows += [gsa_case(gen, m, 1024, V3_E, V3_K, V3_D, bf, timed=True)
+             for m in ("dispatch", "combine")]
+    rows.append(kd_case(gen, 2048, V3_D, 0, V3_V, bf, timed=True))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1950,9 +2047,11 @@ def _kv_decode_logits(M, params, cfg, pc, P, feed, policy, *,
     M.scatter_prefill_paged(cfg, cache, sub, 0, list(range(1, n_pb + 1)),
                             [True] * n_pb, block_len=bl)
     if dropped:
-        for e in cache["blocks"].values():
-            e["k_scale"].fill_(1.0)
-            e["v_scale"].fill_(1.0)
+        for stack in cache.values():
+            for e in stack.values():
+                for key, leaf in e.items():
+                    if key.endswith("_scale"):
+                        leaf.fill_(1.0)
     bt = torch.arange(1, nbt + 1, dtype=torch.int32, device="cuda")[None]
     out = []
     for j in range(len(feed)):
@@ -2502,6 +2601,11 @@ class _RouteTap:
         self.moe.route = self.own
 
 
+def _check_layers(n_moe):
+    """The MoE layers the layer checks read: the first, middle and last."""
+    return sorted({0, n_moe // 2, n_moe - 1})
+
+
 def _moe_layer_check(cfg, p, x, w, idx, label):
     """(a): one MoE layer's routed FFN on the path's own inputs (x, w, idx
     as the kernel run routed them), each stage of ``moe_ffn`` against its
@@ -2590,7 +2694,10 @@ def _moe_decode_checks(M, moe, mg_ops, params, cfg, eng, n_moe):
     with _RouteTap(moe, replay=[i for _, _, i in tap_k.record]) as tap_p:
         (lp, _), n_p = _launched(lambda: steps(plain, cache_p, fed))
     errs = [(a - b).abs().max().item() for a, b in zip(lk, lp)]
-    if not (n_k["paged_attn"] and n_k["grouped_ffn"]
+    # MLA's latent cache is read through the block-table gather
+    paged_ok = (n_k["paged_attn"] == 0 if cfg.attn_type == "mla"
+                else n_k["paged_attn"] > 0)
+    if not (paged_ok and n_k["grouped_ffn"]
             and n_k["gather_scatter_add"]) or any(n_p.values()):
         fail(f"decode check: kernel run launched {n_k}, plain run {n_p}")
     if not all(math.isfinite(e) and e <= LOGIT_TOL for e in errs):
@@ -2598,7 +2705,7 @@ def _moe_decode_checks(M, moe, mg_ops, params, cfg, eng, n_moe):
     del cache_p
     decode_rows = [_moe_layer_check(cfg, M._layer(
         params["blocks"]["sub0"]["moe"], g), *tap_k.record[g],
-        f"moe layer {g} decode") for g in (0, n_moe // 2, n_moe - 1)]
+        f"moe layer {g} decode") for g in _check_layers(n_moe)]
 
     # the dead lane, twice with different garbage
     d = MOE_DEAD_SLOT
@@ -2659,6 +2766,13 @@ class _LiveTap(_RouteTap):
         return w, idx, aux
 
 
+def _paged_layers(cfg):
+    """Attention layers that read the paged pools through kernel 2: every
+    layer, but none for MLA (the latent cache is read through the
+    block-table gather)."""
+    return 0 if cfg.attn_type == "mla" else cfg.n_layers
+
+
 def _dropped_live(idx, live, n_experts):
     """(assignments of live rows that ``moe_ffn``'s capacity drops, live
     assignments) for one call.  Dead rows (bucket pads) take capacity
@@ -2690,9 +2804,10 @@ def _moe_chunk_check(M, moe, params, cfg, n_moe):
             lp, n_p = _launched(lambda: _chunked_prefill_logits(
                 M, params, cfg.replace(use_kernels=False), toks, C))
         chunks = -(-P // C)
+        n_attn = _paged_layers(cfg)
         want = {**dict.fromkeys(n_k, 0),
-                "paged_attn": cfg.n_layers * chunks,
-                "paged_attn_chunk": cfg.n_layers * chunks,
+                "paged_attn": n_attn * chunks,
+                "paged_attn_chunk": n_attn * chunks,
                 "grouped_ffn": n_moe * chunks,
                 "gather_scatter_add": 2 * n_moe * chunks}
         drops = sum(_dropped(i, cfg.n_experts) for i in tap.record)
@@ -2728,7 +2843,8 @@ def _moe_bucketed(M, moe, params, cfg, prompts, lens, max_new, make_engine,
     with _LiveTap(moe, n_moe) as tap:
         res, launches = _bucketed_serve(
             f"serve_moe {cfg.name}", make_engine, ps[:1], ps, ls, max_new,
-            cfg, seg_len, unbucketed, n_attn=cfg.n_layers, n_moe=n_moe)
+            cfg, seg_len, unbucketed, n_attn=_paged_layers(cfg),
+            n_moe=n_moe)
     # (a) at the bucketed chunk's shape: the first prompt's one chunk
     # (ls[0] real rows, the rest bucket pads, dead in ``live``) as the
     # engine routed it, each MoE stage against its plain version
@@ -2741,7 +2857,7 @@ def _moe_bucketed(M, moe, params, cfg, prompts, lens, max_new, make_engine,
     chunk_rows = [{**_moe_layer_check(cfg, M._layer(
         params["blocks"]["sub0"]["moe"], g), *tap.chunk[g][:3],
         f"moe layer {g} bucketed chunk"), "dead_rows": dead}
-        for g in (0, n_moe // 2, n_moe - 1)]
+        for g in _check_layers(n_moe)]
     for r in chunk_rows:
         print(f"serve_moe layer check ({cfg.name}) " + json.dumps(r))
     b = res["bucketed"]
@@ -2771,10 +2887,14 @@ def _moe_bucketed(M, moe, params, cfg, prompts, lens, max_new, make_engine,
 MOE_BF16_RATIO = 1.5
 
 
-def _moe_f32_distance(M, cfg, toks, logits_bf16):
+def _moe_f32_distance(M, cfg, toks, logits_bf16, extra=None,
+                      ratio_limit=MOE_BF16_RATIO):
     """The f32 model, the same seed's draws unrounded (the bf16 weights
     are their rounding; it does not fit beside them), through each path
-    on the longest prompt: each bf16 path's RMS distance to it."""
+    on the longest prompt: each bf16 path's RMS distance to it, and that
+    of each of ``extra`` ({name: bf16 one-shot prefill logits}); the
+    bucketed path's distance at most ``ratio_limit`` times the
+    unbucketed one's (None: reported)."""
     c32 = cfg.replace(dtype="float32")
     p32 = M.init_params(
         c32, generator=torch.Generator(device="cuda").manual_seed(0))
@@ -2788,15 +2908,18 @@ def _moe_f32_distance(M, cfg, toks, logits_bf16):
     res = {"bf16_bucketed_to_f32_rms": _rms(lb, l32[0]),
            "bf16_unbucketed_to_f32_rms": _rms(lu, l32[1]),
            "f32_bucketed_vs_unbucketed_rms": _rms(l32[0], l32[1]),
-           "max_abs_logit": l32[1].abs().max().item()}
+           "max_abs_logit": l32[1].abs().max().item(),
+           **{f"{k}_to_f32_rms": _rms(v, l32[1])
+              for k, v in (extra or {}).items()}}
     res["ratio"] = (res["bf16_bucketed_to_f32_rms"]
                     / res["bf16_unbucketed_to_f32_rms"])
     print(f"serve_moe {cfg.name} bf16 paths to the f32 model ({CARD}) "
           + json.dumps(res))
-    if not (torch.isfinite(l32[0]).all() and res["ratio"] <= MOE_BF16_RATIO):
+    if not torch.isfinite(l32[0]).all() or (
+            ratio_limit is not None and not res["ratio"] <= ratio_limit):
         fail(f"serve_moe: the bucketed bf16 path is {res['ratio']:.3f}x as "
              f"far from the f32 model as the unbucketed (limit "
-             f"{MOE_BF16_RATIO})")
+             f"{ratio_limit})")
     return res
 
 
@@ -3286,6 +3409,340 @@ def phase_serve_hybrid():
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: serve DeepSeek-V3 (MLA's latent cache) at full width
+# ---------------------------------------------------------------------------
+
+# DeepSeek-V3 at full width, its depth cut from 61 layers to the 3
+# leading dense ones and 1 MoE layer; the MTP head is built (serving does
+# not run it): 15.80 B parameters, 31.60 GB in bf16.
+MLA_LAYERS = 4
+MLA_DECODE_STEPS = 4
+# One full-width MLA layer in f32 (the first dense layer's and the MTP
+# block's), x ~ N(0, 1) at 1024 positions: ``mla_full``'s rows against
+# the absorbed-matrix decode over a paged latent pool (the first 1020
+# positions written in chunks of CHUNK_LEN, bucketed admission's path,
+# then MLA_DECODE_STEPS single-token steps), max |d| over the rows'
+# largest |out|.  Both sum in f32, in other orders and groupings (512
+# latent features against 128 nope ones per head).  Readings on an H100
+# (700 W): 1.61e-6 (dense layer 0) and 1.95e-6 (MTP block), the single
+# steps 1.1e-7 and 1.3e-7; the limit about 3x the worst.
+MLA_F32_REL = 6e-6
+# each planted fault (wk_b's transpose absorbed into the query, RoPE on
+# the nope half of the query) must read this many times a limit
+MLA_FAULT_MARGIN = 3.0
+# the bf16 model's prefill logits (the longest prompt), RMS distance to
+# the f32 model on the same path: one-shot, and bucketed (chunks of 256).
+# A bucketed chunk's capacity (16 an expert) drops about half its
+# assignments, and the drops follow the routing order, so one choice that
+# rounding moves moves other tokens' drops: the f32 model's bucketed and
+# one-shot prefills differ by 0.039 RMS themselves, and the bucketed bf16
+# path sits at about that distance (serve_moe's ratio of the two paths is
+# reported, not held).  Readings on an H100 (700 W): 0.0142 one-shot,
+# 0.0446 bucketed, on logits of at most 4.2; limits about 3x those.  RoPE
+# on the nope half read 0.72.
+MLA_BF16_RMS_TOL = {"unbucketed": 0.045, "bucketed": 0.15}
+# int8/fp8 latent pools: KV_CHECK_STEPS decode steps after the longest
+# prompt, logits' relative RMS from the bf16 pool's; the same with every
+# scale dropped must read KV_DROPPED_MARGIN times the limit.  Readings on
+# an H100 (700 W): int8 0.0149, fp8 0.0428, dropped scales 1.23; limits
+# about 3x.
+MLA_KV_REL_RMS_TOL = {"int8": 0.045, "fp8": 0.13}
+
+
+def _rope_on_nope_half(layers):
+    """A faulty ``layers._mla_queries``: RoPE on the first rope_head_dim
+    features of each query head (inside its nope part), not the last."""
+    def queries(p, cfg, x, positions):
+        B, S, _ = x.shape
+        H, nd, pr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+        q = layers.mm(layers.apply_norm(p["q_norm"], layers.mm(
+            x, p["wq_a"])), p["wq_b"]).reshape(B, S, H, nd + pr)
+        q = torch.cat([layers.apply_rope(q[..., :pr], positions,
+                                         cfg.rope_theta), q[..., pr:]], -1)
+        return q[..., :nd], q[..., nd:]
+    return queries
+
+
+def _mla_decode_rows(layers, M, cfg, p, x, bl=16):
+    """``layers.mla_decode`` of x (1, P, D) through a fresh one-slot paged
+    latent pool: positions up to P - MLA_DECODE_STEPS in chunks of
+    CHUNK_LEN, then one a step; the outputs (1, P, D)."""
+    P = x.shape[1]
+    W = -(-P // bl)
+    cache = M._attn_cache_struct(cfg, (), W + 1, bl, device="cuda")
+    table = torch.arange(1, W + 1, dtype=torch.int32, device="cuda")[None]
+    pos = torch.arange(P, dtype=torch.int32, device="cuda")[None]
+    head = P - MLA_DECODE_STEPS
+    cuts = sorted(set(range(0, head, CHUNK_LEN)) | set(range(head, P + 1)))
+    return torch.cat([layers.mla_decode(p, cfg, x[:, lo:hi], pos[:, lo:hi],
+                                        cache, block_table=table)[0]
+                      for lo, hi in zip(cuts, cuts[1:])], 1)
+
+
+def mla_layer_check(layers, M, cfg, p, label, seed):
+    """One full-width MLA layer ``p`` in f32: the absorbed-matrix decode
+    (chunks, then single steps) against ``mla_full``'s rows within
+    MLA_F32_REL of the largest |out|; wk_b's transpose absorbed and RoPE
+    on the nope half of the query (in the decode only) must each read
+    MLA_FAULT_MARGIN times the limit."""
+    from repro_torch.utils.pytree import tree_map
+    c32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), p)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device="cuda")
+    pos = torch.arange(1024, device="cuda")[None]
+    want, _ = layers.mla_full(p32, c32, x, pos)
+    scale = want.abs().max().item()
+
+    def rel(got, rows=slice(None)):
+        return ((got[:, rows] - want[:, rows]).abs().max().item() / scale)
+
+    got = _mla_decode_rows(layers, M, c32, p32, x)
+    head = 1024 - MLA_DECODE_STEPS
+    res = {"layer": label, "max_abs_out": scale, "rel_err": rel(got),
+           "rel_err_chunks": rel(got, slice(0, head)),
+           "rel_err_steps": rel(got, slice(head, None))}
+    wk = p32["wk_b"]
+    res["fault_wk_b_transposed"] = rel(_mla_decode_rows(
+        layers, M, c32, dict(p32, wk_b=wk.transpose(1, 2).reshape(wk.shape)),
+        x))
+    own = layers._mla_queries
+    layers._mla_queries = _rope_on_nope_half(layers)
+    try:
+        res["fault_rope_on_nope_half"] = rel(_mla_decode_rows(
+            layers, M, c32, p32, x))
+    finally:
+        layers._mla_queries = own
+    print(f"serve_mla layer check ({CARD}) " + json.dumps(res))
+    if not res["rel_err"] <= MLA_F32_REL:
+        fail(f"serve_mla {label}: the absorbed decode differs from "
+             f"mla_full by {res['rel_err']:.3g} of the largest |out| > "
+             f"{MLA_F32_REL}")
+    for k in ("fault_wk_b_transposed", "fault_rope_on_nope_half"):
+        if not res[k] >= MLA_FAULT_MARGIN * MLA_F32_REL:
+            fail(f"serve_mla {label}: {k} reads only {res[k]:.3g}: the check "
+                 f"would not see it")
+    return res
+
+
+def _mla_pool_logits(M, params, cfg, prompt):
+    """KV_CHECK_STEPS teacher-forced decode steps after the longest prompt
+    from a bf16, int8 and fp8 latent pool (quantized once at the graft),
+    and from each quantized pool with its scales dropped: each one's
+    relative RMS from the bf16 pool's logits, held to MLA_KV_REL_RMS_TOL
+    and, dropped, to KV_DROPPED_MARGIN times it."""
+    from repro_torch.models import quant
+    toks = torch.as_tensor(prompt, device="cuda")
+    P = toks.shape[1]
+    feed = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, KV_CHECK_STEPS), dtype=torch.int32, device="cuda")
+    _, pc = M.prefill(params, cfg, {"tokens": toks})
+    base = _kv_decode_logits(M, params, cfg, pc, P, feed, None)
+    res = {"prompt_len": P, "steps": KV_CHECK_STEPS,
+           "max_abs_logit": base.abs().max().item()}
+    for kv in KV_QUANT:
+        pol = quant.CachePolicy(kv)
+        lq = _kv_decode_logits(M, params, cfg, pc, P, feed, pol)
+        ld = _kv_decode_logits(M, params, cfg, pc, P, feed, pol, dropped=True)
+        res[f"{kv}_rel_rms"] = _rel_rms(lq, base)
+        res[f"{kv}_top1_agreement"] = (
+            lq.argmax(-1) == base.argmax(-1)).float().mean().item()
+        res[f"{kv}_dropped_scale_rel_rms"] = _rel_rms(ld, base)
+    print(f"serve_mla latent pool logits ({CARD}) " + json.dumps(res))
+    for kv in KV_QUANT:
+        r, dr = res[f"{kv}_rel_rms"], res[f"{kv}_dropped_scale_rel_rms"]
+        if not r <= MLA_KV_REL_RMS_TOL[kv]:
+            fail(f"serve_mla {kv} pool: logits {r:.4f} relative RMS from the "
+                 f"bf16 pool's (limit {MLA_KV_REL_RMS_TOL[kv]})")
+        if not dr > KV_DROPPED_MARGIN * MLA_KV_REL_RMS_TOL[kv]:
+            fail(f"serve_mla {kv} pool: dropping the scales moves the logits "
+                 f"only {dr:.4f}: the limit would not see it")
+    return res
+
+
+def phase_serve_mla():
+    """DeepSeek-V3 at full width, MLA_LAYERS deep (the 3 leading dense
+    layers and 1 MoE layer of 256 experts, top-8; bf16, random weights
+    from seed 0 drawn on the card) behind ``PagedServeEngine`` (8 slots,
+    block_len 16, seg_len 8): the f32 layer checks, the prefill and
+    decode MoE checks (kernel against plain, the dead lane), the serve
+    cell's 16 requests from a bf16, an int8 and an fp8 latent pool, the
+    pools' decode logits, 8 requests unbucketed and bucketed, and the
+    bf16 model's distance to the f32 model.  MLA launches neither flash
+    nor paged attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.models import layers, moe
+    from repro_torch.models import model as M
+    from repro_torch.models import quant
+    from repro_torch.serve import PagedServeEngine
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config("deepseek-v3-671b", variant="full").replace(
+        n_layers=MLA_LAYERS)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    if not (cfg.use_kernels and cfg.attn_type == "mla" and cfg.n_mtp
+            and n_moe == 1 and (cfg.n_experts, cfg.top_k) == (V3_E, V3_K)):
+        fail(f"deepseek-v3 config: {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    head = {"arch": cfg.name, "layers": cfg.n_layers, "n_params": n_params,
+            "init_s": time.perf_counter() - t0,
+            "weights_gb": torch.cuda.memory_allocated() / 1e9,
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"serve_mla ({CARD}) " + json.dumps(head))
+    lens, prompts = _serve_prompts(cfg)
+    max_new, n_slots, bl, seg_len = 64, 8, 16, 8
+
+    def make_engine(ps=prompts, **kw):
+        eng = PagedServeEngine(params, cfg, n_slots=n_slots, block_len=bl,
+                               seg_len=seg_len, max_len=max(lens) + max_new,
+                               device="cuda", **kw)
+        for p in ps:
+            eng.submit({"tokens": p}, max_new=max_new)
+        return eng
+
+    with torch.no_grad():
+        layer_checks = [
+            mla_layer_check(layers, M, cfg, M._layer(
+                params["dense_blocks"]["sub0"]["attn"], 0), "dense layer 0",
+                1),
+            mla_layer_check(layers, M, cfg, params["mtp"]["block"]["attn"],
+                            "mtp block", 2)]
+        torch.cuda.empty_cache()
+        # the longest prompt's prefill: kernel path (with drops) against
+        # the dropless plain path (reported), the MoE layer's stages at
+        # the prefill shape against their plain versions
+        toks = torch.as_tensor(prompts[-1], device="cuda")
+        with _RouteTap(moe) as tap:
+            (lk, _), n_k = _launched(lambda: M.prefill(params, cfg,
+                                                       {"tokens": toks}))
+        (lp, _), n_p = _launched(lambda: M.prefill(
+            params, cfg.replace(use_kernels=False), {"tokens": toks}))
+        want = {**dict.fromkeys(n_k, 0), "grouped_ffn": n_moe,
+                "gather_scatter_add": 2 * n_moe}
+        if n_k != want or any(n_p.values()):
+            fail(f"serve_mla prefill check: kernel run launched {n_k} "
+                 f"(expected {want}), plain run {n_p}")
+        prefill_rows = [_moe_layer_check(cfg, M._layer(
+            params["blocks"]["sub0"]["moe"], g), *tap.record[g],
+            f"moe layer {g} prefill") for g in _check_layers(n_moe)]
+        prefill_check = {
+            "logit_max_abs_diff_vs_dropless": (lk - lp).abs().max().item(),
+            "max_abs_logit": lp.abs().max().item(),
+            "argmax_equal": bool((lk.argmax(-1) == lp.argmax(-1)).all()),
+            "dropped_per_layer": [_dropped(i, cfg.n_experts)
+                                  for _, _, i in tap.record],
+            "assignments_per_layer": toks.numel() * cfg.top_k}
+        if not math.isfinite(prefill_check["logit_max_abs_diff_vs_dropless"]):
+            fail("serve_mla: non-finite prefill logits")
+        del tap, lk, lp
+        # decode kernel vs plain, the dead lane, the stages at the decode
+        # shape (every expert's weights read, expert 255's included)
+        eng = make_engine()
+        eng.step()
+        decode_check, decode_rows = _moe_decode_checks(
+            M, moe, mg_ops, params, cfg, eng, n_moe)
+        del eng
+        for r in prefill_rows + decode_rows:
+            print(f"serve_mla layer check ({cfg.name}) " + json.dumps(r))
+
+        # the main path: the 16 requests from a bf16, an int8 and an fp8
+        # latent pool, counts from 0 for each
+        runs, paths = {}, []
+        for kv in ("", "int8", "fp8"):
+            tag = kv or "bf16"
+            with _RouteTap(moe, ids_only=True) as tap:
+                eng, comps, wall, launches, peak = _engine_run(
+                    lambda: make_engine(kv_dtype=kv))
+            _gsa_all_vec(md_ops, f"serve_mla {tag}")
+            _check_served(f"serve_mla {tag}", eng, comps, lens, max_new,
+                          cfg.vocab_size)
+            st = eng.stats
+            steps = st["segments"] * seg_len
+            calls = st["prefills"] + steps
+            want = {**dict.fromkeys(launches, 0),
+                    "grouped_ffn": n_moe * calls,
+                    "gather_scatter_add": 2 * n_moe * calls}
+            if launches != want or len(tap.record) != n_moe * calls:
+                fail(f"serve_mla {tag}: launches {launches} != expected "
+                     f"{want}, {len(tap.record)} routing calls")
+            if (eng.cache["blocks"]["sub0"]["ckv"].dtype
+                    != quant.CachePolicy(kv).storage_dtype(torch.bfloat16)):
+                fail(f"serve_mla {tag}: pool in "
+                     f"{eng.cache['blocks']['sub0']['ckv'].dtype}")
+            r = _serve_readings(eng, comps, wall, peak, seg_len)
+            r.update(
+                pool_bytes=M.paged_cache_nbytes(cfg, n_slots, eng.n_blocks,
+                                                bl, policy=eng.policy),
+                n_blocks=eng.n_blocks,
+                dropped_per_prefill=sum(
+                    _dropped(i, cfg.n_experts) for i in tap.record
+                    if i.shape[0] != n_slots) / st["prefills"],
+                dropped_per_decode_step=sum(
+                    _dropped(i, cfg.n_experts) for i in tap.record
+                    if i.shape[0] == n_slots) / steps,
+                launches=launches)
+            runs[tag] = r
+            paths.append(launches)
+            del eng, comps, tap
+        per_tok = {tag: (M.cache_nbytes(cfg, 1, 2, quant.CachePolicy(kv))
+                         - M.cache_nbytes(cfg, 1, 1, quant.CachePolicy(kv)))
+                   // cfg.n_layers
+                   for tag, kv in (("bf16", ""), ("int8", "int8"),
+                                   ("fp8", "fp8"))}
+        if per_tok != {"bf16": 1152, "int8": 584, "fp8": 584}:
+            fail(f"serve_mla: latent bytes a token and layer {per_tok}")
+        res = {**head, "runs": runs,
+               "latent_bytes_per_token_layer": per_tok,
+               "gqa_shaped_bytes_per_token_layer":
+                   2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2,
+               "prefill_check": prefill_check, "decode_check": decode_check,
+               "layer_checks": layer_checks}
+        print(f"serve_mla ({CARD}) " + json.dumps(res))
+        pool_logits = _mla_pool_logits(M, params, cfg, prompts[-1])
+
+        # bucketed admission: the chunk check at C 8, 8 requests
+        # unbucketed and bucketed, the chunks' drops
+        _, chunk_launches, logits = _moe_bucketed(
+            M, moe, params, cfg, prompts, lens, max_new, make_engine,
+            seg_len, n_moe)
+        _gsa_all_vec(md_ops, "serve_mla bucketed")
+        paths.append(chunk_launches)
+        # a planted fault the bf16 model's distance to the f32 one must see
+        own = layers._mla_queries
+        layers._mla_queries = _rope_on_nope_half(layers)
+        try:
+            fault = M.prefill(params, cfg, {"tokens": toks})[0]
+        finally:
+            layers._mla_queries = own
+    del params
+    torch.cuda.empty_cache()
+    dist = _moe_f32_distance(M, cfg, prompts[-1], logits,
+                             extra={"bf16_rope_on_nope_half": fault},
+                             ratio_limit=None)
+    print(f"serve_mla bf16 to f32 ({CARD}) " + json.dumps(
+        {"pool_logits": pool_logits, **dist}))
+    for path, tol in MLA_BF16_RMS_TOL.items():
+        d = dist[f"bf16_{path}_to_f32_rms"]
+        if not d <= tol:
+            fail(f"serve_mla: the bf16 model's {path} prefill logits are "
+                 f"{d:.4f} RMS from the f32 model's (limit {tol})")
+    if not (dist["bf16_rope_on_nope_half_to_f32_rms"]
+            >= MLA_FAULT_MARGIN * max(MLA_BF16_RMS_TOL.values())):
+        fail(f"serve_mla: RoPE on the nope half moves the bf16 logits only "
+             f"{dist['bf16_rope_on_nope_half_to_f32_rms']:.4f} RMS from the "
+             f"f32 model: the limits would not see it")
+    return _sum_counts(*paths)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: train full-width TinyLlama-1.1B
 # ---------------------------------------------------------------------------
 
@@ -3754,6 +4211,8 @@ def _train_flops(M, cfg, batch, seq):
     shared block once per application) x tokens, plus causal attention and
     the SSD scan (``ssd_bound_ms``'s count), each forward and twice in the
     backward."""
+    if cfg.attn_type == "mla":
+        return _mla_train_flops(cfg, batch, seq)
     D, T = cfg.d_model, batch * seq
     G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     mamba = D * (2 * cfg.d_inner + 2 * G * N + H) + cfg.d_inner * D
@@ -3774,16 +4233,18 @@ def _train_flops(M, cfg, batch, seq):
             + 3 * (cfg.n_layers * scan + n_attn * attn_ops))
 
 
-def _step_readings(D, M, cfg, corpus, batch, seq, lr, total):
+def _step_readings(D, M, cfg, corpus, batch, seq, lr, total,
+                   state_policy=""):
     """ms of three synchronised ``train_step``s after a warm-up, from
-    fresh seed-0 weights, the peak memory over them, and on a fourth step
-    (CUDA events) the share of its time spent in ``ssd_bwd``."""
+    fresh seed-0 weights and AdamW moments under ``state_policy``, the
+    peak memory over them, and on a fourth step (CUDA events) the share
+    of its time spent in ``ssd_bwd``."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.optim import adamw_init, cosine_schedule
     torch.cuda.empty_cache()
     params = M.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0))
-    opt = adamw_init(params)
+    opt = adamw_init(params, policy=state_policy)
     sched = cosine_schedule(lr, total, warmup=1)
     bs = corpus.device_batches(0, 5, batch, seq)
     bs = [{k: v[s].cuda() for k, v in bs.items()} for s in range(5)]
@@ -3833,7 +4294,7 @@ def _step_readings(D, M, cfg, corpus, batch, seq, lr, total):
             "model_tflop_per_step": flops / 1e12, "peak_mem_gb": peak,
             "events_step_ms": step_ev, "ssd_bwd_ms": bwd,
             "ssd_bwd_calls": len(spans), "ssd_bwd_share": bwd / step_ev,
-            "ssd_bwd_transient_gb": max(transient) / 1e9}
+            "ssd_bwd_transient_gb": max(transient, default=0) / 1e9}
 
 
 def _train_family(D, M, cfg, corpus, steps, want, label):
@@ -4050,6 +4511,151 @@ def phase_train_hybrid():
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: train DeepSeek-V3's MLA and MTP loss at full width
+# ---------------------------------------------------------------------------
+
+# every matrix at full width, 4 layers (3 dense + 1 MoE) and 32 of the 256
+# experts (top-8 kept), so that parameters, gradients and bf16 AdamW
+# moments of 5.93 B parameters fit the card's 80 GB
+MLA_TRAIN_LAYERS, MLA_TRAIN_EXPERTS = 4, 32
+MLA_TRAIN_STEPS, MLA_TRAIN_BATCH = 4, 2
+# AdamW's first steps move every weight by about lr, which at fan-in 7168
+# changes a layer's output by about lr x 7168 of its scale: on an H100
+# the 4-step losses rose at lr 1e-3 (15.95, 15.91, 16.03, 16.92) and at
+# the published peak 2.2e-4 (arXiv:2412.19437; ..., 15.94, 16.01), and
+# fell at 1e-4 over 6 steps and at 3e-5 over 4 (..., 15.905, 15.901)
+MLA_TRAIN_LR = 3e-5
+
+
+def _mla_train_flops(cfg, batch, seq):
+    """PERF.md §2's MFU numerator for an MLA model with an MTP head: 6 x
+    the matmul parameters a token passes (the MoE's active ones, the MTP
+    projection and block, the head twice: the main CE's pass and the
+    MTP's) x tokens, plus MLA's causal attention products (q·k over nope +
+    rope, p·v over v_head_dim) in every layer and the MTP block, each
+    forward and twice in the backward."""
+    D, H, T = cfg.d_model, cfg.n_heads, batch * seq
+    r, pr = cfg.kv_lora_rank, cfg.rope_head_dim
+    nd, vd, ql = cfg.nope_head_dim, cfg.v_head_dim, cfg.q_lora_rank
+    q = D * ql + ql * H * (nd + pr) if ql else D * H * (nd + pr)
+    attn = q + D * (r + pr) + H * r * (nd + vd) + H * vd * D
+    dense = 3 * D * cfg.d_ff
+    routed = D * cfg.n_experts + 3 * D * cfg.moe_d_ff * (
+        cfg.top_k + cfg.n_shared_experts)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    per_token = (cfg.n_layers * attn + cfg.first_dense_layers * dense
+                 + n_moe * routed + 2 * D * D + attn + dense
+                 + 2 * D * cfg.vocab_size)
+    attn_ops = 2 * H * (nd + pr + vd) * batch * seq * (seq + 1) / 2
+    return 6 * T * per_token + 3 * (cfg.n_layers + 1) * attn_ops
+
+
+def phase_train_mla():
+    """``train_device`` on DeepSeek-V3 cut to MLA_TRAIN_LAYERS layers and
+    MLA_TRAIN_EXPERTS experts at full width (bf16, remat, bf16 AdamW
+    moments, random weights from seed 0): MLA_TRAIN_STEPS steps of
+    MLA_TRAIN_BATCH x 1024 tokens, the loss with its MTP term.  Checks
+    finite, falling losses, the launches (kd_loss twice a loss chunk of
+    the main CE and of the MTP's, all wgmma; the MoE layer as in tune, its
+    products on tensor cores, the dispatch in vec; no flash or paged
+    attention), ``mtp_loss`` in the metrics and ``mtp_chain_loss`` at
+    depth 1 equal to ``_mtp_loss``, the kernel path's loss and gradients
+    against its plain version in bf16 and f32; reports ms a step,
+    tokens/s, MFU and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import device as D
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.models import model as M
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_config("deepseek-v3-671b", variant="full").replace(
+        n_layers=MLA_TRAIN_LAYERS, n_experts=MLA_TRAIN_EXPERTS)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    if not (cfg.use_kernels and cfg.remat and cfg.n_mtp and n_moe == 1
+            and cfg.top_k == V3_K):
+        fail(f"deepseek-v3 train cut: {cfg}")
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    chunks = TRAIN_SEQ // cfg.loss_chunk
+    n = MLA_TRAIN_STEPS
+    # a step, each group and loss chunk rematerialised: kd_loss twice a
+    # loss chunk of the main CE and of the MTP's; the MoE layer as in tune
+    want = {**dict.fromkeys(_counts(), 0), "kd_loss": 2 * 2 * chunks * n,
+            "gather_scatter_add": 6 * n_moe * n,
+            "grouped_ffn": 2 * n_moe * n, "grouped_matmul": 7 * n_moe * n,
+            "split_f32": 3 * n_moe * n}
+    spec = D.DeviceSpec(0, cfg, 0, int(corpus.device_domain[0]))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    up = D.train_device(spec, corpus, steps=n, batch=MLA_TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ, lr=MLA_TRAIN_LR, seed=0,
+                        state_policy="bf16", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = up["losses"]
+    del up
+    torch.cuda.empty_cache()
+    print(f"train_mla: {n} steps in {wall:.2f}s, losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_mla: non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_mla: loss did not fall: {losses}")
+    if launches != want:
+        fail(f"train_mla: launches {launches} != expected {want}")
+    _all_wgmma(kd_ops, "train_mla")
+    _gmm_on_tensor_cores(mg_ops, n_moe * n, "train_mla")
+    _gsa_all_vec(md_ops, "train_mla")
+
+    params = M.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = {k: v[:1].cuda() for k, v in corpus.device_batch(
+        0, MLA_TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+    with torch.no_grad():
+        _, metrics = M.loss_fn(params, cfg, batch)
+        h = M.backbone(params, cfg, batch)[0]
+        mtp = M._mtp_loss(params, cfg, h, batch).item()
+        chain = M.mtp_chain_loss(params, cfg, batch, depth=1).item()
+    mtp_check = {"mtp_loss": metrics["mtp_loss"].item(), "head_mtp": mtp,
+                 "chain_depth_1": chain, "ce_loss": metrics["ce_loss"].item()}
+    print(f"train_mla mtp ({CARD}) " + json.dumps(mtp_check))
+    if not (math.isfinite(mtp) and mtp_check["mtp_loss"] == mtp
+            and abs(chain - mtp) <= 1e-6 * abs(mtp)):
+        fail(f"train_mla: mtp_loss {mtp_check}")
+    del h, metrics
+    checks = {"bfloat16": _tune_grad_check(
+        M, cfg, params, batch, TUNE_BF16_LOSS_TOL, TUNE_BF16_GRAD_TOL,
+        layer=0, attn_leaf="wq_b", label="train_mla")}
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    checks["float32"] = _tune_grad_check(
+        M, cfg.replace(dtype="float32"), p32, batch, TUNE_LOSS_TOL,
+        TUNE_GRAD_TOL, layer=0, attn_leaf="wq_b", label="train_mla")
+    del p32
+    torch.cuda.empty_cache()
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "experts": cfg.n_experts, "steps": n, "batch": MLA_TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "moments": "bf16", "n_params": n_params,
+           "losses": losses, "train_device_wall_s": wall,
+           "train_device_peak_gb": peak, "launches": launches,
+           "mtp": mtp_check, "grad_checks": checks,
+           **_step_readings(D, M, cfg, corpus, MLA_TRAIN_BATCH, TRAIN_SEQ,
+                            MLA_TRAIN_LR, n, state_policy="bf16")}
+    print(f"train_mla ({CARD}) " + json.dumps(res))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def _gmm_on_tensor_cores(mg_ops, layer_steps, phase):
     """The bf16 backward's grouped products all took a tensor-core
     instance: per layer and step three of two bf16 operands (g, u, dh:
@@ -4141,10 +4747,11 @@ def _check_merge(params, bases, cfg):
             fail(f"shared expert {w} is not the tiled average FFN")
 
 
-def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol):
-    """Loss and the gradients of ``lm_head``, layer TUNE_CHECK_LAYER's
-    router, ``wq`` and (frozen) routed ``wi_gate``: the kernel path
-    against its plain version (held to ``loss_tol`` absolute and
+def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol, *,
+                     layer=TUNE_CHECK_LAYER, attn_leaf="wq", label="tune"):
+    """Loss and the gradients of ``lm_head``, MoE group ``layer``'s
+    router, attention ``attn_leaf`` and routed ``wi_gate``: the kernel
+    path against its plain version (held to ``loss_tol`` absolute and
     ``grad_tol`` relative L2) and against the dropless plain path
     (reported).  ``params`` in ``cfg.dtype``."""
     from repro_torch.kernels.moe_dispatch import ops as md_ops
@@ -4152,10 +4759,11 @@ def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol):
     from repro_torch.kernels.moe_gemm import ref as mg_ref
     from repro_torch.models import moe
     from repro_torch.utils.pytree import tree_leaves
-    g = TUNE_CHECK_LAYER
+    g = layer
     sub = params["blocks"]["sub0"]
     leaves = {"lm_head": params["lm_head"], "router": sub["moe"]["router"],
-              "wq": sub["attn"]["wq"], "wi_gate": sub["moe"]["wi_gate"]}
+              attn_leaf: sub["attn"][attn_leaf],
+              "wi_gate": sub["moe"]["wi_gate"]}
     for t in tree_leaves(params):
         t.requires_grad_(False)
     for t in leaves.values():
@@ -4188,7 +4796,7 @@ def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol):
         fail(f"tune check: {len(choices)} routing calls in the kernel run, "
              f"{len(replaced)} replayed")
     if nk <= 0 or nc != 0:
-        fail(f"tune check: {nk} MoE kernel launches on the kernel path, "
+        fail(f"{label} check: {nk} MoE kernel launches on the kernel path, "
              f"{nc} on its plain version")
 
     def cmp(ga, gb, la, lb, tag):
@@ -4198,24 +4806,25 @@ def _tune_grad_check(M, cfg, params, batch, loss_tol, grad_tol):
                 (ga[k] - gb[k]).norm() / gb[k].norm()).item()
         return res
 
-    # the first n_layers routing calls are the forward's, one per layer
-    drops = [_dropped(i, cfg.n_experts) for i in choices[:cfg.n_layers]]
+    # the first routing calls are the forward's, one per MoE layer
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    drops = [_dropped(i, cfg.n_experts) for i in choices[:n_moe]]
     res = {"dtype": cfg.dtype, "loss_kernel": lk,
            "kernel_path_dropped_per_layer": drops,
            "plain_choices_replaced_per_call": replaced,
            "assignments_per_layer": batch["tokens"].numel() * cfg.top_k,
            **cmp(gk, gc, lk, lc, "vs_plain_capacity"),
            **cmp(gk, gp, lk, lp, "vs_plain_dropless")}
-    print("tune kernel vs plain " + json.dumps(res))
+    print(f"{label} kernel vs plain " + json.dumps(res))
     err = res["loss_abs_err_vs_plain_capacity"]
     if not math.isfinite(err) or err > loss_tol:
-        fail(f"tune ({cfg.dtype}): kernel-path loss differs from its plain "
-             f"version by {err} > {loss_tol}")
+        fail(f"{label} ({cfg.dtype}): kernel-path loss differs from its "
+             f"plain version by {err} > {loss_tol}")
     for k in leaves:
         e = res[f"{k}_rel_err_vs_plain_capacity"]
         if not e <= grad_tol:
-            fail(f"tune ({cfg.dtype}): kernel-path {k} gradient differs from "
-                 f"its plain version by {e} (relative L2) > {grad_tol}")
+            fail(f"{label} ({cfg.dtype}): kernel-path {k} gradient differs "
+                 f"from its plain version by {e} (relative L2) > {grad_tol}")
     for t in leaves.values():
         t.requires_grad_(False)
     return res
@@ -5798,9 +6407,9 @@ KERNELS = {
 
 # the path phases, in the order they run
 PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
-         phase_serve_hybrid, phase_train, phase_train_ssm, phase_train_hybrid,
-         phase_tune, phase_distill, phase_pipeline, phase_methods,
-         phase_fleet)
+         phase_serve_hybrid, phase_serve_mla, phase_train, phase_train_ssm,
+         phase_train_hybrid, phase_train_mla, phase_tune, phase_distill,
+         phase_pipeline, phase_methods, phase_fleet)
 
 
 def main() -> int:

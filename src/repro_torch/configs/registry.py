@@ -11,6 +11,7 @@ from typing import Dict, List
 from repro_torch.configs.device_models import (BLOOM_1_1B, GPT2,
                                                GPT2_MEDIUM, OLMO_1_2B)
 from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK_MOE_16B
+from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
 from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
@@ -22,6 +23,7 @@ PORTED: Dict[str, ModelConfig] = {
     "tinyllama-1.1b": TINYLLAMA_1_1B,
     "qwen2-moe-a2.7b": QWEN2_MOE_A2_7B,
     "deepseek-moe-16b": DEEPSEEK_MOE_16B,
+    "deepseek-v3-671b": DEEPSEEK_V3_671B,
     "starcoder2-3b": STARCODER2_3B,
     "mamba2-1.3b": MAMBA2_1_3B,
     "zamba2-7b": ZAMBA2_7B,

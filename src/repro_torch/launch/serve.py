@@ -24,7 +24,12 @@ features run; the reference's other flags are accepted and refused with
 ``--arch`` takes every ported architecture (``configs/registry.py``):
 the dense ``tinyllama-1.1b`` and ``starcoder2-3b``, the MoEs
 ``qwen2-moe-a2.7b`` and ``deepseek-moe-16b`` (its leading dense layer
-included), ``mamba2-1.3b``, and the on-device families.
+included), ``deepseek-v3-671b`` (MLA's latent cache, read through the
+block-table gather), ``mamba2-1.3b``, and the on-device families.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --device cpu --paged --kv-dtype int8 \
+      --bucket --chunk-len 4 --check-unbucketed
 """
 from __future__ import annotations
 
@@ -176,7 +181,8 @@ def main(argv=None):
         print(f"bucketed: chunk_len={engine.chunk_len} "
               f"ladder={list(engine.buckets)} admit_s={st['admit_s']:.3f}")
     if args.paged:
-        read_path = (paged_read_path(cfg) if M.has_paged_leaves(cfg)
+        read_path = (paged_read_path(cfg, cfg.attn_type)
+                     if M.has_paged_leaves(cfg)
                      else "none, the state is per slot")
         print(f"paged: block_len={engine.block_len} pool={engine.n_blocks} "
               f"peak_blocks={st['peak_live_blocks']} "

@@ -10,6 +10,8 @@ device.  Weights are random, drawn from seed 0.
       --variant full --steps 20 --batch 4 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --variant reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-v3-671b --device cpu     # MLA, the MTP loss
 
 Prints loss, accuracy and grad norm as the reference does, and ms per
 step and tokens/s over the steps after the first (which builds the

@@ -1,9 +1,11 @@
-"""Core neural layers of the port: norms, RoPE, GQA attention, MLPs.
+"""Core neural layers of the port: norms, RoPE, GQA and MLA attention,
+MLPs.
 
-Counterpart of ``repro.models.layers`` (GQA parts, with the quantized KV
-cache; MLA is not ported yet).  Pure functions over explicit parameter
-dicts with the reference's keys and ``(in, out)`` weight matrices, used
-as ``x @ W``.  Attention has two execution paths:
+Counterpart of ``repro.models.layers`` (GQA with the quantized KV cache,
+and DeepSeek-V3's multi-head latent attention with its quantized latent
+cache).  Pure functions over explicit parameter dicts with the
+reference's keys and ``(in, out)`` weight matrices, used as ``x @ W``.
+GQA attention has two execution paths:
 
 * plain PyTorch: ``chunked_attention`` (online softmax over chunks) for
   full sequences and ``decode_attention`` (dense scores over a cache
@@ -11,6 +13,12 @@ as ``x @ W``.  Attention has two execution paths:
 * the hand-written CUDA kernels of ``repro_torch.kernels``, selected
   with ``cfg.use_kernels``: flash attention for full sequences, paged
   attention for the block-paged decode cache.
+
+MLA takes the plain path whatever ``cfg.use_kernels`` says, as the
+reference does: ``mla_full`` attends through ``chunked_attention``
+(query/key width nope + rope differs from the value width), and
+``mla_decode`` attends in the latent space with the absorbed matrices
+over the contiguous cache or a block-table gather of the pools.
 
 Where the reference returns an updated cache, the port writes the
 cache tensors in place and returns the same objects.  Matrix products go
@@ -323,10 +331,36 @@ def paged_gather(pool, block_table):
     return pool[block_table.long()].reshape((B, -1) + tuple(pool.shape[2:]))
 
 
-def paged_read_path(cfg: ModelConfig) -> str:
+def _write_cache(cache, new, pos, write_table=None):
+    """Write one call's cache entries ``new`` ({leaf: (B, C, ...)}) at
+    logical positions ``pos`` (B, C), in place: contiguous rows
+    (``write_table`` None), where a chunked prefill's positions past the
+    capacity (bucket pads) are dropped, as the reference's scatter drops
+    out-of-range rows (a boolean selection: one host sync a chunk and
+    layer); or the block pools through ``write_table``, the pool rows
+    found once for every leaf."""
+    cap = cache[next(iter(new))].shape[1]
+    if write_table is not None:
+        rows, cols = paged_rows(write_table, pos, cap)
+    else:
+        B, C = pos.shape
+        rows = torch.arange(B, device=pos.device)[:, None].expand(B, C)
+        cols = pos
+        if C > 1:
+            keep = pos < cap
+            rows, cols = rows[keep], pos[keep]
+            new = {key: val[keep] for key, val in new.items()}
+    for key, val in new.items():
+        cache[key][rows, cols] = val.to(cache[key].dtype)
+
+
+def paged_read_path(cfg: ModelConfig, attn: str = "gqa") -> str:
     """Which paged-attention read path serves a call: ``"kernel"`` (the
     CUDA block-table kernel, any chunk width) or ``"gather"`` (the
-    block-table gather and dense scores)."""
+    block-table gather and dense scores).  MLA's latent cache always
+    attends through the gather (the absorbed-matrix path)."""
+    if attn == "mla":
+        return "gather"
     return "kernel" if cfg.use_kernels else "gather"
 
 
@@ -364,27 +398,14 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
         new = {"k": codes[0], "v": codes[1], "k_scale": scales[0],
                "v_scale": scales[1]}
     if block_table is None:
-        rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
-        cols = pos
-        if C > 1:
-            # a chunked prefill's bucket pads past the capacity are
-            # dropped, as the reference's scatter drops out-of-range rows
-            # (a boolean selection: one host sync a chunk and layer)
-            keep = pos < cache["k"].shape[1]
-            rows, cols = rows[keep], pos[keep]
-            new = {key: val[keep] for key, val in new.items()}
-        for key, val in new.items():
-            cache[key][rows, cols] = val.to(cache[key].dtype)
+        _write_cache(cache, new, pos)
         kg, vg = cache["k"], cache["v"]
         if quantized:
             kg = quant.dequantize(kg, cache["k_scale"], x.dtype)
             vg = quant.dequantize(vg, cache["v_scale"], x.dtype)
     else:
-        wt = block_table if write_table is None else write_table
-        # paged_insert for each leaf, the pool rows found once
-        blk, off = paged_rows(wt, pos, cache["k"].shape[1])
-        for key, val in new.items():
-            cache[key][blk, off] = val.to(cache[key].dtype)
+        _write_cache(cache, new, pos, block_table if write_table is None
+                     else write_table)
         if paged_read_path(cfg) == "kernel":
             # chunk positions are consecutive per slot, so the kernel
             # takes the first query's position and derives the rest
@@ -408,6 +429,149 @@ def attention_decode(p, cfg: ModelConfig, x, pos, cache, *, window: int,
     out = decode_attention(q, kg, vg, pos, k_pos, window=window,
                            softcap=cfg.attn_logit_softcap)
     return mm(out.reshape(B, C, -1), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator, cfg: ModelConfig, dtype, lead=()):
+    D, H = cfg.d_model, cfg.n_heads
+    r, pr = cfg.kv_lora_rank, cfg.rope_head_dim
+    nd, vd = cfg.nope_head_dim, cfg.v_head_dim
+    dev = _source(generator)[1]
+    p = {
+        "wkv_a": dense_init(generator, (D, r + pr), 0, dtype, lead),
+        "kv_norm": {"scale": torch.ones(tuple(lead) + (r,), dtype=dtype,
+                                        device=dev)},
+        "wk_b": dense_init(generator, (H, r, nd), 1, dtype, lead),
+        "wv_b": dense_init(generator, (H, r, vd), 1, dtype, lead),
+        "wo": dense_init(generator, (H * vd, D), 0, dtype, lead),
+    }
+    if cfg.q_lora_rank:
+        p["wq_a"] = dense_init(generator, (D, cfg.q_lora_rank), 0, dtype,
+                               lead)
+        p["q_norm"] = {"scale": torch.ones(tuple(lead) + (cfg.q_lora_rank,),
+                                           dtype=dtype, device=dev)}
+        p["wq_b"] = dense_init(generator, (cfg.q_lora_rank, H * (nd + pr)),
+                               0, dtype, lead)
+    else:
+        p["wq"] = dense_init(generator, (D, H * (nd + pr)), 0, dtype, lead)
+    return p
+
+
+def _mla_queries(p, cfg: ModelConfig, x, positions):
+    """(q_nope (B,S,H,nd), q_rope (B,S,H,pr)): RoPE on the last
+    ``rope_head_dim`` features of each head only."""
+    B, S, _ = x.shape
+    H, nd, pr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = mm(apply_norm(p["q_norm"], mm(x, p["wq_a"])), p["wq_b"])
+    else:
+        q = mm(x, p["wq"])
+    q = q.reshape(B, S, H, nd + pr)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_latent(p, cfg: ModelConfig, x, positions):
+    """Compressed KV: returns (ckv (B,S,r), k_rope (B,S,pr)).  ``kv_norm``
+    normalises the latent before any up-projection; ``k_rope`` is one
+    head, shared by every query head."""
+    r = cfg.kv_lora_rank
+    kv = mm(x, p["wkv_a"])
+    ckv = apply_norm(p["kv_norm"], kv[..., :r])
+    k_rope = apply_rope(kv[..., None, r:], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return ckv, k_rope
+
+
+def mla_full(p, cfg: ModelConfig, x, positions):
+    """Training / prefill MLA through the plain ``chunked_attention``
+    (query/key width nope + rope, value width ``v_head_dim``, scale
+    1/sqrt(nope + rope)).  Returns (out, (ckv, k_rope))."""
+    B, S, _ = x.shape
+    H, nd, pr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    vd = cfg.v_head_dim
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    ckv, k_rope = mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,hrn->bshn", ckv, p["wk_b"].to(ckv.dtype))
+    v = torch.einsum("bsr,hrv->bshv", ckv, p["wv_b"].to(ckv.dtype))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, pr)], dim=-1)
+    out = chunked_attention(
+        q, k, v, positions, positions, causal=True,
+        scale=1.0 / math.sqrt(nd + pr), q_chunk=cfg.attn_chunk_q,
+        k_chunk=cfg.attn_chunk_k,
+        skip_masked_chunks=cfg.attn_skip_masked_chunks)
+    return mm(out.reshape(B, S, H * vd), p["wo"]), (ckv, k_rope)
+
+
+def _mla_attend(p, cfg: ModelConfig, x, pos, ckv, krope):
+    """Absorbed-matrix attention over a (B, S, r)/(B, S, pr) latent view
+    whose index along S is the logical position (contiguous cache, or a
+    block-table gather of a paged pool).  x: (B,C,D), pos: (B,C); C>1 is
+    one chunk, masked causally per query.  ``wk_b`` folds into the
+    query, ``wv_b`` applies after the softmax; scores and context in
+    f32, as in the reference."""
+    B, C = x.shape[:2]
+    H, nd, pr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    vd = cfg.v_head_dim
+    q_nope, q_rope = _mla_queries(p, cfg, x, pos)
+    # absorb W_UK into the query: (B,C,H,nd) x (H,r,nd) -> (B,C,H,r)
+    q_lat = torch.einsum("bqhn,hrn->bqhr", q_nope,
+                         p["wk_b"].to(q_nope.dtype))
+    Smax = ckv.shape[1]
+    k_pos = torch.arange(Smax, device=x.device)[None, :].expand(B, Smax)
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv.float())
+         + torch.einsum("bqhp,bsp->bhqs", q_rope.float(), krope.float()))
+    s = s / math.sqrt(nd + pr)
+    s = s + _mask_bias(pos, k_pos, causal=True, window=0)[:, None]
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, ckv.float())
+    v = torch.einsum("bqhr,hrv->bqhv", ctx, p["wv_b"].float())
+    return mm(v.reshape(B, C, H * vd).to(x.dtype), p["wo"])
+
+
+def mla_decode(p, cfg: ModelConfig, x, pos, cache, *, block_table=None,
+               write_table=None):
+    """Absorbed-matrix MLA decode / chunk: attends in the latent space.
+
+    ``cache`` is the layer's ``{"ckv", "kr"}`` dict (576 values a token
+    at DeepSeek-V3's ranks), plus ``{"ckv_scale", "kr_scale"}`` under a
+    quantized policy: each latent row and each rope-key row quantized at
+    write time with one scale over its feature axis.  The C latents of
+    x (B,C,D) at pos (B,C) are written first, then the C queries attend
+    over the updated view.  Contiguous (``block_table=None``): caches
+    (B,Smax,r) and (B,Smax,pr); positions >= Smax (a chunked prefill's
+    bucket pads) are not written.  Paged: block pools, written through
+    ``write_table`` (defaults to ``block_table``) and read through a
+    block-table gather (never the paged kernel).  The cache tensors are
+    updated in place; returns (out, cache)."""
+    ckv_t, kr_t = mla_latent(p, cfg, x, pos)
+    quantized = "ckv_scale" in cache
+    new = {"ckv": ckv_t, "kr": kr_t}
+    if quantized:
+        kv_dtype = quant.kv_dtype_of_leaf(cache["ckv"])
+        for key in ("ckv", "kr"):
+            new[key], new[quant.scale_name(key)] = quant.quantize(new[key],
+                                                                 kv_dtype)
+    if block_table is None:
+        _write_cache(cache, new, pos)
+    else:
+        _write_cache(cache, new, pos, block_table if write_table is None
+                     else write_table)
+
+    def view(key):
+        leaf = cache[key]
+        return leaf if block_table is None else paged_gather(leaf,
+                                                             block_table)
+
+    ckv_g, kr_g = view("ckv"), view("kr")
+    if quantized:
+        ckv_g = quant.dequantize(ckv_g, view("ckv_scale"), x.dtype)
+        kr_g = quant.dequantize(kr_g, view("kr_scale"), x.dtype)
+    return _mla_attend(p, cfg, x, pos, ckv_g, kr_g), cache
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,17 @@ routing weights.  DeepSeek's leading dense layers
 (``first_dense_layers``) are a second stack, ``dense_blocks/sub0/...``
 of shape (first_dense_layers, ...), with a dense MLP of width ``d_ff``;
 they run before ``blocks`` in every forward and decode, and carry their
-own cache entry.  MTP and MLA are not ported yet and raise.
+own cache entry.
+
+DeepSeek-V3's multi-head latent attention (``attn_type="mla"``) takes
+the attention's place in every sub-layer (``layers.mla_full`` /
+``layers.mla_decode``); its cache entry is the latent ``{"ckv", "kr"}``
+(B, S, kv_lora_rank) and (B, S, rope_head_dim) in place of ``{"k",
+"v"}``.  The multi-token prediction head (``n_mtp``, dense and MoE
+families) is ``params["mtp"]``: ``proj`` (2D, D), one dense sub-layer
+``block`` and ``norm``; ``loss_fn`` adds ``mtp_loss_weight`` times its
+loss (``_mtp_loss``, predicting token t+2), and ``mtp_chain_loss``
+chains it to any depth.
 
 The ssm family (``arch_type="ssm"``, Mamba2) stacks ``{"ln", "mixer"}``
 over its ``n_layers`` (``models/ssm.py``): prefill through the SSD scan,
@@ -39,13 +49,15 @@ family ``blocks/{state,conv}`` of shape (n_layers, B, H, P, N) in f32
 and (n_layers, B, K-1, conv_dim); for the hybrid family ``mamba`` of
 shape (n_groups, period, B, ...), ``attn`` ``{"k", "v"}`` with one entry
 per shared-attention application (n_groups, plus one with a tail) and
-``tail`` (tail, B, ...).  Paged cache: the sequence-carrying
+``tail`` (tail, B, ...); MLA's ``{"ckv", "kr"}`` of shape (n_groups, B,
+S, r) and (n_groups, B, S, pr).  Paged cache: the sequence-carrying
 leaves as block pools (n_groups, n_blocks, block_len, KH, Dh), where
 block id b is row b of every pool and block 0 is the trash block;
 leaves without a sequence axis (the ssm state and conv tail) keep one
 row per slot.  Under a quantized ``quant.CachePolicy`` (int8 or fp8) the
 attention leaves are stored at the policy's dtype beside f32
-``k_scale``/``v_scale`` siblings without the head-dim axis; the ssm
+``k_scale``/``v_scale`` (MLA: ``ckv_scale``/``kr_scale``) siblings
+without the trailing feature axis; the ssm
 state and conv tail opt out, as in the reference.  Decode writes these
 tensors in place (the reference returns new ones); the functions still
 return the cache so call sites read the same.
@@ -90,12 +102,17 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    attn_ok = (cfg.arch_type in ("dense", "moe", "hybrid")
-               and cfg.attn_type == "gqa" or cfg.arch_type == "ssm")
-    if not attn_ok or cfg.n_mtp:
+    if cfg.arch_type in ("dense", "moe"):
+        ok = cfg.attn_type in ("gqa", "mla")
+    elif cfg.arch_type == "hybrid":
+        ok = cfg.attn_type == "gqa" and not cfg.n_mtp
+    else:
+        ok = cfg.arch_type == "ssm"
+    if not ok:
         raise NotImplementedError(
-            f"{cfg.name} is not ported yet: only the dense, MoE and hybrid "
-            "GQA families without MTP, and the ssm family, are")
+            f"{cfg.name} is not ported yet: only the dense and MoE families "
+            "(GQA or MLA, with or without MTP), the hybrid GQA family and "
+            "the ssm family are")
 
 
 def _hybrid_layout(cfg: ModelConfig):
@@ -110,10 +127,12 @@ def _hybrid_layout(cfg: ModelConfig):
 
 def _init_block(generator, cfg: ModelConfig, dtype, lead, *, use_moe: bool):
     dev = layers._source(generator)[1]
+    init_attn = (layers.init_mla if cfg.attn_type == "mla"
+                 else layers.init_attention)
     p: Dict[str, Any] = {
         "ln1": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
         "ln2": layers.init_norm(cfg, cfg.d_model, dtype, dev, lead),
-        "attn": layers.init_attention(generator, cfg, dtype, lead),
+        "attn": init_attn(generator, cfg, dtype, lead),
     }
     if use_moe:
         p["moe"] = moe.init_moe(generator, cfg, dtype, lead)
@@ -129,11 +148,17 @@ def _init_block(generator, cfg: ModelConfig, dtype, lead, *, use_moe: bool):
 def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
                 causal: bool = True):
     """Full-sequence sub-layer.  Returns (x, aux, cache_entry): ``aux``
-    is the MoE load-balance loss (0 for a dense sub-layer)."""
+    is the MoE load-balance loss (0 for a dense sub-layer), the entry
+    ``{"k", "v"}`` (MLA: ``{"ckv", "kr"}``)."""
     window = _window_for(cfg, kind)
     h = layers.apply_norm(p["ln1"], x)
-    attn_out, (k, v) = layers.attention_full(p["attn"], cfg, h, positions,
-                                             window=window, causal=causal)
+    if cfg.attn_type == "mla":
+        attn_out, (ckv, kr) = layers.mla_full(p["attn"], cfg, h, positions)
+        kv = {"ckv": ckv, "kr": kr}
+    else:
+        attn_out, (k, v) = layers.attention_full(
+            p["attn"], cfg, h, positions, window=window, causal=causal)
+        kv = {"k": k, "v": v}
     if cfg.post_block_norm:
         attn_out = layers.apply_norm(p["ln1_post"], attn_out)
     x = x + attn_out
@@ -145,21 +170,26 @@ def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_block_norm:
         ffn_out = layers.apply_norm(p["ln2_post"], ffn_out)
-    return x + ffn_out, aux, {"k": k, "v": v}
+    return x + ffn_out, aux, kv
 
 
 def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
                   block_tables=None, write_tables=None, live=None):
     """Decode / chunk sub-layer.  x: (B, C, D), pos: (B, C) — C=1 is the
     single-token decode step.  ``cache`` is the layer's ``{"k", "v"}``
-    (contiguous rows, or block pools when ``block_tables`` is given),
-    updated in place.  ``live`` (B, C) bool masks dead serving rows out
-    of MoE routing weights."""
+    (MLA: ``{"ckv", "kr"}``; contiguous rows, or block pools when
+    ``block_tables`` is given), updated in place.  ``live`` (B, C) bool
+    masks dead serving rows out of MoE routing weights."""
     window = _window_for(cfg, kind)
     h = layers.apply_norm(p["ln1"], x)
-    attn_out, cache = layers.attention_decode(
-        p["attn"], cfg, h, pos, cache, window=window,
-        block_table=block_tables, write_table=write_tables)
+    if cfg.attn_type == "mla":
+        attn_out, cache = layers.mla_decode(
+            p["attn"], cfg, h, pos, cache, block_table=block_tables,
+            write_table=write_tables)
+    else:
+        attn_out, cache = layers.attention_decode(
+            p["attn"], cfg, h, pos, cache, window=window,
+            block_table=block_tables, write_table=write_tables)
     if cfg.post_block_norm:
         attn_out = layers.apply_norm(p["ln1_post"], attn_out)
     x = x + attn_out
@@ -209,9 +239,9 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
     group rematerialised in the backward when ``cfg.remat``.  Returns
     (x, aux, caches, stages): ``aux`` the MoE load-balance losses summed
     per group (through the remat, as the reference's scan carries it),
-    the per-layer k/v stacked on the group axis (an empty dict unless
-    ``collect_cache``), and each group's output stacked (n_groups, B, S,
-    D) when ``collect_stages``, else None.  The stages are the remat'd
+    the per-layer cache entries stacked on the group axis (an empty dict
+    unless ``collect_cache``), and each group's output stacked (n_groups,
+    B, S, D) when ``collect_stages``, else None.  The stages are the remat'd
     group function's outputs, which the next group's input keeps anyway,
     so keeping them costs no extra recompute."""
     n = next(iter(blocks["sub0"]["ln1"].values())).shape[0]
@@ -227,7 +257,7 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
         return x, aux, (kvs if collect_cache else [])
 
     group_fn = _maybe_remat(cfg, group_fn)
-    per_sub = {f"sub{i}": {"k": [], "v": []} for i in range(len(pattern))}
+    per_sub = {f"sub{i}": [] for i in range(len(pattern))}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stages = []
     for gp in _groups(blocks, n):
@@ -236,12 +266,11 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
         if collect_stages:
             stages.append(x)
         for i, kv in enumerate(kvs):
-            per_sub[f"sub{i}"]["k"].append(kv["k"])
-            per_sub[f"sub{i}"]["v"].append(kv["v"])
+            per_sub[f"sub{i}"].append(kv)
     stages = torch.stack(stages) if collect_stages else None
     if not collect_cache:
         return x, aux, {}, stages
-    return x, aux, {s: {k: torch.stack(v) for k, v in e.items()}
+    return x, aux, {s: {k: torch.stack([kv[k] for kv in e]) for k in e[0]}
                     for s, e in per_sub.items()}, stages
 
 
@@ -306,6 +335,16 @@ def init_params(cfg: ModelConfig, *, generator):
     p["blocks"] = {f"sub{i}": _init_block(generator, cfg, dtype, lead,
                                           use_moe=cfg.is_moe)
                    for i in range(cfg.layers_per_scan)}
+    if cfg.n_mtp:
+        # the multi-token prediction head: one dense sub-layer over the
+        # projected [norm(h_t); embed(token t+1)]
+        p["mtp"] = {
+            "proj": layers.dense_init(generator,
+                                      (2 * cfg.d_model, cfg.d_model), 0,
+                                      dtype),
+            "block": _init_block(generator, cfg, dtype, (), use_moe=False),
+            "norm": layers.init_norm(cfg, cfg.d_model, dtype, dev),
+        }
     return p
 
 
@@ -517,9 +556,10 @@ def chunked_ce(params, cfg: ModelConfig, h, labels, mask):
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Autoregressive LM loss (Eq. 2) plus the MoE load-balance loss.
-    Returns (loss + aux, metrics) with the reference's keys; ``aux_loss``
-    is 0 but for the MoE family."""
+    """Autoregressive LM loss (Eq. 2) plus the MoE load-balance loss and,
+    with an MTP head, ``mtp_loss_weight`` times its loss.  Returns
+    (loss + aux, metrics) with the reference's keys; ``aux_loss`` is 0
+    but for the MoE family, ``mtp_loss`` present with an MTP head."""
     h, aux, _, _ = backbone(params, cfg, batch)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -531,7 +571,52 @@ def loss_fn(params, cfg: ModelConfig, batch):
     metrics = {"nll": nll, "tokens": tok,
                "accuracy": cor / torch.clamp(tok, min=1.0),
                "aux_loss": aux, "ce_loss": loss}
+    if cfg.n_mtp and "mtp" in params:
+        mtp_loss = _mtp_loss(params, cfg, h, batch)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + cfg.mtp_loss_weight * mtp_loss
     return loss + aux, metrics
+
+
+def _mtp_step(params, cfg: ModelConfig, h, tokens, labels, j: int):
+    """One MTP depth j: the head over [norm(h); embed(token i+j)] at each
+    position i, its CE against label i+j (token i+j+1) through
+    ``chunked_ce``.  The rolls wrap, so the last j+1 positions are
+    masked out.  Returns (the head's hidden, mean NLL)."""
+    B, S = tokens.shape
+    mp = params["mtp"]
+    emb = _embed(params, cfg, torch.roll(tokens, -j, 1))
+    hin = layers.mm(torch.cat([layers.apply_norm(mp["norm"], h),
+                               emb.to(h.dtype)], dim=-1), mp["proj"])
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    hout, _, _ = _block_full(mp["block"], cfg, hin, positions, kind="full")
+    lab = torch.roll(labels, -j, 1)
+    mask = torch.ones(lab.shape, dtype=torch.float32, device=lab.device)
+    mask[:, -(j + 1):] = 0.0
+    nll, tok, _ = chunked_ce(params, cfg, hout, lab, mask)
+    return hout, nll / torch.clamp(tok, min=1.0)
+
+
+def _mtp_loss(params, cfg: ModelConfig, h, batch):
+    """DeepSeek-V3 multi-token prediction head (depth 1): predict t+2
+    from the backbone's final-normed hidden at t and token t+1."""
+    return _mtp_step(params, cfg, h, batch["tokens"], batch["labels"], 1)[1]
+
+
+def mtp_chain_loss(params, cfg: ModelConfig, batch, *, depth: int):
+    """Teacher-forced chained MTP loss: the head at every depth
+    ``1..depth``, fed its own output hidden back in (how the reference's
+    ``_mtp_draft`` chains at inference).  Depth j at position i combines
+    the depth j-1 hidden with the embedding of token i+j and predicts
+    token i+j+1; the last j+1 positions are masked out.  Returns the
+    mean NLL averaged over depths (depth 1 is ``_mtp_loss``)."""
+    h, _, _, _ = backbone(params, cfg, batch)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(1, depth + 1):
+        h, nll = _mtp_step(params, cfg, h, batch["tokens"], batch["labels"],
+                           j)
+        total = total + nll
+    return total / depth
 
 
 # ---------------------------------------------------------------------------
@@ -550,24 +635,33 @@ def _attn_cache_struct(cfg: ModelConfig, lead, B: int, S: int, *, device,
     """One stacked attention cache entry: ``{"k", "v"}`` of shape
     (*lead, B, S, KH, Dh) at the policy's storage dtype, plus float32
     ``k_scale``/``v_scale`` of shape (*lead, B, S, KH) under a quantized
-    policy (one scale per written row and kv head)."""
+    policy (one scale per written row and kv head).  MLA: the latent
+    ``{"ckv", "kr"}`` of shape (*lead, B, S, r) and (*lead, B, S, pr),
+    with scales of shape (*lead, B, S)."""
     pol = policy or quant.CachePolicy()
     sd = pol.storage_dtype(_dtype(cfg))
-    shape = tuple(lead) + (B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    base = tuple(lead) + (B, S)
+    if cfg.attn_type == "mla":
+        shapes = {"ckv": base + (cfg.kv_lora_rank,),
+                  "kr": base + (cfg.rope_head_dim,)}
+    else:
+        kv = base + (cfg.n_kv_heads, cfg.resolved_head_dim)
+        shapes = {"k": kv, "v": kv}
     c = {key: torch.zeros(shape, dtype=sd, device=device)
-         for key in ("k", "v")}
+         for key, shape in shapes.items()}
     if pol.quantized:
         for key in list(c):
             c[quant.scale_name(key)] = torch.zeros(
-                shape[:-1], dtype=torch.float32, device=device)
+                c[key].shape[:-1], dtype=torch.float32, device=device)
     return c
 
 
 def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
                       policy=None):
     """Zeroed contiguous cache for ``decode_step`` (capacity S): per
-    sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh) (with
-    ``k_scale``/``v_scale`` under a quantized ``policy``), and a
+    sub-layer ``{"k", "v"}`` of shape (n_groups, B, S, KH, Dh) (MLA:
+    ``{"ckv", "kr"}``, ``_attn_cache_struct``; with their scales under
+    a quantized ``policy``), and a
     ``dense_blocks`` entry of the same form stacked over the leading
     dense layers; for the ssm
     family the recurrent ``state`` (n_layers, B, H, P, N) in f32 and the

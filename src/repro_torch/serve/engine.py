@@ -56,7 +56,9 @@ MoE configurations serve as in the reference with ``mesh=None``: the
 engine sets ``moe_dropless`` (which only the expert-parallel paths
 read), and every decode step passes ``live = ~done``, so a finished
 slot's garbage lane combines with routing weight 0.  Leading dense
-layers (``dense_blocks``) are pooled like ``blocks``.
+layers (``dense_blocks``) are pooled like ``blocks``.  DeepSeek-V3's
+MLA latent cache (``{"ckv", "kr"}``, quantized with one scale a row)
+is pooled and admitted like any attention leaf.
 
 Not ported yet, and refused with ``NotImplementedError``: speculative
 decode, sharded serving (``mesh``) and the families not ported yet.
