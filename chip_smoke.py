@@ -60,6 +60,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    grouped FFN over its 256 expert stacks (3.76 G elements each) at C 8
    and C 64 with expert 255's rows held apart, the dispatch and combine
    at T 1024, top-8, D 7168, and CE at T 2048, D 7168, V 129,280;
+   the gemma shapes: flash at S 8192, H 16 over KH 8, D 256 with
+   Gemma-2's window of 4096 and cap of 50 (q scaled so scores reach
+   about 150) and at PaliGemma's S 1280, H 8 over KH 1; paged at C 1
+   over 8 slots of ctx 4100-8192 and at C 256 over ctx 4608 with the
+   window and the cap; the plain version without the window, and
+   without the cap, must each miss the limit;
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
    behind ``PagedServeEngine``: 16 greedy requests, prompts of 128-1024
    tokens, 64 new tokens each.  Checks the completions, the allocator,
@@ -74,10 +80,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5. profile: torch.profiler over one 1024-token prefill (flash's share
    read apart) and one decode segment (the paged kernel's share read
    apart, failing at zero; device launches a layer-step);
-5a. serve_kv: the same model, traffic and engine with the KV pool in
+5a. serve_kv: the same model cut to 11 of its 22 layers, the same
+   traffic and engine, with the KV pool in
    bf16, int8, fp8 and bf16 again, in turns.  Checks the completions,
-   the dequant branch's launches in the quantized runs (22 per decode
-   step, none of the unquantized branch), the decode logits of the
+   the dequant branch's launches in the quantized runs (one a layer a
+   decode step, none of the unquantized branch), the decode logits of the
    quantized kernel path against the quantized gather path and against
    the unquantized path (and that dropped scales would fail that
    limit), reports speed, pool bytes and peak memory against the bf16
@@ -115,6 +122,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    bytes and decode logits (dropped scales breaking the limit); 8
    requests unbucketed and bucketed; the bf16 model's distance to the
    f32 model (RoPE on the nope half breaking it);
+5f. serve_gemma: Gemma-2-9B at full width and depth (42 layers, local
+   windows of 4096, both softcaps): the f32 model's kernel path against
+   its plain path on a 4,608-token request (its prefill masks in flash,
+   its 4 decode steps read paged attention past the window), the same
+   weights with ``sliding_window=0`` breaking the limit, each bf16
+   path's distance to the f32 model; the 16 requests and the long one
+   through the paged and the contiguous engine (launches, readings,
+   pool bytes); 8 requests unbucketed and bucketed; f32 completions
+   bucketed and unbucketed equal on GEMMA_F32_IDENTITY_LAYERS layers.
+   Gemma-2-27B at full width on GEMMA27_LAYERS layers: the same check,
+   three requests and the long one through both engines.  PaliGemma-3B
+   at full width and depth: 16 requests of 256 stub patch rows and
+   128-1024 text tokens through both engines, unbucketed and bucketed;
+   the logit check with zeroed patches as the fault; equal patches and
+   text sharing every full prompt block, other patches none;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run
@@ -187,7 +209,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    drops and the tune's held-out loss;
 10. methods: DeepFusion, FedKMT, OFA-KD, FedJETS, centralized training
    and FedAvg on ``benchmarks/common.py``'s f32 configs (copied; vocab
-   256, seq 48, N 8, its step counts), one fleet's uploads shared.
+   256, seq 48, N 8, its step counts halved), one fleet's uploads
+   shared.
    Checks each ``comm_bytes`` against its formula; DeepFusion at 6
    steps with kernels against ``use_kernels=False`` (histories and
    ``log_ppl`` within METHODS_*_RTOL; the MoE's only when nothing
@@ -248,14 +271,9 @@ def fail(msg: str) -> None:
 F32_TOL = 1e-4   # f32 sums in another order over at most ~1k terms
 
 
-def check_close(case: str, out: torch.Tensor, want: torch.Tensor) -> dict:
-    """Holds a kernel's output to its plain version's, element by element.
-    Both accumulate in f32 and round once to the output dtype, so in bf16
-    an element differs by about one bf16 ulp of its own value, plus the
-    f32 sum-order difference: the limit is two ulps of |want| + F32_TOL.
-    A small output (a long row's average) gets a small limit.  f32
-    outputs: F32_TOL.  Returns the largest error and its share of the
-    limit."""
+def _over_limit(out: torch.Tensor, want: torch.Tensor):
+    """(|out - want|, the largest error in units of ``check_close``'s
+    limit)."""
     out, ref = out.float(), want.float()
     err = (out - ref).abs()
     limit = torch.full_like(ref, F32_TOL)
@@ -264,7 +282,19 @@ def check_close(case: str, out: torch.Tensor, want: torch.Tensor) -> dict:
         ulp = torch.ldexp(torch.full_like(ref, torch.finfo(want.dtype).eps),
                           e - 1)
         limit += 2 * ulp
-    worst = (err / limit).max().item()
+    return err, (err / limit).max().item()
+
+
+def check_close(case: str, out: torch.Tensor, want: torch.Tensor) -> dict:
+    """Holds a kernel's output to its plain version's, element by element.
+    Both accumulate in f32 and round once to the output dtype, so in bf16
+    an element differs by about one bf16 ulp of its own value, plus the
+    f32 sum-order difference: the limit is two ulps of |want| + F32_TOL.
+    A small output (a long row's average) gets a small limit.  f32
+    outputs: F32_TOL.  Returns the largest error and its share of the
+    limit."""
+    err, worst = _over_limit(out, want)
+    ref = want.float()
     row = {"case": case, "max_abs_err": err.max().item(),
            "err_over_limit": worst,
            "max_abs_want": ref.abs().max().item()}
@@ -378,19 +408,63 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _terms_seen(name, want, plain, kw):
+    """Each term of a windowed or capped case reaches the output: the
+    plain version run without it (``window=0``, ``softcap=0``) must miss
+    the limit the kernel is held to, or the check could not see that
+    term.  Returns each miss in units of the limit."""
+    row = {}
+    for term in ("window", "softcap"):
+        if kw[term]:
+            worst = _over_limit(plain(**{**kw, term: 0}), want)[1]
+            row[f"without_{term}_over_limit"] = worst
+            if not worst > 1.0:
+                fail(f"{name}: the plain version without its {term} is "
+                     f"within the limit ({worst:.3g}x): the check cannot "
+                     f"see the {term}")
+    return row
+
+
+def _max_score(q, k, qpos, kpos, window):
+    """The largest |q.k| / sqrt(D) over the visible (query, key) pairs,
+    one query head at a time: q (B, Sq, H, D), k (B, Sk, KH, D), qpos
+    (B, Sq) and kpos (Sk,) absolute positions."""
+    B, Sq, H, D = q.shape
+    g = H // k.shape[2]
+    ok = kpos[None, None, :] <= qpos[:, :, None]
+    if window:
+        ok = ok & (kpos[None, None, :] > qpos[:, :, None] - window)
+    best = 0.0
+    for h in range(H):
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
+                         k[:, :, h // g].float()).abs() / math.sqrt(D)
+        best = max(best, s.masked_fill(~ok, 0).max().item())
+    return best
+
+
 def flash_case(gen, B, S, H, KH, D, dtype, *, window=0, softcap=0.0,
-               timed=False):
+               timed=False, q_scale=1.0, terms=False):
+    """``q_scale`` scales q so that scores reach a softcap's range;
+    ``terms`` also shows that the window and the softcap each reach the
+    output (``_terms_seen``)."""
     from repro_torch.kernels.flash_attention import ops, ref
-    q = _randn(gen, (B, S, H, D), dtype)
+    q = (_randn(gen, (B, S, H, D), torch.float32) * q_scale).to(dtype)
     k = _randn(gen, (B, S, KH, D), dtype)
     v = _randn(gen, (B, S, KH, D), dtype)
     kw = dict(causal=True, window=window, softcap=softcap)
     out = ops.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    row = check_close(f"flash B={B} S={S} H={H} KH={KH} D={D} "
-                      f"{str(dtype)[6:]} causal window={window} "
-                      f"softcap={softcap}", out, want)
+    name = (f"flash B={B} S={S} H={H} KH={KH} D={D} {str(dtype)[6:]} causal "
+            f"window={window} softcap={softcap}"
+            + (f" q_scale={q_scale}" if q_scale != 1.0 else ""))
+    row = check_close(name, out, want)
+    if terms:
+        pos = torch.arange(S, device="cuda")
+        row["max_abs_score"] = _max_score(q, k, pos[None].expand(B, S), pos,
+                                          window)
+        row.update(_terms_seen(name, want, lambda **c: (
+            ref.flash_attention_ref(q, k, v, **c)), kw))
     if timed:
         # visible (q, k) pairs of causal attention, 4*D flops each
         pairs = S * (S + 1) / 2 if not window else sum(
@@ -409,10 +483,11 @@ def flash_case(gen, B, S, H, KH, D, dtype, *, window=0, softcap=0.0,
 
 
 def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
-               timed=False):
+               timed=False, q_scale=1.0, terms=False):
     """len(ctx) slots; slot b holds ctx[b] cached positions (its queries
     are the last C of them).  Blocks are scattered over the pool in a
-    random order; table entries past a slot's blocks point at block 0."""
+    random order; table entries past a slot's blocks point at block 0.
+    ``q_scale`` and ``terms`` as in ``flash_case``."""
     from repro_torch.kernels.paged_attn import ops, ref
     from repro_torch.models.layers import paged_gather
     B = len(ctx)
@@ -420,7 +495,7 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
     nbt = bt.shape[1]
     pos = torch.tensor([c - C for c in ctx], dtype=torch.int32,
                        device="cuda")
-    q = _randn(gen, (B, C, H, D), dtype)
+    q = (_randn(gen, (B, C, H, D), torch.float32) * q_scale).to(dtype)
     kp = _randn(gen, (n_blocks, bl, KH, D), dtype)
     vp = _randn(gen, (n_blocks, bl, KH, D), dtype)
     kw = dict(window=window, softcap=softcap)
@@ -429,17 +504,30 @@ def paged_case(gen, ctx, C, H, KH, D, bl, dtype, *, window=0, softcap=0.0,
     torch.cuda.synchronize()
     name = (f"paged slots={B} ctx={min(ctx)}-{max(ctx)} C={C} H={H} KH={KH} "
             f"D={D} bl={bl} {str(dtype)[6:]} window={window} "
-            f"softcap={softcap}")
+            f"softcap={softcap}"
+            + (f" q_scale={q_scale}" if q_scale != 1.0 else ""))
     row = check_close(name, out, want)
     _check_repeat(name, out, lambda: ops.paged_decode_attention(
         q, kp, vp, bt, pos, **kw))
+    if terms:
+        qpos = (pos.long()[:, None]
+                + torch.arange(C, device="cuda")[None, :])
+        row["max_abs_score"] = _max_score(
+            q, paged_gather(kp, bt), qpos,
+            torch.arange(nbt * bl, device="cuda"), window)
+        row.update(_terms_seen(name, want, lambda **c: (
+            ref.paged_attention_ref(q, kp, vp, bt, pos, **c)), kw))
     if timed:
         row["split"] = _split(ops, q, kp, bt)
-        # every visible K/V row read once, q read and out written once
-        rows = sum(ctx)
+        # every visible K/V row read once (a window hides the rows left
+        # of its first query's), q read and out written once
+        rows = sum(c - max(0, c - C - window + 1) if window else c
+                   for c in ctx)
         nbytes = (2 * rows * KH * D + 2 * q.numel()) * q.element_size() \
             + bt.numel() * 4 + pos.numel() * 4
-        flops = 4 * D * H * sum(c - C + 1 + (C - 1) / 2 for c in ctx) * C
+        flops = 4 * D * H * sum(
+            min(p + 1, window) if window else p + 1
+            for c in ctx for p in range(c - C, c))
         # the library yardstick attends a pre-gathered dense cache (the
         # gather is not timed): (B, H, S, D) with a length mask
         S = nbt * bl
@@ -1500,8 +1588,10 @@ def phase_kernels():
                        inst="tc")]
     chunked = chunked_admission_cases(gen)
     wide = mla_cases(gen)
+    gemma = gemma_cases(gen)
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
-                + ffn + gmm + split + gsa + ssd + hybrid + chunked + wide):
+                + ffn + gmm + split + gsa + ssd + hybrid + chunked + wide
+                + gemma):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
@@ -1535,6 +1625,35 @@ def chunked_admission_cases(gen):
                      timed=True, inst="tc"),
             ssd_case(gen, 1, C, 112, 64, 64, 1, bf, with_h0=True,
                      slow=True, inst="tc")]
+
+
+# serve_gemma's shapes: Gemma-2-9B's heads (H 16 over KH 8, D 256) with
+# its local layers' window of 4096 and the attention softcap of 50, and
+# PaliGemma's (H 8 over KH 1, D 256).  q is scaled so that scores reach
+# about 150, where the cap bites (at unit scale tanh(s/50)*50 differs
+# from s by about 1e-4 of s, which no limit could see).
+GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
+GEMMA_Q_SCALE = {"flash": 25.0, "paged": 30.0}
+
+
+def gemma_cases(gen):
+    """Kernel 1 at B 1, S 8192 with the window and the cap (timed; no
+    library call has a softcap) and at PaliGemma's prefill, S 1280
+    (timed beside SDPA); kernel 2 at C 1 over 8 slots of ctx 4100-8192
+    (whole slices left of the window) and at C 256 over ctx 4608, both
+    with the window and the cap, timed.  Each windowed or capped case
+    shows that both terms reach its output."""
+    bf = torch.bfloat16
+    term = dict(window=GEMMA_WINDOW, softcap=GEMMA_CAP, timed=True,
+                terms=True)
+    ctx = [int(c) for c in np.linspace(4100, 8192, 8)]
+    return [flash_case(gen, 1, 8192, 16, 8, 256, bf,
+                       q_scale=GEMMA_Q_SCALE["flash"], **term),
+            flash_case(gen, 1, 1280, 8, 1, 256, bf, timed=True),
+            paged_case(gen, ctx, 1, 16, 8, 256, 16, bf,
+                       q_scale=GEMMA_Q_SCALE["paged"], **term),
+            paged_case(gen, [4608], CHUNK_LEN, 16, 8, 256, 16, bf,
+                       q_scale=GEMMA_Q_SCALE["paged"], **term)]
 
 
 # DeepSeek-V3's expert layer (serve_mla): 256 routed experts of width 2048
@@ -1915,13 +2034,15 @@ def _bucketed_launches(label, eng, launches, seg_len, *, n_attn, n_ssm=0,
 
 
 def _bucketed_serve(label, make_engine, warm, prompts, lens, max_new, cfg,
-                    seg_len, unbucketed, **n):
+                    seg_len, unbucketed, warm_new=None, **n):
     """The phase's traffic through its engine with chunk_len CHUNK_LEN
-    (default ladder), after a warm-up on ``warm``: the completions, the
-    launches (``_bucketed_launches``), the readings beside the unbucketed
-    run's (``unbucketed``, from ``_serve_readings``).  Returns (readings,
-    launches)."""
-    make_engine(warm, chunk_len=CHUNK_LEN).run()
+    (default ladder), after a warm-up on ``warm`` (generating
+    ``warm_new`` tokens a request where ``make_engine`` takes ``new``):
+    the completions, the launches (``_bucketed_launches``), the readings
+    beside the unbucketed run's (``unbucketed``, from
+    ``_serve_readings``).  Returns (readings, launches)."""
+    make_engine(warm, chunk_len=CHUNK_LEN,
+                **({} if warm_new is None else {"new": warm_new})).run()
     eng, comps, wall, launches, peak = _engine_run(
         lambda: make_engine(prompts, chunk_len=CHUNK_LEN))
     if eng.buckets != (256, 512, 1024, 2048):
@@ -2000,6 +2121,11 @@ def _rms(a, b):
 
 KV_QUANT = ("int8", "fp8")
 KV_CHECK_STEPS = 8
+# TinyLlama-1.1B at full width, its depth cut from 22 layers to 11 to keep
+# the whole script's time (the host's launch chain, not the card, sets a
+# decode step's time, about in proportion to depth); the limits below
+# were set from readings at 22 layers
+SERVE_KV_LAYERS = 11
 # (i) decode logits of the quantized kernel path against the quantized
 # gather path on the same pool (8 steps after a 1024-token prompt).  f32:
 # both dequantize in f32 and differ in summation order only.  bf16: the
@@ -2170,8 +2296,9 @@ def phase_serve_kv():
     seg_len 8) with the KV pool in bf16, int8, fp8 and bf16 again, in
     turns in one phase, so the quantized runs are compared with bf16
     under the same conditions.  The quantized runs launch the dequant
-    branch of the paged kernel 22 times a decode step and the
-    unquantized branch never.  Reports tok/s, ms per decode step, TTFT,
+    branch of the paged kernel once a layer a decode step and the
+    unquantized branch never.  TinyLlama is cut to SERVE_KV_LAYERS of its
+    22 layers.  Reports tok/s, ms per decode step, TTFT,
     the pool's bytes, peak memory and agreement with the first bf16 run's
     tokens; then the logit checks, the equal-bytes reading and a profile
     of an int8 decode segment."""
@@ -2182,7 +2309,8 @@ def phase_serve_kv():
     from repro_torch.models import quant
     from repro_torch.serve import PagedServeEngine
 
-    cfg = get_config("tinyllama-1.1b", variant="full")
+    cfg = get_config("tinyllama-1.1b", variant="full").replace(
+        n_layers=SERVE_KV_LAYERS)
     torch.cuda.empty_cache()
     params = M.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0))
@@ -3163,22 +3291,27 @@ HYBRID_F32_LOGIT_TOL = 5e-3
 HYBRID_ATTN_MARGIN = 3.0
 
 
-def _hybrid_path_logits(M, params, cfg, toks, cont):
-    """Prefill's last-token logits, then HYBRID_DECODE_STEPS paged decode
-    steps fed ``cont`` (teacher-forced): (1 + steps, V) f32."""
-    P, n, bl = toks.shape[1], cont.shape[1], 16
-    logits, pc = M.prefill(params, cfg, {"tokens": toks})
-    n_pb, nb = -(-P // bl), -(-(P + n) // bl)
+def _path_logits(M, params, cfg, batch, cont):
+    """Prefill's last-token logits of one request's ``batch`` (tokens
+    (1, P), and a VLM's patches), then ``cont.shape[1]`` paged decode
+    steps fed ``cont`` (teacher-forced) from ``decode_pos0``: (1 +
+    steps, V) f32."""
+    P, n, bl = batch["tokens"].shape[1], cont.shape[1], 16
+    pos0 = M.decode_pos0(cfg, P)
+    logits, pc = M.prefill(params, cfg, batch)
+    n_pb, nb = -(-pos0 // bl), -(-(pos0 + n) // bl)
     cache = M.init_paged_cache(cfg, 1, nb + 1, bl, device="cuda")
     sub = M.prefill_into_cache(cfg, M.init_decode_cache(
         cfg, 1, n_pb * bl, device="cuda"), pc)
+    del pc
     M.scatter_prefill_paged(cfg, cache, sub, 0, list(range(1, n_pb + 1)),
                             [True] * n_pb, block_len=bl)
+    del sub
     bt = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
     out = [logits[0]]
     for j in range(n):
         lg, cache = M.decode_step(params, cfg, cache, cont[:, j:j + 1],
-                                  torch.tensor([P + j], device="cuda"),
+                                  torch.tensor([pos0 + j], device="cuda"),
                                   block_tables=bt)
         out.append(lg[0])
     return torch.stack(out)
@@ -3203,9 +3336,10 @@ def hybrid_logit_check(M, params, cfg, prompt, seed):
             "paged_attn": n_attn * HYBRID_DECODE_STEPS}
 
     def paths(p, c):
-        lk, n_k = _launched(lambda: _hybrid_path_logits(M, p, c, toks, cont))
-        lp, n_p = _launched(lambda: _hybrid_path_logits(
-            M, p, c.replace(use_kernels=False), toks, cont))
+        lk, n_k = _launched(lambda: _path_logits(M, p, c, {"tokens": toks},
+                                                 cont))
+        lp, n_p = _launched(lambda: _path_logits(
+            M, p, c.replace(use_kernels=False), {"tokens": toks}, cont))
         if {k: n_k[k] for k in want} != want or any(
                 v for k, v in n_k.items() if k not in want) or \
                 any(n_p.values()):
@@ -3235,7 +3369,7 @@ def hybrid_logit_check(M, params, cfg, prompt, seed):
     c32 = chunked(p32, cfg32)
     wo = p32["shared_attn"]["attn"]["wo"]
     wo.zero_()
-    a32 = _hybrid_path_logits(M, p32, cfg32, toks, cont)
+    a32 = _path_logits(M, p32, cfg32, {"tokens": toks}, cont)
     del p32
 
     err = (k32 - q32).abs().max(-1).values
@@ -3740,6 +3874,350 @@ def phase_serve_mla():
              f"{dist['bf16_rope_on_nope_half_to_f32_rms']:.4f} RMS from the "
              f"f32 model: the limits would not see it")
     return _sum_counts(*paths)
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: serve the gemma family (Gemma-2-9B, Gemma-2-27B) and the VLM
+# (PaliGemma-3B)
+# ---------------------------------------------------------------------------
+
+# the long request: a prompt past the local layers' window of 4096, so its
+# prefill masks in kernel 1 and its decode reads kernel 2 past the window
+GEMMA_LONG = 4608
+GEMMA_DECODE_STEPS = 4
+GEMMA_SLOTS, GEMMA_SEG = 8, 8
+# f32 kernel path against plain path: the long request's prefill logits
+# and GEMMA_DECODE_STEPS teacher-forced paged decode steps (PaliGemma: its
+# longest request).  Readings on an H100 (700 W): prefill 2.34e-5 (9B),
+# 2.26e-5 (27B, 8 layers), 8.2e-6 (PaliGemma), decode at most 9.9e-6, on
+# logits of at most 10.9, 23.3 and 16.1; the limit about 4x the worst.
+GEMMA_F32_LOGIT_TOL = 1e-4
+# the planted fault (Gemma: the same weights with sliding_window=0;
+# PaliGemma: the patches zeroed) must move the f32 kernel path's logits
+# by this many times the limit
+GEMMA_FAULT_MARGIN = 3.0
+# Gemma-2-27B at full width, its depth cut from 46 layers to 8 (full
+# depth would hold 54.4 GB of bf16 weights); the f32 token identity of
+# Gemma-2-9B on 14 of its 42 layers (the f32 copy of all 42 is 37 GB)
+GEMMA27_LAYERS = 8
+GEMMA_F32_IDENTITY_LAYERS = 14
+
+
+def _cut_depth(params, cfg, n_layers):
+    """The first ``n_layers`` of a dense stack: views of ``blocks``' first
+    groups (nothing copied), and the config at that depth."""
+    from repro_torch.utils.pytree import tree_map
+    g = n_layers // cfg.layers_per_scan
+    return ({**params, "blocks": tree_map(lambda t: t[:g], params["blocks"])},
+            cfg.replace(n_layers=n_layers))
+
+
+def gemma_logit_check(M, params, cfg, batch, fault_cfg, fault_batch, seed):
+    """On one request, the f32 model (these weights cast): (i) the kernel
+    path's logits (prefill + GEMMA_DECODE_STEPS paged decode steps) against
+    the plain path's, the kernel run launching flash once a layer and the
+    paged kernel once a layer-step, the plain run nothing; (ii) the
+    planted fault (``fault_cfg`` / ``fault_batch`` on the kernel path)
+    at least GEMMA_FAULT_MARGIN limits from the plain path; (iii) the bf16
+    model's kernel and plain paths' RMS distance to the f32 model, the
+    kernel path's at most SSM_BF16_RATIO times the plain path's."""
+    from repro_torch.utils.pytree import tree_map
+    cont = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, GEMMA_DECODE_STEPS)).astype(np.int32),
+        device="cuda")
+    want = {"flash_attention": cfg.n_layers,
+            "paged_attn": cfg.n_layers * GEMMA_DECODE_STEPS}
+
+    def on_card(b):
+        return {k: torch.as_tensor(v).to("cuda") for k, v in b.items()}
+
+    def paths(p, c, b):
+        lk, n_k = _launched(lambda: _path_logits(M, p, c, b, cont))
+        lp, n_p = _launched(lambda: _path_logits(
+            M, p, c.replace(use_kernels=False), b, cont))
+        if {**dict.fromkeys(n_k, 0), **want} != n_k or any(n_p.values()):
+            fail(f"serve_gemma {cfg.name} logits ({c.dtype}): kernel path "
+                 f"launched {n_k} (expected {want}), plain path {n_p}")
+        return lk, lp
+
+    b16 = on_card(batch)
+    kb, qb = paths(params, cfg, b16)
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    b32 = {k: v.float() if v.is_floating_point() else v
+           for k, v in b16.items()}
+    k32, q32 = paths(p32, cfg32, b32)
+    fb = {k: v.float() if v.is_floating_point() else v
+          for k, v in on_card(fault_batch).items()}
+    f32 = _path_logits(M, p32, fault_cfg.replace(dtype="float32"), fb, cont)
+    del p32
+    torch.cuda.empty_cache()
+    err = (k32 - q32).abs().max(-1).values
+    fault = (f32 - q32).abs().max(-1).values
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "prompt_len": batch["tokens"].shape[1],
+           "max_abs_logit": q32.abs().max().item(),
+           "f32_prefill_kernel_vs_plain": err[0].item(),
+           "f32_decode_kernel_vs_plain": err[1:].max().item(),
+           "f32_fault_min": fault.min().item(),
+           "bf16_kernel_to_f32_rms": _rms(kb, q32),
+           "bf16_plain_to_f32_rms": _rms(qb, q32),
+           "bf16_kernel_vs_plain_max": (kb - qb).abs().max().item(),
+           "launches_kernel_path": want}
+    res["bf16_rms_ratio"] = (res["bf16_kernel_to_f32_rms"]
+                             / res["bf16_plain_to_f32_rms"])
+    print(f"serve_gemma logits ({CARD}) " + json.dumps(res))
+    if not (torch.isfinite(kb).all() and torch.isfinite(k32).all()) or \
+            not err.max() <= GEMMA_F32_LOGIT_TOL:
+        fail(f"serve_gemma {cfg.name}: f32 kernel-path logits differ from "
+             f"the plain path's by {err.max().item()} > "
+             f"{GEMMA_F32_LOGIT_TOL}")
+    if not fault.min() >= GEMMA_FAULT_MARGIN * GEMMA_F32_LOGIT_TOL:
+        fail(f"serve_gemma {cfg.name}: the planted fault moves the logits "
+             f"by only {fault.min().item()}: the check would not see it")
+    if not res["bf16_rms_ratio"] <= SSM_BF16_RATIO:
+        fail(f"serve_gemma {cfg.name}: the bf16 kernel path is "
+             f"{res['bf16_rms_ratio']:.3f}x as far from the f32 model as "
+             f"the plain path (limit {SSM_BF16_RATIO})")
+    return res
+
+
+def _gemma_make(cls, params, cfg, batches, max_new, max_len):
+    """An engine factory over the phase's slots and segments:
+    ``make(batches, new=max_new, **kw)`` submits each batch with ``new``
+    tokens to generate (a warm-up takes one segment's)."""
+    def make(bs=batches, new=max_new, **kw):
+        eng = cls(params, cfg, n_slots=GEMMA_SLOTS, seg_len=GEMMA_SEG,
+                  max_len=max_len, device="cuda", **kw)
+        for b in bs:
+            eng.submit(b, max_new=new)
+        return eng
+    return make
+
+
+def _gemma_run(label, M, make, batches, lens, max_new, cfg):
+    """One timed run of ``make``'s engine on the batches: completions,
+    the block pool, launches (flash once a layer a prefill; the paged
+    engine's paged kernel once a layer a decode step; nothing else) and
+    the serving readings with the pool's bytes.  Returns (readings,
+    completions, launches)."""
+    eng, comps, wall, launches, peak = _engine_run(lambda: make(batches))
+    _check_served(label, eng, comps, lens, max_new, cfg.vocab_size)
+    st = eng.stats
+    steps = st["segments"] * GEMMA_SEG
+    paged = hasattr(eng, "alloc")
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": cfg.n_layers * st["prefills"],
+            "paged_attn": cfg.n_layers * steps if paged else 0}
+    if launches != want or st["prefills"] != len(batches):
+        fail(f"{label}: launches {launches} != expected {want} "
+             f"({st['prefills']} prefills, {steps} decode steps)")
+    res = _serve_readings(eng, comps, wall, peak, GEMMA_SEG)
+    res["pool_bytes"] = (M.paged_cache_nbytes(cfg, GEMMA_SLOTS, eng.n_blocks,
+                                              eng.block_len) if paged else
+                         M.cache_nbytes(cfg, GEMMA_SLOTS, eng.max_len))
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    return res, {u: c.tokens.tolist() for u, c in comps.items()}, launches
+
+
+def _gemma_init(cfg, label):
+    """Weights from seed 0 drawn on the card; (params, parameters, init
+    peak GB)."""
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in convert.flatten(params).values())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serve_gemma: {label} {n / 1e9:.3f}B params {cfg.dtype}, "
+          f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s, "
+          f"init peak {peak:.2f} GB")
+    return params, n, peak
+
+
+def _same_tokens(a, b):
+    """Requests whose completions two runs agree on, token for token."""
+    return sum(a[u] == b[u] for u in a)
+
+
+def _serve_gemma2(arch, n_layers, picks):
+    """Gemma-2 at full width, ``n_layers`` deep: the logit checks on the
+    long request, then the serve traffic's requests ``picks`` plus the
+    long request through the paged and the contiguous engine.  Returns
+    (readings, launches, params, cfg, the picked traffic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    cfg = get_config(arch, variant="full")
+    if not (cfg.use_kernels and cfg.sliding_window == GEMMA_WINDOW
+            and cfg.attn_logit_softcap == GEMMA_CAP
+            and cfg.final_logit_softcap == 30.0 and cfg.post_block_norm
+            and cfg.attn_pattern == ("local", "full")):
+        fail(f"{arch} config: {cfg}")
+    cfg = cfg.replace(n_layers=n_layers)
+    params, n_params, init_peak = _gemma_init(cfg, arch)
+    lens, prompts = _serve_prompts(cfg)
+    long = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, GEMMA_LONG)).astype(np.int32)
+    lens = [lens[i] for i in picks] + [GEMMA_LONG]
+    batches = [{"tokens": prompts[i]} for i in picks] + [{"tokens": long}]
+    max_new = 64
+    max_len = GEMMA_LONG + max_new
+    with torch.no_grad():
+        check = gemma_logit_check(M, params, cfg, {"tokens": long},
+                                  cfg.replace(sliding_window=0),
+                                  {"tokens": long}, seed=9)
+        runs, toks, counts = {}, {}, []
+        for name, cls in (("paged", PagedServeEngine),
+                          ("contiguous", ServeEngine)):
+            make = _gemma_make(cls, params, cfg, batches, max_new, max_len)
+            make(batches[:2], GEMMA_SEG).run()      # warm-up
+            runs[name], toks[name], c = _gemma_run(
+                f"serve_gemma {arch} {name}", M, make, batches, lens, max_new,
+                cfg)
+            counts.append(c)
+    res = {"arch": arch, "layers": n_layers, "n_params": n_params,
+           "weights_gb": 2 * n_params / 1e9, "init_peak_gb": init_peak,
+           "kv_bytes_per_token": M.cache_nbytes(cfg, 1, 2)
+           - M.cache_nbytes(cfg, 1, 1), "prompt_lens": lens,
+           "runs": runs,
+           "paged_vs_contiguous_equal_requests": _same_tokens(
+               toks["paged"], toks["contiguous"])}
+    print(f"serve_gemma {arch} ({CARD}) " + json.dumps(res))
+    res["logit_check"] = check
+    return res, _sum_counts(*counts), params, cfg, (lens, batches)
+
+
+def _serve_gemma9():
+    """Gemma-2-9B at full width and depth: the 16 requests and the long
+    one through both engines, then 8 of the 16 unbucketed and bucketed,
+    then the f32 token identity on GEMMA_F32_IDENTITY_LAYERS layers."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine
+    res, launches, params, cfg, (lens, batches) = _serve_gemma2(
+        "gemma2-9b", 42, list(range(16)))
+    pick = list(range(1, 16, 2))
+    ps, ls = [batches[i] for i in pick], [lens[i] for i in pick]
+    max_new = 64
+    make = _gemma_make(PagedServeEngine, params, cfg, ps, max_new,
+                       max(ls) + max_new)
+    with torch.no_grad():
+        e8, c8, w8, _, pk8 = _engine_run(lambda: make(ps))
+        unbucketed = _serve_readings(e8, c8, w8, pk8, GEMMA_SEG)
+        del e8
+        _, chunk_launches = _bucketed_serve(
+            "serve_gemma gemma2-9b", make, ps[:1], ps, ls, max_new, cfg,
+            GEMMA_SEG, unbucketed, warm_new=GEMMA_SEG, n_attn=cfg.n_layers)
+        cut, ccfg = _cut_depth(params, cfg, GEMMA_F32_IDENTITY_LAYERS)
+        _f32_token_identity(
+            f"serve_gemma gemma2-9b ({GEMMA_F32_IDENTITY_LAYERS} layers)",
+            cut, ccfg, PagedServeEngine, [b["tokens"] for b in ps], max_new,
+            n_slots=GEMMA_SLOTS, seg_len=GEMMA_SEG, max_len=max(ls) + max_new)
+    del params, cut
+    torch.cuda.empty_cache()
+    return res, _sum_counts(launches, chunk_launches)
+
+
+def _vlm_prefix_blocks(M, params, cfg, batch, other):
+    """A paged engine admits ``batch`` twice and ``batch``'s text behind
+    ``other`` patches: the first two must hold the same full prompt
+    blocks, the third none of theirs; then all three complete, the
+    first two with equal tokens."""
+    from repro_torch.serve import PagedServeEngine
+    P = batch["tokens"].shape[1]
+    n_full = M.decode_pos0(cfg, P) // 16
+    eng = PagedServeEngine(params, cfg, n_slots=3, seg_len=GEMMA_SEG,
+                           max_len=M.decode_capacity(cfg, P, 16),
+                           device="cuda")
+    for b in (batch, batch, {"tokens": batch["tokens"], "patches": other}):
+        eng.submit(b, max_new=16)
+    eng._admit()
+    a, b, c = (eng._slot_blocks[u][:n_full] for u in range(3))
+    comps = eng.run()
+    res = {"full_prompt_blocks": n_full, "shared_blocks":
+           eng.stats["shared_blocks"],
+           "same_patches_share_all": a == b,
+           "other_patches_share_none": not set(a) & set(c),
+           "same_patches_equal_tokens":
+           comps[0].tokens.tolist() == comps[1].tokens.tolist()}
+    if not (res["same_patches_share_all"] and res["other_patches_share_none"]
+            and res["same_patches_equal_tokens"]
+            and res["shared_blocks"] == n_full):
+        fail(f"serve_gemma paligemma-3b prefix sharing: {res}")
+    return res
+
+
+def _serve_paligemma():
+    """PaliGemma-3B at full width and depth: 16 requests of 256 stub patch
+    rows and 128-1024 text tokens through both engines, unbucketed and
+    bucketed; the logit check on the longest with the patches zeroed as
+    the fault; the prefix blocks keyed by the patches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    cfg = get_config("paligemma-3b", variant="full")
+    if not (cfg.use_kernels and cfg.arch_type == "vlm"
+            and M.decode_offset(cfg) == 256):
+        fail(f"paligemma config: {cfg}")
+    params, n_params, init_peak = _gemma_init(cfg, "paligemma-3b")
+    rng = np.random.default_rng(2)
+    lens = [int(p) for p in np.linspace(128, 1024, 16)]
+    batches = [prompt_batch(cfg, rng, P) for P in lens]
+    max_new = 64
+    max_len = M.decode_capacity(cfg, max(lens), max_new)
+    runs, toks, counts = {}, {}, []
+    with torch.no_grad():
+        long = batches[-1]
+        check = gemma_logit_check(
+            M, params, cfg, long, cfg,
+            {**long, "patches": torch.zeros_like(long["patches"])}, seed=2)
+        for name, cls in (("paged", PagedServeEngine),
+                          ("contiguous", ServeEngine)):
+            make = _gemma_make(cls, params, cfg, batches, max_new, max_len)
+            make(batches[:2], GEMMA_SEG).run()      # warm-up
+            runs[name], toks[name], c = _gemma_run(
+                f"serve_gemma paligemma-3b {name}", M, make, batches, lens,
+                max_new, cfg)
+            # the contiguous engine's decode and chunks read the cache
+            # in plain PyTorch: no kernel there
+            bk, c2 = _bucketed_serve(
+                f"serve_gemma paligemma-3b {name}", make, batches[:2],
+                batches, lens, max_new, cfg, GEMMA_SEG, runs[name],
+                warm_new=GEMMA_SEG,
+                n_attn=cfg.n_layers if name == "paged" else 0)
+            runs[f"{name}_bucketed"] = bk["bucketed"]
+            counts += [c, c2]
+        prefix = _vlm_prefix_blocks(M, params, cfg, batches[0],
+                                    batches[1]["patches"])
+    res = {"arch": cfg.name, "n_params": n_params,
+           "weights_gb": 2 * n_params / 1e9, "init_peak_gb": init_peak,
+           "frontend_rows": M.decode_offset(cfg), "text_lens": lens,
+           "runs": runs, "prefix_sharing": prefix,
+           "paged_vs_contiguous_equal_requests": _same_tokens(
+               toks["paged"], toks["contiguous"])}
+    print(f"serve_gemma paligemma-3b ({CARD}) " + json.dumps(res))
+    res["logit_check"] = check
+    del params
+    torch.cuda.empty_cache()
+    return _sum_counts(*counts)
+
+
+def phase_serve_gemma():
+    """Gemma-2-9B at full width and depth (its long request past the
+    window), Gemma-2-27B at full width on GEMMA27_LAYERS layers (three
+    of the serve requests and the long one), PaliGemma-3B at full width
+    and depth; each freed before the next."""
+    _, l9 = _serve_gemma9()
+    _, l27, params, _, _ = _serve_gemma2("gemma2-27b", GEMMA27_LAYERS,
+                                         [0, 7, 15])
+    del params
+    torch.cuda.empty_cache()
+    return _sum_counts(l9, l27, _serve_paligemma())
 
 
 # ---------------------------------------------------------------------------
@@ -5759,8 +6237,14 @@ def phase_pipeline():
 # phase 10: the paper's comparison, every method at the repo's own scale
 # ---------------------------------------------------------------------------
 
-# benchmarks/common.py's configuration (copied: that module imports JAX)
+# benchmarks/common.py's configuration (copied: that module imports JAX),
+# every method's step counts halved to keep the whole script's time:
+# devices 15 steps (30 there), Phase II and III 20 (40), FedJETS 3 rounds
+# of 5 local steps (10), centralized 60 (120), FedAvg 5 rounds of 4 (its
+# default 8)
 METHODS_N, METHODS_VOCAB, METHODS_SEQ = 8, 256, 48
+METHODS_STEPS = dict(device=15, distill=20, tune=20, fedjets_local=5,
+                     centralized=60, fedavg_local=4)
 # DeepFusion with kernels and with use_kernels=False at cut step counts
 METHODS_CUT = 6
 # Kernel path against the plain path (f32 kernels against plain f32
@@ -5801,10 +6285,14 @@ def _methods_configs(use_kernels=True):
                           n_shared_experts=1, **small).validate()
     sim = SIM.SimulationConfig(n_devices=METHODS_N, n_domains=4,
                                vocab=METHODS_VOCAB, seq_len=METHODS_SEQ,
-                               device_steps=30, device_batch=8, seed=0)
-    scfg = S.ServerConfig(moe_cfg=moe_cfg, distill_steps=40, distill_batch=8,
-                          tune_steps=40, tune_batch=8, seq_len=METHODS_SEQ,
-                          n_stages=2, p_q=32, vaa_dim=64, seed=0)
+                               device_steps=METHODS_STEPS["device"],
+                               device_batch=8, seed=0)
+    scfg = S.ServerConfig(moe_cfg=moe_cfg,
+                          distill_steps=METHODS_STEPS["distill"],
+                          distill_batch=8,
+                          tune_steps=METHODS_STEPS["tune"], tune_batch=8,
+                          seq_len=METHODS_SEQ, n_stages=2, p_q=32,
+                          vaa_dim=64, seed=0)
     return [a, b], moe_cfg, sim, scfg
 
 
@@ -5816,7 +6304,8 @@ def _rel_dist(a, b):
 def phase_methods():
     """DeepFusion, FedKMT, OFA-KD, FedJETS, centralized training and
     FedAvg on the card, on ``benchmarks/common.py``'s f32 configs (vocab
-    256, seq 48, N 8, its step counts), one fleet's uploads shared as
+    256, seq 48, N 8, its step counts halved: METHODS_STEPS), one
+    fleet's uploads shared as
     ``benchmarks/methods.py::run_all_methods`` shares them; each
     method's ``comm_bytes`` against its formula; then DeepFusion at cut
     step counts with kernels and with ``use_kernels=False``."""
@@ -5845,13 +6334,16 @@ def phase_methods():
                                                       **shared)),
             ("fedkmt", lambda: B.run_fedkmt(sim, scfg, fam, **shared)),
             ("ofa_kd", lambda: B.run_ofa_kd(sim, scfg, fam, **shared)),
-            ("fedjets", lambda: B.run_fedjets(sim, moe_cfg, rounds=3,
-                                              local_steps=10, batch=8,
-                                              corpus=corpus, **quiet)),
+            ("fedjets", lambda: B.run_fedjets(
+                sim, moe_cfg, rounds=3,
+                local_steps=METHODS_STEPS["fedjets_local"], batch=8,
+                corpus=corpus, **quiet)),
             ("centralized", lambda: B.run_centralized(
-                sim, moe_cfg, steps=120, batch=8, corpus=corpus, **quiet)),
-            ("fedavg", lambda: B.run_fedavg(sim, fam[0], corpus=corpus,
-                                            **quiet))):
+                sim, moe_cfg, steps=METHODS_STEPS["centralized"], batch=8,
+                corpus=corpus, **quiet)),
+            ("fedavg", lambda: B.run_fedavg(
+                sim, fam[0], local_steps=METHODS_STEPS["fedavg_local"],
+                corpus=corpus, **quiet))):
         t1 = time.perf_counter()
         _, runs[name] = call()
         torch.cuda.synchronize()
@@ -6407,9 +6899,9 @@ KERNELS = {
 
 # the path phases, in the order they run
 PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
-         phase_serve_hybrid, phase_serve_mla, phase_train, phase_train_ssm,
-         phase_train_hybrid, phase_train_mla, phase_tune, phase_distill,
-         phase_pipeline, phase_methods, phase_fleet)
+         phase_serve_hybrid, phase_serve_mla, phase_serve_gemma, phase_train,
+         phase_train_ssm, phase_train_hybrid, phase_train_mla, phase_tune,
+         phase_distill, phase_pipeline, phase_methods, phase_fleet)
 
 
 def main() -> int:

@@ -22,10 +22,19 @@ features run; the reference's other flags are accepted and refused with
       --check-unbucketed
 
 ``--arch`` takes every ported architecture (``configs/registry.py``):
-the dense ``tinyllama-1.1b`` and ``starcoder2-3b``, the MoEs
+the dense ``tinyllama-1.1b`` and ``starcoder2-3b``, the gemma family
+``gemma2-9b`` and ``gemma2-27b`` (local/global windows, both logit
+softcaps), the VLM ``paligemma-3b`` (each request carries stub patch
+embeddings, seeded normal x 0.05 in the model's dtype, as the
+reference's ``prompt_batch`` draws them), the MoEs
 ``qwen2-moe-a2.7b`` and ``deepseek-moe-16b`` (its leading dense layer
 included), ``deepseek-v3-671b`` (MLA's latent cache, read through the
-block-table gather), ``mamba2-1.3b``, and the on-device families.
+block-table gather), ``mamba2-1.3b``, ``zamba2-7b`` and the on-device
+families.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+      --variant reduced --device cpu --paged --mixed --bucket \
+      --check-unbucketed
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v3-671b --device cpu --paged --kv-dtype int8 \
@@ -62,6 +71,17 @@ def mixed_lengths(n: int, prompt_len: int, gen: int):
     """Demo traffic: request i gets a shorter prompt + generation."""
     return [(max(4, prompt_len - 4 * i), max(2, gen - 3 * i))
             for i in range(n)]
+
+
+def prompt_batch(cfg, rng, prompt_len: int):
+    """One request's batch: ``prompt_len`` random tokens and, for the VLM
+    family, stub patch embeddings (1, frontend_tokens, d_model), normal x
+    0.05 in the model's dtype, drawn after the tokens from ``rng``."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, prompt_len))}
+    if cfg.arch_type == "vlm":
+        patches = rng.normal(size=(1, cfg.frontend_tokens, cfg.d_model))
+        batch["patches"] = torch.as_tensor(patches * 0.05).to(M._dtype(cfg))
+    return batch
 
 
 def parse_args(argv=None):
@@ -153,11 +173,11 @@ def main(argv=None):
                                    kv_dtype=kv_dtype, **kw, **bkw)
         else:
             eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, **kw, **bkw)
-        for prompt, (_, g) in zip(prompts, lengths):
-            eng.submit({"tokens": prompt}, max_new=g)
+        for batch, (_, g) in zip(prompts, lengths):
+            eng.submit(batch, max_new=g)
         return eng
 
-    prompts = [rng.integers(0, cfg.vocab_size, (1, p)) for p, _ in lengths]
+    prompts = [prompt_batch(cfg, rng, p) for p, _ in lengths]
     engine = make_engine(args.kv_dtype)
     if device.type == "cuda":
         # build (or load) the kernels before the clock starts, so the

@@ -1,5 +1,5 @@
 """Model assembly of the port: init / loss / prefill / decode, dense,
-MoE, ssm (Mamba-2) and hybrid (Zamba-2) families.
+MoE, VLM (PaliGemma), ssm (Mamba-2) and hybrid (Zamba-2) families.
 
 Counterpart of ``repro.models.model``.  The parameter layout is the
 reference's: nested dicts with the same keys, layer parameters stacked
@@ -29,6 +29,13 @@ families) is ``params["mtp"]``: ``proj`` (2D, D), one dense sub-layer
 ``block`` and ``norm``; ``loss_fn`` adds ``mtp_loss_weight`` times its
 loss (``_mtp_loss``, predicting token t+2), and ``mtp_chain_loss``
 chains it to any depth.
+
+The VLM family (``arch_type="vlm"``) is the dense family behind a stub
+vision frontend: ``batch["patches"]`` (B, frontend_tokens, D),
+precomputed patch embeddings, prefix the embedded text, so every
+forward, prefill and cache covers ``[patches | text]``, decode starts
+at ``decode_pos0 = frontend_tokens + P``, and the loss drops the patch
+positions.
 
 The ssm family (``arch_type="ssm"``, Mamba2) stacks ``{"ln", "mixer"}``
 over its ``n_layers`` (``models/ssm.py``): prefill through the SSD scan,
@@ -104,15 +111,15 @@ def _n_groups(cfg: ModelConfig) -> int:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type in ("dense", "moe"):
         ok = cfg.attn_type in ("gqa", "mla")
-    elif cfg.arch_type == "hybrid":
+    elif cfg.arch_type in ("hybrid", "vlm"):
         ok = cfg.attn_type == "gqa" and not cfg.n_mtp
     else:
         ok = cfg.arch_type == "ssm"
     if not ok:
         raise NotImplementedError(
             f"{cfg.name} is not ported yet: only the dense and MoE families "
-            "(GQA or MLA, with or without MTP), the hybrid GQA family and "
-            "the ssm family are")
+            "(GQA or MLA, with or without MTP), the hybrid and VLM GQA "
+            "families and the ssm family are")
 
 
 def _hybrid_layout(cfg: ModelConfig):
@@ -462,32 +469,44 @@ def _hybrid_backbone(params, cfg: ModelConfig, x, positions,
     return x, caches, (torch.stack(stages) if collect_stages else None)
 
 
+def _frontend_embed(params, cfg: ModelConfig, batch):
+    """The input sequence (B, S, D): the embedded tokens, behind the VLM
+    family's precomputed patch rows ``batch["patches"]`` (B, P, D), cast
+    to the embeddings' dtype (the stub frontend: ``[patches | text]``)."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.arch_type == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
+
+
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
              collect_cache: bool = False, collect_stages: bool = False):
-    """Full-sequence forward of the dense, MoE, ssm and hybrid families.
-    Returns (final-normed hidden (B, S, D), aux loss (f32 scalar, 0 but
-    for MoE), caches, stages) — ``caches`` is ``{"blocks": ...}`` (the
-    hybrid family: ``_hybrid_backbone``'s entries) when
+    """Full-sequence forward of the dense, MoE, VLM, ssm and hybrid
+    families.  Returns (final-normed hidden (B, S, D), aux loss (f32
+    scalar, 0 but for MoE), caches, stages) — ``caches`` is ``{"blocks":
+    ...}`` (the hybrid family: ``_hybrid_backbone``'s entries) when
     ``collect_cache``, else empty; ``stages`` the per-group hidden states
     (n_groups, B, S, D) before the final norm, the representation stages
-    the VAA distiller reads, when ``collect_stages``, else None."""
+    the VAA distiller reads, when ``collect_stages``, else None.  The VLM
+    family runs the dense stack over ``[patches | text]`` (S = P +
+    S_txt, positions from 0 over both), so its hidden states keep the
+    patch rows; the loss drops them."""
     _check_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _frontend_embed(params, cfg, batch)
+    B, S = x.shape[:2]
     caches: Dict[str, Any] = {}
     if cfg.arch_type == "ssm":
         x, aux, c, stages = _ssm_backbone(params, cfg, x, collect_cache,
                                           collect_stages)
     elif cfg.arch_type == "hybrid":
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, caches, stages = _hybrid_backbone(params, cfg, x, positions,
                                              collect_cache, collect_stages)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (layers.apply_norm(params["final_norm"], x), aux, caches,
                 stages)
     else:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "dense_blocks" in params:
             x, aux, dc, _ = _run_stack(params["dense_blocks"], cfg, x,
@@ -562,6 +581,8 @@ def loss_fn(params, cfg: ModelConfig, batch):
     but for the MoE family, ``mtp_loss`` present with an MTP head."""
     h, aux, _, _ = backbone(params, cfg, batch)
     labels = batch["labels"]
+    if cfg.arch_type == "vlm":  # drop the patch positions
+        h = h[:, -labels.shape[1]:]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
@@ -704,8 +725,8 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
 
 
 def decode_offset(cfg: ModelConfig) -> int:
-    """Leading cache positions occupied by a modality frontend (VLM
-    patches); 0 for every ported family."""
+    """Leading cache positions occupied by a modality frontend: the VLM
+    family's ``frontend_tokens`` patch rows, 0 for every other family."""
     return cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
 
 
@@ -1056,6 +1077,8 @@ def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
     ``batch["tokens"]`` (B, T_pad) is padded (any values) so that the
     input sequence, ``decode_offset(cfg) + T_pad``, is a multiple of
     ``chunk_len``; ``prompt_len`` (int or (B,)) is the true token count.
+    The VLM family's ``batch["patches"]`` (B, P, D) lead the sequence,
+    so the first chunks hold patch rows, and the real rows count them.
     ``cache`` is a decode cache, updated in place: contiguous, or the
     paged slot view plus pools with ``block_tables`` (B, nbt) wide enough
     for every padded position, written through ``write_tables`` (default
@@ -1087,7 +1110,7 @@ def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
             f"{T_pad}) must be a multiple of chunk_len {C}")
     dev = tokens.device
     _zero_recurrent(cfg, cache)
-    x_full = _embed(params, cfg, tokens)
+    x_full = _frontend_embed(params, cfg, batch)
     total_real = offset + torch.as_tensor(
         prompt_len, dtype=torch.int64, device=dev).reshape(-1).expand(B)
     rows = torch.arange(B, device=dev)

@@ -60,6 +60,13 @@ layers (``dense_blocks``) are pooled like ``blocks``.  DeepSeek-V3's
 MLA latent cache (``{"ckv", "kr"}``, quantized with one scale a row)
 is pooled and admitted like any attention leaf.
 
+The VLM family's requests carry ``patches`` (1, frontend_tokens,
+d_model) beside their tokens, held on the host in the model's dtype:
+every admission (one-shot, bucketed, a preempted request's replay)
+prefills ``[patches | text]``, a rung counts the patch rows, only the
+tokens are padded, and the paged engine's prefix keys digest the
+patches, so requests with other patches share no block.
+
 Not ported yet, and refused with ``NotImplementedError``: speculative
 decode, sharded serving (``mesh``) and the families not ported yet.
 """
@@ -85,8 +92,10 @@ from repro_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``batch`` holds ``tokens`` (1, P) as a
-    host array; ``max_new`` counts ALL generated tokens, including the
-    one sampled from the prefill logits."""
+    host array and, for the VLM family, ``patches`` (1, frontend_tokens,
+    d_model) as a host tensor in the model's dtype; ``max_new`` counts
+    ALL generated tokens, including the one sampled from the prefill
+    logits."""
     uid: int
     batch: Dict[str, Any]
     max_new: int
@@ -235,9 +244,11 @@ class ServeEngine:
             self._uid_auto = max(self._uid_auto, uid + 1)
         if uid in self.completions or uid in self._out or uid in self._pending:
             raise ValueError(f"request {uid}: uid already in use")
-        if set(batch) != {"tokens"}:
-            raise ValueError(f"request {uid}: the ported families take a "
-                             f"batch of 'tokens' only, got {sorted(batch)}")
+        vlm = self.cfg.arch_type == "vlm"
+        keys = {"tokens", "patches"} if vlm else {"tokens"}
+        if set(batch) != keys:
+            raise ValueError(f"request {uid}: {self.cfg.name} takes a batch "
+                             f"of {sorted(keys)}, got {sorted(batch)}")
         toks = batch["tokens"]
         if isinstance(toks, torch.Tensor):
             toks = toks.cpu().numpy()
@@ -246,13 +257,33 @@ class ServeEngine:
             raise ValueError(
                 f"request {uid}: tokens must have shape (1, P), got "
                 f"{toks.shape} (one request per submit)")
+        host = {"tokens": toks}
+        if vlm:
+            host["patches"] = self._host_patches(uid, batch["patches"])
         self._validate_capacity(uid, toks.shape[1], max_new)
         if max_new < 1:
             raise ValueError(f"request {uid}: max_new must be >= 1")
-        self.queue.append(Request(uid, {"tokens": toks}, max_new))
+        self.queue.append(Request(uid, host, max_new))
         self._pending.add(uid)
         self._t_submit[uid] = time.perf_counter()
         return uid
+
+    def _host_patches(self, uid: int, patches) -> torch.Tensor:
+        """A VLM request's patch rows as one host tensor in the model's
+        dtype (the cast the backbone would make), checked for shape."""
+        want = (1, self.cfg.frontend_tokens, self.cfg.d_model)
+        if tuple(patches.shape) != want:
+            raise ValueError(f"request {uid}: patches must have shape {want}, "
+                             f"got {tuple(patches.shape)}")
+        return torch.as_tensor(patches).to("cpu", M._dtype(self.cfg))
+
+    def _device_batch(self, req: Request, toks) -> Dict[str, torch.Tensor]:
+        """The request's batch on the device with ``toks`` (1, T) as its
+        tokens; the VLM family's patches ride along."""
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        if "patches" in req.batch:
+            batch["patches"] = req.batch["patches"].to(self.device)
+        return batch
 
     def _validate_capacity(self, uid: int, P: int, max_new: int) -> None:
         need = M.decode_capacity(self.cfg, P, max_new)
@@ -288,11 +319,12 @@ class ServeEngine:
 
     def _padded_batch(self, req: Request, length: int):
         """The request's batch on the device, tokens right-padded with 0 so
-        the input sequence is exactly ``length`` long (pads are masked out
-        of cache and state by ``prefill_chunked``)."""
+        the input sequence (patch rows included) is exactly ``length``
+        long (pads are masked out of cache and state by
+        ``prefill_chunked``); the patches are never padded."""
         toks = np.zeros((1, length - M.decode_offset(self.cfg)), np.int32)
         toks[:, :req.prompt_len] = req.batch["tokens"]
-        return {"tokens": torch.as_tensor(toks, device=self.device)}
+        return self._device_batch(req, toks)
 
     def _plan(self, req: Request):
         """Admission plan (bucket rung; paged adds block keys/counts).
@@ -357,10 +389,9 @@ class ServeEngine:
             if self.chunk_len is None:
                 # slotless B=1 prefill; the graft is deferred so a request
                 # finishing at prefill never touches the cache
-                toks = torch.as_tensor(req.batch["tokens"],
-                                       device=self.device)
-                logits, pc = M.prefill(self.params, self.cfg,
-                                       {"tokens": toks})
+                logits, pc = M.prefill(
+                    self.params, self.cfg,
+                    self._device_batch(req, req.batch["tokens"]))
             else:
                 # bucketed: the chunked prefill IS the placement, through
                 # the slot's cache row / block tables

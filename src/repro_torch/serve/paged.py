@@ -1,8 +1,9 @@
 """Block allocator for the paged serve engine: free list, refcounts,
 content-keyed prefix sharing.
 
-Copied from ``repro.serve.paged`` (numpy and hashlib only): the port
-keeps its own copy so that it never imports the JAX package.
+Copied from ``repro.serve.paged`` (numpy and hashlib, and torch to read
+a tensor's bytes): the port keeps its own copy so that it never imports
+the JAX package.
 
 One block id spans every paged cache leaf (all layers), mirroring
 ``models.model.init_paged_cache``.  Block 0 is the **trash block**: it
@@ -26,6 +27,7 @@ import hashlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 TRASH = 0  # pool row 0: absorbs dead slots' masked writes, never allocated
 
@@ -134,13 +136,23 @@ class PagedAllocator:
             self._free_by_shard[self.shard_of(bid)].append(bid)
 
 
+def _fixed_bytes(v) -> bytes:
+    """A fixed byte form of a modality input (a tensor or an array): its
+    dtype, its shape and its raw element bytes, read as bytes on the
+    host (bfloat16 has no numpy view)."""
+    t = torch.as_tensor(v).detach().to("cpu").contiguous()
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return f"{t.dtype}{tuple(t.shape)}".encode() + raw
+
+
 def prompt_digest(batch) -> bytes:
     """Digest of every non-token modality input (vlm patches, encdec
     frames).  KV content anywhere in the sequence depends on these (the
     frontend rows prefix the prompt; encdec cross-attends the frames),
-    so prefix keys must include them."""
-    extra = [np.asarray(v).tobytes()
-             for k, v in sorted(batch.items()) if k != "tokens"]
+    so prefix keys must include them: equal inputs give equal digests,
+    and inputs that differ in any byte, dtype or shape differ."""
+    extra = [_fixed_bytes(v) for k, v in sorted(batch.items())
+             if k != "tokens"]
     if not extra:
         return b""
     return hashlib.sha1(b"".join(extra)).digest()

@@ -6,7 +6,7 @@ the two packages round at different points (``F.silu`` rounds once where
 XLA's CPU silu rounds twice; tanh-GELU likewise), so their bf16 logits
 differ by as much as each differs from its own f32 model, and a bf16
 fault in the port (a dropped f32 upcast, a term rounded to bf16) could
-hide in that drift.  Two checks, on reduced ``tinyllama-1.1b`` and
+hide in that drift.  The checks, on reduced ``tinyllama-1.1b`` and
 ``mamba2-1.3b``, the same converted weights in f32 and in bf16 (the bf16
 tree is the f32 one rounded, ``A_log``, ``D`` and ``dt_bias`` kept in f32
 as both packages keep them).  Mamba2's ``D`` is drawn from U(0.5, 2):
@@ -43,6 +43,12 @@ the reference its plain path.
    0.720-0.736, the MLP's down projection summed as two bf16-rounded
    halves 0.413-0.426.  ``DENSE_BLOCK_LIMIT`` is 0.25, about midway
    between the worst reading and the mildest fault.
+4. One gemma2 block (reduced ``gemma2-9b``'s first sub-layer: a local
+   layer whose window of 64 masks at S 128, the attention softcap,
+   post-block norms, tanh-GELU rounding once in both), held to the same
+   ``DENSE_BLOCK_LIMIT``.  Readings (seeds 1, 2; layers 0, 1): 0.042,
+   0.051, 0.161, 0.129.  The two post-block norms computed in bf16
+   (their f32 upcast dropped) read 0.711-0.738.
 """
 import math
 
@@ -248,21 +254,25 @@ def test_d_term_in_bf16_breaks_the_block_check(blocks, monkeypatch, seed,
 
 @pytest.fixture(scope="module")
 def dense_blocks():
-    """(seed, layer) -> the reference's f32 and bf16 outputs of one
-    TinyLlama sub-layer (its silu rounding once), the port's f32 output,
-    its bf16 sub-layer weights, its bf16 config, the bf16 input and the
-    positions."""
+    """(seed, layer[, arch]) -> the reference's f32 and bf16 outputs of
+    one sub-layer of TinyLlama (or of ``arch``: gemma2's first, a local
+    one) with its silu and tanh-GELU rounding once, the port's f32
+    output, its bf16 sub-layer weights, its bf16 config, the bf16 input
+    and the positions."""
     out = {}
-    silu = jax.nn.silu
+    silu, gelu = jax.nn.silu, jax.nn.gelu
 
     def silu_once(x):
         return silu(x.astype(jnp.float32)).astype(x.dtype)
 
-    def make(seed, layer):
-        cfg_j = jax_config("tinyllama-1.1b", variant="reduced").replace(
+    def gelu_once(x, approximate=True):
+        return gelu(x.astype(jnp.float32), approximate).astype(x.dtype)
+
+    def make(seed, layer, arch):
+        cfg_j = jax_config(arch, variant="reduced").replace(
             dtype="float32", use_pallas=False)
-        cfg = get_config("tinyllama-1.1b", variant="reduced").replace(
-            dtype="float32")
+        cfg = get_config(arch, variant="reduced").replace(dtype="float32")
+        kind = cfg.attn_pattern[0]
         tree, btree = _trees(cfg_j, seed)
         cfg_bf = cfg.replace(dtype="bfloat16")
 
@@ -272,36 +282,38 @@ def dense_blocks():
             (4, 128, cfg.d_model)).astype(np.float32)
         xb = jnp.asarray(x).astype(jnp.bfloat16)
         pos = np.broadcast_to(np.arange(128, dtype=np.int32)[None], (4, 128))
-        jax.nn.silu = silu_once
+        jax.nn.silu, jax.nn.gelu = silu_once, gelu_once
         try:
             ref = [np.asarray(JM._block_full(
                 jax.tree.map(jnp.asarray, sub(t)), c, xi, jnp.asarray(pos),
-                kind="full", mesh=None, causal=True)[0], np.float32)
+                kind=kind, mesh=None, causal=True)[0], np.float32)
                 for t, c, xi in ((tree, cfg_j, jnp.asarray(x)),
                                  (btree, cfg_j.replace(dtype="bfloat16"),
                                   xb))]
         finally:
-            jax.nn.silu = silu
+            jax.nn.silu, jax.nn.gelu = silu, gelu
         post = torch.from_numpy(pos.copy())
         f32 = M._block_full(M._layer(convert.params_from_jax(
             tree, cfg)["blocks"]["sub0"], layer), cfg, torch.from_numpy(x),
-            post, kind="full")[0].numpy()
+            post, kind=kind)[0].numpy()
         return (*ref, f32, M._layer(convert.params_from_jax(
             btree, cfg_bf)["blocks"]["sub0"], layer), cfg_bf,
             torch.from_numpy(np.asarray(xb, np.float32)).bfloat16(), post)
 
-    def get(seed, layer):
-        if (seed, layer) not in out:
-            out[seed, layer] = make(seed, layer)
-        return out[seed, layer]
+    def get(seed, layer, arch="tinyllama-1.1b"):
+        if (seed, layer, arch) not in out:
+            out[seed, layer, arch] = make(seed, layer, arch)
+        return out[seed, layer, arch]
     return get
 
 
-def _dense_block_distance(dense_blocks, seed, layer):
-    """As ``_block_distance``, for one TinyLlama sub-layer."""
-    ref_f32, ref_bf, f32, p_bf, cfg_bf, xb, pos = dense_blocks(seed, layer)
+def _dense_block_distance(dense_blocks, seed, layer, arch="tinyllama-1.1b"):
+    """As ``_block_distance``, for one TinyLlama (or ``arch``) sub-layer."""
+    ref_f32, ref_bf, f32, p_bf, cfg_bf, xb, pos = dense_blocks(seed, layer,
+                                                               arch)
     np.testing.assert_allclose(f32, ref_f32, atol=1e-4, rtol=1e-4)
-    got = M._block_full(p_bf, cfg_bf, xb, pos, kind="full")[0]
+    got = M._block_full(p_bf, cfg_bf, xb, pos,
+                        kind=cfg_bf.attn_pattern[0])[0]
     return _rel_rms(got.float().numpy(), ref_bf) / _rel_rms(ref_bf, ref_f32)
 
 
@@ -346,4 +358,35 @@ def test_extra_rounding_breaks_the_tinyllama_block_check(dense_blocks,
     else:
         monkeypatch.setattr(layers, "apply_mlp", _mlp_split_down)
     d = _dense_block_distance(dense_blocks, seed, 0)
+    assert d > DENSE_BLOCK_LIMIT, f"only {d:.3f} of the reference's bf16 drift"
+
+
+# ---------------------------------------------------------------------------
+# one gemma2 block (local window, softcap, post-block norms, tanh-GELU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gemma2_block_rounds_where_the_reference_does(dense_blocks, seed,
+                                                      layer):
+    d = _dense_block_distance(dense_blocks, seed, layer, "gemma2-9b")
+    assert d <= DENSE_BLOCK_LIMIT, f"{d:.3f} of the reference's bf16 drift"
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_post_block_norms_in_bf16_break_the_gemma2_block_check(
+        dense_blocks, monkeypatch, seed):
+    """The two post-block norms (``ln1_post``, ``ln2_post``) computed in
+    bf16, without their f32 upcast; every other norm as it is."""
+    sub = dense_blocks(seed, 0, "gemma2-9b")[3]
+    post = (sub["ln1_post"], sub["ln2_post"])
+    norm = layers.apply_norm
+
+    def post_norms_in_bf16(p, x, eps=1e-6):
+        if not any(p is q for q in post):
+            return norm(p, x, eps)
+        ms = (x * x).mean(-1, keepdim=True)
+        return (x * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+    monkeypatch.setattr(layers, "apply_norm", post_norms_in_bf16)
+    d = _dense_block_distance(dense_blocks, seed, 0, "gemma2-9b")
     assert d > DENSE_BLOCK_LIMIT, f"only {d:.3f} of the reference's bf16 drift"

@@ -138,10 +138,28 @@ def test_bucket_flags_need_bucket(flag, capsys):
     assert "requires --bucket" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "whisper-small", "nope"])
+# the gemma family and the VLM are ported: their case turned positive
+# (test_gemma_and_vlm_archs_resolve); enc-dec (whisper) is the refused one
+@pytest.mark.parametrize("arch", ["whisper-small", "nope"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not ported yet"):
         get_config(arch)
+
+
+@pytest.mark.parametrize("variant", ["full", "reduced"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma2-27b",
+                                  "paligemma-3b"])
+def test_gemma_and_vlm_archs_resolve(arch, variant):
+    """Every field equal to the reference's config (``use_pallas`` is
+    ``use_kernels`` in the port, True by default)."""
+    import dataclasses
+
+    from repro.configs import get_config as reference_config
+    want = dataclasses.asdict(reference_config(arch, variant=variant))
+    want.pop("use_pallas")
+    got = dataclasses.asdict(get_config(arch, variant=variant))
+    assert got.pop("use_kernels") is True
+    assert got == want
 
 
 def test_engine_refuses_params_on_another_device(small):
