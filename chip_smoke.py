@@ -60,6 +60,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    grouped FFN over its 256 expert stacks (3.76 G elements each) at C 8
    and C 64 with expert 255's rows held apart, the dispatch and combine
    at T 1024, top-8, D 7168, and CE at T 2048, D 7168, V 129,280;
+   Whisper-small's shapes: flash bidirectional at S 1500, H 12, D 64 in
+   bf16 and f32 (a causal mask must miss the limit), paged at its
+   decoder's heads (8 slots, 64 rows, int8), CE at D 768, V 51,865;
    the gemma shapes: flash at S 8192, H 16 over KH 8, D 256 with
    Gemma-2's window of 4096 and cap of 50 (q scaled so scores reach
    about 150) and at PaliGemma's S 1280, H 8 over KH 1; paged at C 1
@@ -75,8 +78,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ladder 256-2048; ``_bucketed_serve``): the completions, the launches
    (the paged kernel at 256 rows, 22 a chunk; no flash), TTFT, admission
    time, ms a decode step, tok/s and peak beside the unbucketed run's;
-   and the f32 model (the weights cast) served unbucketed and bucketed,
-   its completions equal token for token;
+   and the f32 model (the weights cast) served unbucketed and bucketed
+   on 8 of the requests, its completions equal token for token;
 5. profile: torch.profiler over one 1024-token prefill (flash's share
    read apart) and one decode segment (the paged kernel's share read
    apart, failing at zero; device launches a layer-step);
@@ -99,16 +102,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    profiles one 1024-token prefill (the scan's three launches read
    apart) and one decode segment; then bucketed admission through the
    contiguous engine as in phase 4 (the scan from a carried state, 48 a
-   chunk, all ``tc``), f32 completions equal to the unbucketed ones;
+   chunk, all ``tc``), f32 completions equal to the unbucketed ones on 8
+   of the requests;
 5c. serve_moe: Qwen1.5-MoE-A2.7B, then DeepSeek-MoE-16B, at full width
-   and depth, then StarCoder2-3B (``_serve_moe_model``).  On Qwen also
+   and depth, 8 of the 16 requests each, then StarCoder2-3B
+   (``_serve_moe_model``).  On Qwen also
    bucketed admission: ``prefill_chunked`` at chunks of 8 kernel vs
    plain (nothing can drop), 8 of the requests unbucketed and bucketed
    with the chunks' dropped assignments, and each bf16 path's distance
    to the f32 model on its own path;
 5d. serve_hybrid: Zamba2-7B at full width and depth: the logit checks
    (with the bucketed prefill: f32 against the plain path, bf16 against
-   the f32 model), 16 requests, then 8 of them unbucketed and bucketed;
+   the f32 model), 8 of the 16 requests unbucketed and bucketed;
 5e. serve_mla: DeepSeek-V3 at full width, cut to its 3 leading dense
    layers and 1 MoE layer (256 experts, top-8; MLA's latent cache; the
    MTP head built): one full-width MLA layer in f32 (a dense layer's and
@@ -137,6 +142,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    128-1024 text tokens through both engines, unbucketed and bucketed;
    the logit check with zeroed patches as the fault; equal patches and
    text sharing every full prompt block, other patches none;
+5g. serve_encdec: Whisper-small at full width and depth (12 encoder and
+   12 decoder layers, 1,500 stub frames a request): the f32 kernel-vs-
+   plain logit check (prefill + 4 paged decode steps; the encoder through
+   flash with ``causal=False``), a causal encoder and zeroed frames each
+   breaking it; requests with equal frames sharing their prefix blocks,
+   other frames none; 16 requests of 4-192 tokens and 32-128 new ones
+   through the paged engine, the contiguous one, the paged one bucketed
+   (chunks of 64, the encoder once an admission) and from an int8 pool,
+   launches counted; f32 completions bucketed and unbucketed equal;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run
@@ -157,6 +171,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    MTP chain at depth 1 equal to ``_mtp_loss``, the kernel path's loss
    and gradients against its plain version in bf16 and f32; ms a step,
    tokens/s, MFU, peak;
+6e. train_encdec: Whisper-small at full width and depth, 6 steps of 4 x
+   448 tokens with zero frames (the launcher's ``make_batch``) under
+   ``remat_policy="dots"``: each batch's loss falling, launches (flash
+   twice a layer a step, the encoder's bidirectional; kd_loss in the
+   general instance: V 51,865); on a batch with stub frames the kernel
+   path's loss and every gradient against the plain path's, and
+   ``dots`` against full and no remat (the same loss and gradients, each
+   one's peak, the ``aten.mm`` calls the backward recomputes);
 7. tune: Phase III on Qwen1.5-MoE-A2.7B at full width, 12 of its 24
    layers (bf16, random weights): K = 4 random base models merged by
    ``merge_into_moe`` on the card (the merge rule checked exactly), then
@@ -252,6 +274,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -443,22 +466,33 @@ def _max_score(q, k, qpos, kpos, window):
 
 
 def flash_case(gen, B, S, H, KH, D, dtype, *, window=0, softcap=0.0,
-               timed=False, q_scale=1.0, terms=False):
+               timed=False, q_scale=1.0, terms=False, causal=True):
     """``q_scale`` scales q so that scores reach a softcap's range;
     ``terms`` also shows that the window and the softcap each reach the
-    output (``_terms_seen``)."""
+    output (``_terms_seen``).  ``causal=False`` (the encoder's mode): the
+    plain version with a causal mask must miss the limit, so the check
+    sees the keys above the diagonal."""
     from repro_torch.kernels.flash_attention import ops, ref
     q = (_randn(gen, (B, S, H, D), torch.float32) * q_scale).to(dtype)
     k = _randn(gen, (B, S, KH, D), dtype)
     v = _randn(gen, (B, S, KH, D), dtype)
-    kw = dict(causal=True, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     out = ops.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    name = (f"flash B={B} S={S} H={H} KH={KH} D={D} {str(dtype)[6:]} causal "
+    name = (f"flash B={B} S={S} H={H} KH={KH} D={D} {str(dtype)[6:]} "
+            f"{'causal' if causal else 'bidirectional'} "
             f"window={window} softcap={softcap}"
             + (f" q_scale={q_scale}" if q_scale != 1.0 else ""))
     row = check_close(name, out, want)
+    if not causal:
+        worst = _over_limit(ref.flash_attention_ref(
+            q, k, v, **{**kw, "causal": True}), want)[1]
+        row["causal_mask_over_limit"] = worst
+        if not worst > 1.0:
+            fail(f"{name}: the plain version with a causal mask is within "
+                 f"the limit ({worst:.3g}x): the check cannot see the keys "
+                 f"above the diagonal")
     if terms:
         pos = torch.arange(S, device="cuda")
         row["max_abs_score"] = _max_score(q, k, pos[None].expand(B, S), pos,
@@ -466,9 +500,13 @@ def flash_case(gen, B, S, H, KH, D, dtype, *, window=0, softcap=0.0,
         row.update(_terms_seen(name, want, lambda **c: (
             ref.flash_attention_ref(q, k, v, **c)), kw))
     if timed:
-        # visible (q, k) pairs of causal attention, 4*D flops each
-        pairs = S * (S + 1) / 2 if not window else sum(
-            min(i + 1, window) for i in range(S))
+        # visible (q, k) pairs, 4*D flops each: every pair without the
+        # causal mask, the lower triangle (or the window's band) with it
+        if not causal:
+            pairs = S * S
+        else:
+            pairs = S * (S + 1) / 2 if not window else sum(
+                min(i + 1, window) for i in range(S))
         flops = 4 * D * pairs * B * H
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -476,7 +514,7 @@ def flash_case(gen, B, S, H, KH, D, dtype, *, window=0, softcap=0.0,
             ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
             library_ms=(time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
                 if not (window or softcap) else None))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
     return row
@@ -1589,9 +1627,10 @@ def phase_kernels():
     chunked = chunked_admission_cases(gen)
     wide = mla_cases(gen)
     gemma = gemma_cases(gen)
+    encdec = encdec_cases(gen)
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
                 + ffn + gmm + split + gsa + ssd + hybrid + chunked + wide
-                + gemma):
+                + gemma + encdec):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
@@ -1599,7 +1638,7 @@ def phase_kernels():
             "grouped_matmul": gmm[0], "split_f32": split[0],
             "gather_scatter_add": gsa[0],
             "ssd_scan": ssd[0], "paged_attn_chunk": chunked[0],
-            "ssd_scan_h0": chunked[4]}
+            "ssd_scan_h0": chunked[4], "flash_attention_bidir": encdec[0]}
 
 
 def chunked_admission_cases(gen):
@@ -1728,6 +1767,40 @@ def mla_cases(gen):
     return rows
 
 
+# Whisper-small's shapes (serve_encdec, train_encdec): the encoder's
+# 1500 frames over 12 heads of 64 (1500 = 23 x 64 + 28: a ragged last key
+# tile), the decoder's self-attention over 8 slots, bucketed chunks of
+# ENCDEC_CHUNK rows, and the tied head's CE over a train step's loss
+# chunk (4 rows of 448 tokens, D 768, V 51,865)
+ENCDEC_FRAMES, ENCDEC_H, ENCDEC_D = 1500, 12, 64
+ENCDEC_CHUNK = 64
+ENCDEC_V, ENCDEC_DM = 51865, 768
+
+
+def encdec_cases(gen):
+    """Kernel 1 bidirectional at the encoder's shape, B 1, S 1500, H 12 =
+    KH, D 64, bf16 (timed beside SDPA with ``is_causal=False``: the
+    kernels line's ``flash_attention_bidir`` row) and f32 (timed), each
+    with the plain version under a causal mask missing the limit; kernel
+    2 at the decoder's heads over 8 slots of ctx 32-320 (timed), at
+    ENCDEC_CHUNK rows over ctx 192, and from an int8 pool (timed); kernel
+    3's CE at T 1792, D 768, V 51,865 (timed) in the ``general`` instance,
+    the one the train path takes: rows of 51,865 bf16 are no multiple of
+    TMA's 16 bytes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    S, H, D = ENCDEC_FRAMES, ENCDEC_H, ENCDEC_D
+    ctx = [int(c) for c in np.linspace(32, 320, 8)]
+    return [flash_case(gen, 1, S, H, H, D, bf, causal=False, timed=True),
+            flash_case(gen, 1, S, H, H, D, f32, causal=False, timed=True),
+            paged_case(gen, ctx, 1, H, H, D, 16, bf, timed=True),
+            paged_case(gen, [192], ENCDEC_CHUNK, H, H, D, 16, bf,
+                       timed=True),
+            paged_quant_case(gen, ctx, 1, H, H, D, 16, bf, "int8",
+                             timed=True),
+            kd_case(gen, 4 * 448, ENCDEC_DM, 0, ENCDEC_V, bf, timed=True,
+                    inst="general")]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve full-width TinyLlama-1.1B
 # ---------------------------------------------------------------------------
@@ -1812,8 +1885,9 @@ def phase_serve():
                 eng.submit({"tokens": p}, max_new=max_new)
             return eng
 
-        # warm-up run (allocator, cuBLAS handles, kernel first launches)
-        make_engine().run()
+        # warm-up run (allocator, cuBLAS handles, kernel first launches):
+        # two requests launch every kernel of the path
+        make_engine(prompts[:2]).run()
         eng = make_engine()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()   # the timed run's own peak
@@ -1865,9 +1939,11 @@ def phase_serve():
         _, chunk_launches = _bucketed_serve(
             "serve", make_engine, prompts[:2], prompts, lens, max_new, cfg,
             seg_len, unbucketed, n_attn=cfg.n_layers)
-        _f32_token_identity("serve", params, cfg, PagedServeEngine, prompts,
-                            max_new, n_slots=n_slots, block_len=bl,
-                            seg_len=seg_len, max_len=max(lens) + max_new)
+        # on 8 of the 16 requests, every other: the script's time limit
+        _f32_token_identity("serve", params, cfg, PagedServeEngine,
+                            prompts[1::2], max_new, n_slots=n_slots,
+                            block_len=bl, seg_len=seg_len,
+                            max_len=max(lens) + max_new)
     phase_profile(params, cfg, prompts[-1], make_engine, seg_len)
     return _sum_counts(launches, chunk_launches)
 
@@ -1997,12 +2073,13 @@ def _serve_readings(eng, comps, wall, peak_gb, seg_len):
 
 
 def _check_served(label, eng, comps, lens, max_new, vocab):
-    """Every request completed with max_new in-vocabulary tokens; a paged
-    engine's pool drained."""
+    """Every request completed with max_new in-vocabulary tokens (one count
+    for all, or a list by uid); a paged engine's pool drained."""
     if sorted(comps) != list(range(len(lens))):
         fail(f"{label}: completed {sorted(comps)}")
     for uid, c in comps.items():
-        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+        n = max_new[uid] if isinstance(max_new, (list, tuple)) else max_new
+        if len(c.tokens) != n or c.prompt_len != lens[uid]:
             fail(f"{label} request {uid}: {len(c.tokens)} tokens, prompt "
                  f"{c.prompt_len}")
         if (c.tokens < 0).any() or (c.tokens >= vocab).any():
@@ -2057,18 +2134,21 @@ def _bucketed_serve(label, make_engine, warm, prompts, lens, max_new, cfg,
     return res, launches
 
 
-def _f32_token_identity(label, params, cfg, cls, prompts, max_new, **kw):
+def _f32_token_identity(label, params, cfg, cls, prompts, max_new, *,
+                        chunk_len=CHUNK_LEN, **kw):
     """The f32 model (these weights cast) served unbucketed and bucketed
-    (chunks of CHUNK_LEN) through ``cls`` on the same traffic: the
-    completions must be equal token for token."""
+    (chunks of ``chunk_len``) through ``cls`` on the same traffic (token
+    arrays, or request batches whose frontend rows the engine casts):
+    the completions must be equal token for token."""
     from repro_torch.utils.pytree import tree_map
     p32 = tree_map(lambda t: t.float(), params)
     c32 = cfg.replace(dtype="float32")
     runs = []
-    for bkw in ({}, {"chunk_len": CHUNK_LEN}):
+    for bkw in ({}, {"chunk_len": chunk_len}):
         eng = cls(p32, c32, device="cuda", **kw, **bkw)
         for p in prompts:
-            eng.submit({"tokens": p}, max_new=max_new)
+            eng.submit(p if isinstance(p, dict) else {"tokens": p},
+                       max_new=max_new)
         runs.append({u: c.tokens.tolist() for u, c in eng.run().items()})
         del eng
     del p32
@@ -2578,16 +2658,17 @@ def phase_serve_ssm():
             check_ssm_logits(res)
         torch.cuda.empty_cache()
 
-        def make_engine():
+        def make_engine(ps=prompts):
             eng = PagedServeEngine(params, cfg, n_slots=n_slots,
                                    seg_len=seg_len,
                                    max_len=max(lens) + max_new,
                                    device="cuda")
-            for p in prompts:
+            for p in ps:
                 eng.submit({"tokens": p}, max_new=max_new)
             return eng
 
-        make_engine().run()   # warm-up
+        # warm-up: two requests launch every kernel of the path
+        make_engine(prompts[:2]).run()
         eng = make_engine()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2651,9 +2732,10 @@ def phase_serve_ssm():
             max_new, cfg, seg_len, unbucketed, n_attn=0, n_ssm=cfg.n_layers)
         _ssd_on_tensor_cores(dict(ssd_ops.LAUNCHES_BY_INSTANCE),
                              chunk_launches["ssd_scan"], "serve_ssm bucketed")
-        _f32_token_identity("serve_ssm", params, cfg, ServeEngine, prompts,
-                            max_new, n_slots=n_slots, seg_len=seg_len,
-                            max_len=max(lens) + max_new)
+        # on 8 of the 16 requests, every other: the script's time limit
+        _f32_token_identity("serve_ssm", params, cfg, ServeEngine,
+                            prompts[1::2], max_new, n_slots=n_slots,
+                            seg_len=seg_len, max_len=max(lens) + max_new)
 
     toks = torch.as_tensor(prompts[-1], device="cuda")
     groups = {"ssd_scan": ("ssd_chunk", "ssd_state"),
@@ -2955,19 +3037,20 @@ def _moe_chunk_check(M, moe, params, cfg, n_moe):
 
 
 def _moe_bucketed(M, moe, params, cfg, prompts, lens, max_new, make_engine,
-                  seg_len, n_moe):
+                  seg_len, n_moe, unbucketed=None):
     """Bucketed admission on the MoE: the chunk check, then 8 of the 16
-    requests (every other, the longest included) unbucketed and bucketed,
-    the assignments the bucketed run's chunks drop (live rows only), and
-    the bf16 last-token logits of the longest prompt through each path
-    for ``_moe_f32_distance``.  Returns (readings, launches of the
-    bucketed run, (bucketed, unbucketed) logits)."""
-    pick = list(range(1, len(prompts), 2))
-    ps, ls = [prompts[i] for i in pick], [lens[i] for i in pick]
+    requests (every other, the longest included) unbucketed and
+    bucketed (``unbucketed``: the readings of a run of those 8 already
+    made), the assignments the bucketed run's chunks drop (live rows
+    only), and the bf16 last-token logits of the longest prompt through
+    each path for ``_moe_f32_distance``.  Returns (readings, launches of
+    the bucketed run, (bucketed, unbucketed) logits)."""
+    ps, ls = prompts[1::2], lens[1::2]
     check = _moe_chunk_check(M, moe, params, cfg, n_moe)
-    eng, comps, wall, _, peak = _engine_run(lambda: make_engine(ps))
-    unbucketed = _serve_readings(eng, comps, wall, peak, seg_len)
-    del eng
+    if unbucketed is None:
+        eng, comps, wall, _, peak = _engine_run(lambda: make_engine(ps))
+        unbucketed = _serve_readings(eng, comps, wall, peak, seg_len)
+        del eng
     with _LiveTap(moe, n_moe) as tap:
         res, launches = _bucketed_serve(
             f"serve_moe {cfg.name}", make_engine, ps[:1], ps, ls, max_new,
@@ -3054,9 +3137,9 @@ def _moe_f32_distance(M, cfg, toks, logits_bf16, extra=None,
 def _serve_moe_model(arch):
     """One global MoE at full width and depth behind ``PagedServeEngine``
     (8 slots, block_len 16, seg_len 8), bf16, random weights from seed 0
-    drawn on the card: the checks (a)-(c) and the dead lane, then the
-    serve phase's 16 requests with every launch counted, then a profile
-    of one decode segment."""
+    drawn on the card: the checks (a)-(c) and the dead lane, a profile
+    of one decode segment, then 8 of the serve phase's 16 requests (every
+    other, the longest included) with every launch counted."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.moe_gemm import ops as mg_ops
@@ -3135,8 +3218,10 @@ def _serve_moe_model(arch):
             cfg.n_layers * seg_len)
         del eng
 
-        # the main path: 16 requests, counts from 0
-        eng = make_engine()
+        # the main path: 8 of the 16 requests, every other (the longest
+        # included; the script's time limit), counts from 0
+        ps, ls = prompts[1::2], lens[1::2]
+        eng = make_engine(ps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -3149,10 +3234,10 @@ def _serve_moe_model(arch):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _gsa_all_vec(md_ops, f"serve_moe {arch}")
     st = eng.stats
-    if sorted(comps) != list(range(len(prompts))):
+    if sorted(comps) != list(range(len(ps))):
         fail(f"{arch}: completed {sorted(comps)}")
     for uid, c in comps.items():
-        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+        if len(c.tokens) != max_new or c.prompt_len != ls[uid]:
             fail(f"{arch} request {uid}: {len(c.tokens)} tokens")
         if (c.tokens < 0).any() or (c.tokens >= cfg.vocab_size).any():
             fail(f"{arch} request {uid}: token ids out of range")
@@ -3191,16 +3276,18 @@ def _serve_moe_model(arch):
     print(f"serve_moe ({CARD}) " + json.dumps(res))
     print(f"serve_moe profile ({arch}, decode segment of {seg_len} steps) "
           + json.dumps(seg))
+    unbucketed = _serve_readings(eng, comps, wall, peak_gb, seg_len)
     del eng, comps, tap
     if arch != SERVE_MOE_ARCHS[0]:
         del params
         torch.cuda.empty_cache()
         return launches
-    # bucketed admission on the first MoE (Qwen1.5-MoE-A2.7B)
+    # bucketed admission on the first MoE (Qwen1.5-MoE-A2.7B), the same 8
+    # requests beside the main path's unbucketed run
     with torch.no_grad():
         _, chunk_launches, logits = _moe_bucketed(
             M, moe, params, cfg, prompts, lens, max_new, make_engine,
-            seg_len, n_moe)
+            seg_len, n_moe, unbucketed)
     _gsa_all_vec(md_ops, f"serve_moe {arch} bucketed")
     del params
     torch.cuda.empty_cache()
@@ -3416,8 +3503,9 @@ def hybrid_logit_check(M, params, cfg, prompt, seed):
 
 def phase_serve_hybrid():
     """Full-width, full-depth Zamba2-7B (bf16, random weights from seed 0)
-    behind ``PagedServeEngine`` with 8 slots: the serve cell's 16 greedy
-    requests of 128-1024 prompt tokens, 64 new tokens each.  Checks the
+    behind ``PagedServeEngine`` with 8 slots: 8 of the serve cell's 16
+    greedy requests of 128-1024 prompt tokens (every other, the longest
+    included), 64 new tokens each, unbucketed and bucketed.  Checks the
     completions, the block pool, the launches on that run (flash 14 and
     kernel 7 81 a prefill, all tc; the paged kernel 14 a decode step), the
     logit check on the longest prompt, and profiles one decode
@@ -3464,8 +3552,13 @@ def phase_serve_hybrid():
                 eng.submit({"tokens": p}, max_new=new)
             return eng
 
+        # the main path: 8 of the 16 requests, every other (the longest
+        # included; the script's time limit), the unbucketed run beside
+        # the bucketed one below
+        pick = list(range(1, len(prompts), 2))
+        ps, ls = [prompts[i] for i in pick], [lens[i] for i in pick]
         make_engine(prompts[:2], seg_len).run()   # warm-up
-        eng = make_engine(prompts)
+        eng = make_engine(ps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -3478,10 +3571,10 @@ def phase_serve_hybrid():
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     st = eng.stats
-    if sorted(comps) != list(range(len(prompts))):
+    if sorted(comps) != list(range(len(ps))):
         fail(f"zamba2 completed {sorted(comps)}")
     for uid, c in comps.items():
-        if len(c.tokens) != max_new or c.prompt_len != lens[uid]:
+        if len(c.tokens) != max_new or c.prompt_len != ls[uid]:
             fail(f"zamba2 request {uid}: {len(c.tokens)} tokens, prompt "
                  f"{c.prompt_len}")
         if (c.tokens < 0).any() or (c.tokens >= cfg.vocab_size).any():
@@ -3492,12 +3585,12 @@ def phase_serve_hybrid():
     want = {"flash_attention": n_attn * st["prefills"],
             "ssd_scan": cfg.n_layers * st["prefills"],
             "paged_attn": n_attn * steps}
-    if launches != want or st["prefills"] != len(prompts):
+    if launches != want or st["prefills"] != len(ps):
         fail(f"zamba2 launches {launches} != expected {want} "
              f"({st['prefills']} prefills, {steps} decode steps)")
     _ssd_on_tensor_cores(by_instance, want["ssd_scan"], "serve_hybrid")
     ttft = sorted(c.ttft_s for c in comps.values())
-    res = {"requests": len(comps), "prompt_lens": lens,
+    res = {"requests": len(comps), "prompt_lens": ls,
            "generated_tokens": st["generated_tokens"], "wall_s": wall,
            "tok_per_s": st["generated_tokens"] / wall,
            "decode_steps": steps,
@@ -3515,15 +3608,11 @@ def phase_serve_hybrid():
            "logit_checks": checks}
     print(f"serve_hybrid ({CARD}) " + json.dumps(res))
 
-    # bucketed admission on 8 of the requests (every other, the longest
-    # included), beside the same 8 unbucketed
-    pick = list(range(1, len(prompts), 2))
-    ps, ls = [prompts[i] for i in pick], [lens[i] for i in pick]
-    del eng      # its pool must not count in the runs' peaks below
+    # bucketed admission on the same 8 requests, beside the main path's
+    # unbucketed run
+    unbucketed = _serve_readings(eng, comps, wall, peak_gb, seg_len)
+    del eng      # its pool must not count in the bucketed run's peak
     with torch.no_grad():
-        e8, c8, w8, _, pk8 = _engine_run(lambda: make_engine(ps))
-        unbucketed = _serve_readings(e8, c8, w8, pk8, seg_len)
-        del e8
         _, chunk_launches = _bucketed_serve(
             "serve_hybrid", make_engine, ps[:1], ps, ls, max_new, cfg,
             seg_len, unbucketed, n_attn=n_attn, n_ssm=cfg.n_layers)
@@ -3532,8 +3621,8 @@ def phase_serve_hybrid():
                              "serve_hybrid bucketed")
 
     with torch.no_grad():
-        eng = make_engine(prompts)
-        eng.step()        # admits the first 8 requests, runs a segment
+        eng = make_engine(ps)
+        eng.step()        # admits the 8 requests, runs a segment
         seg = decode_profile(eng, cfg, seg_len, "serve_hybrid decode")
     seg["launches_per_step"] = seg["device_launches"] / seg_len
     print("profile " + json.dumps({"hybrid_decode_segment_8_steps": seg}))
@@ -3912,74 +4001,93 @@ def _cut_depth(params, cfg, n_layers):
             cfg.replace(n_layers=n_layers))
 
 
-def gemma_logit_check(M, params, cfg, batch, fault_cfg, fault_batch, seed):
+def _f32(b):
+    """A batch's float leaves in f32 (the f32 model's inputs)."""
+    return {k: v.float() if v.is_floating_point() else v for k, v in b.items()}
+
+
+def _on_card(b):
+    return {k: torch.as_tensor(v).to("cuda") for k, v in b.items()}
+
+
+def f32_logit_check(label, M, params, cfg, batch, *, want, faults, tol,
+                    seed):
     """On one request, the f32 model (these weights cast): (i) the kernel
     path's logits (prefill + GEMMA_DECODE_STEPS paged decode steps) against
-    the plain path's, the kernel run launching flash once a layer and the
-    paged kernel once a layer-step, the plain run nothing; (ii) the
-    planted fault (``fault_cfg`` / ``fault_batch`` on the kernel path)
-    at least GEMMA_FAULT_MARGIN limits from the plain path; (iii) the bf16
-    model's kernel and plain paths' RMS distance to the f32 model, the
-    kernel path's at most SSM_BF16_RATIO times the plain path's."""
+    the plain path's, the kernel run launching ``want``, the plain run
+    nothing; (ii) each planted fault of ``faults`` ({name: fn(f32 params,
+    f32 config, f32 batch, continuation) -> logits}, on the kernel path)
+    at least GEMMA_FAULT_MARGIN limits (``tol``) from the plain path;
+    (iii) the bf16 model's kernel and plain paths' RMS distance to the f32
+    model, the kernel path's at most SSM_BF16_RATIO times the plain
+    path's."""
     from repro_torch.utils.pytree import tree_map
     cont = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, GEMMA_DECODE_STEPS)).astype(np.int32),
         device="cuda")
-    want = {"flash_attention": cfg.n_layers,
-            "paged_attn": cfg.n_layers * GEMMA_DECODE_STEPS}
-
-    def on_card(b):
-        return {k: torch.as_tensor(v).to("cuda") for k, v in b.items()}
 
     def paths(p, c, b):
         lk, n_k = _launched(lambda: _path_logits(M, p, c, b, cont))
         lp, n_p = _launched(lambda: _path_logits(
             M, p, c.replace(use_kernels=False), b, cont))
         if {**dict.fromkeys(n_k, 0), **want} != n_k or any(n_p.values()):
-            fail(f"serve_gemma {cfg.name} logits ({c.dtype}): kernel path "
+            fail(f"{label} {cfg.name} logits ({c.dtype}): kernel path "
                  f"launched {n_k} (expected {want}), plain path {n_p}")
         return lk, lp
 
-    b16 = on_card(batch)
+    b16 = _on_card(batch)
     kb, qb = paths(params, cfg, b16)
     cfg32 = cfg.replace(dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
-    b32 = {k: v.float() if v.is_floating_point() else v
-           for k, v in b16.items()}
+    b32 = _f32(b16)
     k32, q32 = paths(p32, cfg32, b32)
-    fb = {k: v.float() if v.is_floating_point() else v
-          for k, v in on_card(fault_batch).items()}
-    f32 = _path_logits(M, p32, fault_cfg.replace(dtype="float32"), fb, cont)
+    fault = {name: (fn(p32, cfg32, b32, cont) - q32).abs().max(-1).values
+             for name, fn in faults.items()}
     del p32
     torch.cuda.empty_cache()
     err = (k32 - q32).abs().max(-1).values
-    fault = (f32 - q32).abs().max(-1).values
     res = {"arch": cfg.name, "layers": cfg.n_layers,
            "prompt_len": batch["tokens"].shape[1],
            "max_abs_logit": q32.abs().max().item(),
            "f32_prefill_kernel_vs_plain": err[0].item(),
            "f32_decode_kernel_vs_plain": err[1:].max().item(),
-           "f32_fault_min": fault.min().item(),
+           **{f"f32_fault_{n}_min": f.min().item() for n, f in fault.items()},
            "bf16_kernel_to_f32_rms": _rms(kb, q32),
            "bf16_plain_to_f32_rms": _rms(qb, q32),
            "bf16_kernel_vs_plain_max": (kb - qb).abs().max().item(),
            "launches_kernel_path": want}
     res["bf16_rms_ratio"] = (res["bf16_kernel_to_f32_rms"]
                              / res["bf16_plain_to_f32_rms"])
-    print(f"serve_gemma logits ({CARD}) " + json.dumps(res))
+    print(f"{label} logits ({CARD}) " + json.dumps(res))
     if not (torch.isfinite(kb).all() and torch.isfinite(k32).all()) or \
-            not err.max() <= GEMMA_F32_LOGIT_TOL:
-        fail(f"serve_gemma {cfg.name}: f32 kernel-path logits differ from "
-             f"the plain path's by {err.max().item()} > "
-             f"{GEMMA_F32_LOGIT_TOL}")
-    if not fault.min() >= GEMMA_FAULT_MARGIN * GEMMA_F32_LOGIT_TOL:
-        fail(f"serve_gemma {cfg.name}: the planted fault moves the logits "
-             f"by only {fault.min().item()}: the check would not see it")
+            not err.max() <= tol:
+        fail(f"{label} {cfg.name}: f32 kernel-path logits differ from the "
+             f"plain path's by {err.max().item()} > {tol}")
+    for n, f in fault.items():
+        if not f.min() >= GEMMA_FAULT_MARGIN * tol:
+            fail(f"{label} {cfg.name}: the planted fault ({n}) moves the "
+                 f"logits by only {f.min().item()}: the check would not "
+                 f"see it")
     if not res["bf16_rms_ratio"] <= SSM_BF16_RATIO:
-        fail(f"serve_gemma {cfg.name}: the bf16 kernel path is "
+        fail(f"{label} {cfg.name}: the bf16 kernel path is "
              f"{res['bf16_rms_ratio']:.3f}x as far from the f32 model as "
              f"the plain path (limit {SSM_BF16_RATIO})")
     return res
+
+
+def gemma_logit_check(M, params, cfg, batch, fault_cfg, fault_batch, seed):
+    """``f32_logit_check`` of a gemma-family model: flash once a layer in
+    the prefill, the paged kernel once a layer-step; the planted fault is
+    ``fault_cfg`` / ``fault_batch`` on the kernel path."""
+    def fault(p32, c32, b32, cont):
+        return _path_logits(M, p32, fault_cfg.replace(dtype="float32"),
+                            _f32(_on_card(fault_batch)), cont)
+
+    return f32_logit_check(
+        "serve_gemma", M, params, cfg, batch,
+        want={"flash_attention": cfg.n_layers,
+              "paged_attn": cfg.n_layers * GEMMA_DECODE_STEPS},
+        faults={"fault": fault}, tol=GEMMA_F32_LOGIT_TOL, seed=seed)
 
 
 def _gemma_make(cls, params, cfg, batches, max_new, max_len):
@@ -4021,8 +4129,8 @@ def _gemma_run(label, M, make, batches, lens, max_new, cfg):
 
 
 def _gemma_init(cfg, label):
-    """Weights from seed 0 drawn on the card; (params, parameters, init
-    peak GB)."""
+    """Weights from seed 0 drawn on the card, ``label`` printed with their
+    count; (params, parameters, init peak GB)."""
     from repro_torch import convert
     from repro_torch.models import model as M
     torch.cuda.empty_cache()
@@ -4033,7 +4141,7 @@ def _gemma_init(cfg, label):
     torch.cuda.synchronize()
     n = sum(t.numel() for t in convert.flatten(params).values())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"serve_gemma: {label} {n / 1e9:.3f}B params {cfg.dtype}, "
+    print(f"{label}: {n / 1e9:.3f}B params {cfg.dtype}, "
           f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s, "
           f"init peak {peak:.2f} GB")
     return params, n, peak
@@ -4059,7 +4167,7 @@ def _serve_gemma2(arch, n_layers, picks):
             and cfg.attn_pattern == ("local", "full")):
         fail(f"{arch} config: {cfg}")
     cfg = cfg.replace(n_layers=n_layers)
-    params, n_params, init_peak = _gemma_init(cfg, arch)
+    params, n_params, init_peak = _gemma_init(cfg, f"serve_gemma {arch}")
     lens, prompts = _serve_prompts(cfg)
     long = np.random.default_rng(9).integers(
         0, cfg.vocab_size, (1, GEMMA_LONG)).astype(np.int32)
@@ -4164,7 +4272,8 @@ def _serve_paligemma():
     if not (cfg.use_kernels and cfg.arch_type == "vlm"
             and M.decode_offset(cfg) == 256):
         fail(f"paligemma config: {cfg}")
-    params, n_params, init_peak = _gemma_init(cfg, "paligemma-3b")
+    params, n_params, init_peak = _gemma_init(cfg,
+                                               "serve_gemma paligemma-3b")
     rng = np.random.default_rng(2)
     lens = [int(p) for p in np.linspace(128, 1024, 16)]
     batches = [prompt_batch(cfg, rng, P) for P in lens]
@@ -4218,6 +4327,214 @@ def phase_serve_gemma():
     del params
     torch.cuda.empty_cache()
     return _sum_counts(l9, l27, _serve_paligemma())
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: serve Whisper-small (the encoder-decoder family) at full width
+# and depth
+# ---------------------------------------------------------------------------
+
+# 8 slots of Whisper's decoder context; 16 requests of 4-192 prompt tokens
+# and 32-128 new ones, each with its own 1500 stub frames; requests 0-3
+# share a 64-token prefix and their frames, 4 and 5 that prefix with other
+# frames
+ENCDEC_SLOTS, ENCDEC_SEG, ENCDEC_MAX_LEN = 8, 8, 448
+ENCDEC_REQUESTS, ENCDEC_PREFIX = 16, 64
+# f32 kernel path against plain path, a 192-token request's prefill logits
+# and GEMMA_DECODE_STEPS teacher-forced paged decode steps.
+# Readings on an H100 (700 W): 1.04e-6 (prefill), 1.19e-6 (decode) on
+# logits of at most 2.33; the limit about 4x the worst.  The causal
+# encoder moved them by 1.71, zeroed frames by 0.0106 (2,100 limits).
+ENCDEC_F32_LOGIT_TOL = 5e-6
+# the f32 token identity, bucketed against unbucketed: these requests
+ENCDEC_F32_IDENTITY = 8
+
+
+def _encdec_traffic(cfg):
+    """(prompt lengths, max_new by request, request batches): prompts of
+    4-192 tokens and 32-128 new tokens (seed 5), stub frames normal x 0.05
+    in the model's dtype; requests 0-3 and 4-5 start with one 64-token
+    prefix, 0-3 with one set of frames, 4 and 5 each with its own."""
+    from repro_torch.launch.serve import prompt_batch
+    rng = np.random.default_rng(5)
+    lens = [int(p) for p in np.linspace(4, 192, ENCDEC_REQUESTS)][::-1]
+    news = [int(n) for n in np.linspace(32, 128, ENCDEC_REQUESTS)]
+    batches = [prompt_batch(cfg, rng, P) for P in lens]
+    prefix = batches[0]["tokens"][:, :ENCDEC_PREFIX]
+    for i in range(6):
+        batches[i]["tokens"][:, :ENCDEC_PREFIX] = prefix
+        if 0 < i < 4:
+            batches[i]["frames"] = batches[0]["frames"]
+    if not all(P + n <= ENCDEC_MAX_LEN for P, n in zip(lens, news)):
+        fail(f"serve_encdec traffic past {ENCDEC_MAX_LEN}: {lens} {news}")
+    return lens, news, batches
+
+
+def _encdec_prefix_blocks(params, cfg, batches, lens):
+    """A paged engine admits requests 0-5 at once: 0-3 (equal frames)
+    must hold the same blocks for the shared prefix, 4 and 5 (other
+    frames) none of theirs nor each other's."""
+    from repro_torch.serve import PagedServeEngine
+    n_full = ENCDEC_PREFIX // 16
+    eng = PagedServeEngine(params, cfg, n_slots=6, seg_len=ENCDEC_SEG,
+                           max_len=max(lens[:6]) + 8, device="cuda")
+    for b in batches[:6]:
+        eng.submit(b, max_new=8)
+    eng._admit()
+    held = [eng._slot_blocks[u][:n_full] for u in range(6)]
+    eng.run()
+    res = {"prefix_blocks": n_full, "shared_blocks":
+           eng.stats["shared_blocks"],
+           "equal_frames_share_all": all(h == held[0] for h in held[:4]),
+           "other_frames_share_none": not (
+               set(held[4]) & (set(held[0]) | set(held[5]))
+               or set(held[5]) & set(held[0]))}
+    if not (res["equal_frames_share_all"] and res["other_frames_share_none"]
+            and res["shared_blocks"] == 3 * n_full):
+        fail(f"serve_encdec prefix sharing: {res}")
+    return res
+
+
+def _encdec_make(cls, params, cfg, batches, news):
+    """An engine factory: ``make(indices, new=None, **kw)`` submits those
+    requests with their own max_new, or ``new`` each."""
+    def make(idx=range(ENCDEC_REQUESTS), new=None, **kw):
+        eng = cls(params, cfg, n_slots=ENCDEC_SLOTS, seg_len=ENCDEC_SEG,
+                  max_len=ENCDEC_MAX_LEN, device="cuda", **kw)
+        for i in idx:
+            eng.submit(batches[i], max_new=new or news[i])
+        return eng
+    return make
+
+
+def _encdec_run(label, M, make, lens, news, cfg, **kw):
+    """One timed run of the 16 requests: completions, the block pool,
+    launches (flash once an encoder layer bidirectional and once a
+    decoder layer causal a one-shot prefill, or the encoder's alone and
+    the paged kernel once a decoder layer a chunk when bucketed; the paged
+    engine's paged kernel once a decoder layer a decode step, from the
+    quantized branch for an int8 pool) and the readings.  Returns
+    (readings, completions, launches)."""
+    eng, comps, wall, launches, peak = _engine_run(lambda: make(**kw))
+    _check_served(label, eng, comps, lens, news, cfg.vocab_size)
+    st = eng.stats
+    steps = st["segments"] * ENCDEC_SEG
+    chunks = st["prefill_chunks"]
+    paged = hasattr(eng, "alloc")
+    quant = eng.policy.quantized
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    calls = (steps + chunks) * L if paged else 0
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": (E + (0 if chunks else L)) * st["prefills"],
+            "flash_attention_bidir": E * st["prefills"],
+            "paged_attn": 0 if quant else calls,
+            "paged_attn_quant": calls if quant else 0,
+            "paged_attn_chunk": chunks * L if paged else 0}
+    if launches != want or st["prefills"] != ENCDEC_REQUESTS or not steps:
+        fail(f"{label}: launches {launches} != expected {want} "
+             f"({st['prefills']} prefills, {chunks} chunks, {steps} decode "
+             f"steps)")
+    res = _serve_readings(eng, comps, wall, peak, ENCDEC_SEG)
+    res["pool_bytes"] = (M.paged_cache_nbytes(cfg, ENCDEC_SLOTS, eng.n_blocks,
+                                              eng.block_len, eng.policy)
+                         if paged else M.cache_nbytes(
+                             cfg, ENCDEC_SLOTS, eng.max_len, eng.policy))
+    res["shared_blocks"] = st.get("shared_blocks", 0)
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    return res, {u: c.tokens.tolist() for u, c in comps.items()}, launches
+
+
+def _causal_encoder(M, p32, c32, b32, cont):
+    """The kernel path's logits with the encoder's blocks run causally
+    (``_block_full`` called with ``causal=True``): a planted fault."""
+    orig = M._block_full
+
+    def causal(*a, **kw):
+        return orig(*a, **{**kw, "causal": True})
+
+    M._block_full = causal
+    try:
+        return _path_logits(M, p32, c32, b32, cont)
+    finally:
+        M._block_full = orig
+
+
+def phase_serve_encdec():
+    """Whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, d_model 768, 12 heads of 64, V 51,865, 1,500 stub frames;
+    bf16, random weights from seed 0): the f32 logit check with a causal
+    encoder and zeroed frames as planted faults, the prefix blocks keyed
+    by the frames, then the 16 requests through the paged engine (bf16),
+    the contiguous engine, the paged engine bucketed (chunks of
+    ENCDEC_CHUNK: a 192-token prompt takes three after one encode) and
+    the paged engine from an int8 pool; then the f32 model's completions
+    bucketed and unbucketed on ENCDEC_F32_IDENTITY requests, equal token
+    for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    cfg = get_config("whisper-small", variant="full")
+    if not (cfg.use_kernels and cfg.arch_type == "encdec"
+            and cfg.frontend_tokens == ENCDEC_FRAMES
+            and M.decode_offset(cfg) == 0):
+        fail(f"whisper-small config: {cfg}")
+    params, n_params, init_peak = _gemma_init(cfg,
+                                               "serve_encdec whisper-small")
+    lens, news, batches = _encdec_traffic(cfg)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    runs, toks, counts = {}, {}, []
+    with torch.no_grad():
+        long = batches[0]
+
+        def zeroed(p32, c32, b32, cont):
+            return _path_logits(M, p32, c32, {
+                **b32, "frames": torch.zeros_like(b32["frames"])}, cont)
+
+        check = f32_logit_check(
+            "serve_encdec", M, params, cfg, long,
+            want={"flash_attention": E + L, "flash_attention_bidir": E,
+                  "paged_attn": L * GEMMA_DECODE_STEPS},
+            faults={"causal_encoder": lambda *a: _causal_encoder(M, *a),
+                    "zeroed_frames": zeroed},
+            tol=ENCDEC_F32_LOGIT_TOL, seed=5)
+        prefix = _encdec_prefix_blocks(params, cfg, batches, lens)
+        for name, cls, kw in (
+                ("paged", PagedServeEngine, {}),
+                ("contiguous", ServeEngine, {}),
+                ("paged_bucketed", PagedServeEngine,
+                 {"chunk_len": ENCDEC_CHUNK}),
+                ("paged_int8", PagedServeEngine, {"kv_dtype": "int8"})):
+            make = _encdec_make(cls, params, cfg, batches, news)
+            make(range(2), ENCDEC_SEG, **kw).run()      # warm-up
+            runs[name], toks[name], c = _encdec_run(
+                f"serve_encdec {name}", M, make, lens, news, cfg, **kw)
+            counts.append(c)
+        if runs["paged_bucketed"]["prefill_chunks"] != sum(
+                -(-P // ENCDEC_CHUNK) for P in lens):
+            fail(f"serve_encdec bucketed: {runs['paged_bucketed']}")
+        pick = list(range(0, ENCDEC_REQUESTS, 2))[:ENCDEC_F32_IDENTITY]
+        identity = _f32_token_identity(
+            "serve_encdec whisper-small", params, cfg, PagedServeEngine,
+            [batches[i] for i in pick], 32, chunk_len=ENCDEC_CHUNK,
+            n_slots=ENCDEC_SLOTS, seg_len=ENCDEC_SEG, max_len=ENCDEC_MAX_LEN)
+    Ta, KH, Dh = cfg.frontend_tokens, cfg.n_kv_heads, cfg.resolved_head_dim
+    res = {"arch": cfg.name, "n_params": n_params,
+           "weights_gb": 2 * n_params / 1e9, "init_peak_gb": init_peak,
+           "self_kv_bytes_per_token": M.cache_nbytes(cfg, 1, 2)
+           - M.cache_nbytes(cfg, 1, 1),
+           "cross_bytes_per_slot": 2 * 2 * L * Ta * KH * Dh,
+           "memory_bytes_per_slot": 2 * Ta * cfg.d_model,
+           "prompt_lens": lens, "max_new": news, "runs": runs,
+           "prefix_sharing": prefix, "f32_identity": identity,
+           "paged_vs_contiguous_equal_requests": _same_tokens(
+               toks["paged"], toks["contiguous"]),
+           "bucketed_vs_unbucketed_equal_requests": _same_tokens(
+               toks["paged"], toks["paged_bucketed"])}
+    print(f"serve_encdec ({CARD}) " + json.dumps(res))
+    res["logit_check"] = check
+    del params
+    torch.cuda.empty_cache()
+    return _sum_counts(*counts)
 
 
 # ---------------------------------------------------------------------------
@@ -4534,7 +4851,8 @@ def _counts():
             "gather_scatter_add": md_ops.LAUNCHES,
             "ssd_scan": ssd_ops.LAUNCHES,
             "paged_attn_chunk": pa_ops.LAUNCHES_CHUNK,
-            "ssd_scan_h0": ssd_ops.LAUNCHES_H0}
+            "ssd_scan_h0": ssd_ops.LAUNCHES_H0,
+            "flash_attention_bidir": fa_ops.LAUNCHES_BIDIR}
 
 
 def _zero_counts():
@@ -4548,6 +4866,7 @@ def _zero_counts():
     fa_ops.LAUNCHES = kd_ops.LAUNCHES = md_ops.LAUNCHES = 0
     pa_ops.LAUNCHES = pa_ops.LAUNCHES_QUANT = ssd_ops.LAUNCHES = 0
     pa_ops.LAUNCHES_CHUNK = ssd_ops.LAUNCHES_H0 = 0
+    fa_ops.LAUNCHES_BIDIR = 0
     for d in (kd_ops.LAUNCHES_BY_INSTANCE, kd_ops.LAUNCHES_BY_MODE,
               mg_ops.LAUNCHES, mg_ops.LAUNCHES_BY_INSTANCE,
               md_ops.LAUNCHES_BY_INSTANCE, ssd_ops.LAUNCHES_BY_INSTANCE):
@@ -5130,6 +5449,224 @@ def phase_train_mla():
            **_step_readings(D, M, cfg, corpus, MLA_TRAIN_BATCH, TRAIN_SEQ,
                             MLA_TRAIN_LR, n, state_policy="bf16")}
     print(f"train_mla ({CARD}) " + json.dumps(res))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: train Whisper-small at full width and depth under remat "dots"
+# ---------------------------------------------------------------------------
+
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 6, 4, 448
+ENCDEC_TRAIN_LR = 1e-3
+# the steps take the launcher's batches of steps 0 and 1 in turn: a
+# random model's loss on fresh corpus batches moves by less than the
+# spread between batches in 6 steps (about 0.05 of 11.0 on a 1+1-layer
+# cut on the CPU), while each batch's own loss falls when it comes back
+ENCDEC_TRAIN_BATCHES = 2
+# kernel path against plain path on one batch with stub frames, bf16: the
+# loss to this absolute limit, each gradient leaf to this relative L2.
+# Readings on an H100 (700 W): loss |d| 5.7e-6 (of 11.62); worst leaf
+# dec_blocks/xattn/wk at 0.0228 (bf16 activations rounded at other
+# points through 24 layers); the limits about 3.5x and 2.2x those.
+ENCDEC_LOSS_TOL = 2e-5
+ENCDEC_GRAD_TOL = 0.05
+# "dots" against full remat and no remat on that batch (kernel path,
+# bf16): the same arithmetic, so bit-equality is expected (and was read:
+# every leaf equal); the embedding's backward adds rows with atomics in
+# an order that may change from run to run, so each leaf is held to this
+# relative L2 and the loss to 0
+ENCDEC_REMAT_GRAD_TOL = 1e-3
+
+
+class _CountMM(TorchDispatchMode):
+    """Counts the products without batch dims (``aten.mm``, ``aten.addmm``)
+    that reach the dispatcher while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _encdec_train_flops(cfg, batch, seq):
+    """Model FLOPs of one training step: 6 x the matmul parameters each
+    token passes (the encoder's 1500 frames through its blocks and the
+    decoder's cross K/V projections; the decoder's tokens through its
+    blocks, cross queries and output, and the tied head) x tokens, plus
+    the attention's products (bidirectional over the frames, causal over
+    the tokens, tokens over frames), each forward and twice in the
+    backward."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    Ta, L, E = cfg.frontend_tokens, cfg.n_layers, cfg.n_enc_layers
+    HD = cfg.n_heads * cfg.resolved_head_dim
+    te, td = batch * Ta, batch * seq
+    enc = E * (4 * D * HD + 2 * D * F) + L * 2 * D * HD
+    dec = L * (4 * D * HD + 2 * D * F + 2 * D * HD) + V * D
+    attn = 4 * HD * batch * (E * Ta * Ta + L * seq * (seq + 1) / 2
+                             + L * seq * Ta)
+    return 6 * (enc * te + dec * td) + 3 * attn
+
+
+def _encdec_grads(M, cfg, params, batch):
+    """(loss, {path: gradient in f32}, mm calls of the backward, peak GB) of
+    one ``loss_fn`` and its gradient."""
+    from repro_torch import convert
+    leaves = convert.flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = M.loss_fn(params, cfg, batch)
+    with _CountMM() as mm:
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return (loss.item(), {k: g.float() for k, g in zip(leaves, gs)}, mm.n,
+            peak)
+
+
+def _worst_rel(ga, gb):
+    """(leaf, relative L2 distance) of the leaf where two gradient dicts
+    differ most."""
+    rel = {k: ((ga[k] - gb[k]).norm() / gb[k].norm().clamp_min(1e-30)).item()
+           for k in gb}
+    k = max(rel, key=rel.get)
+    return k, rel[k]
+
+
+def phase_train_encdec():
+    """Whisper-small at full width and depth (bf16, random weights from
+    seed 0) trained ENCDEC_TRAIN_STEPS steps of 4 x 448 tokens with zero
+    frames (``launch/train.py::make_batch``, ENCDEC_TRAIN_BATCHES batches
+    in turn) under ``remat_policy="dots"`` through
+    ``federated.device.train_step``: finite losses, each batch's falling,
+    launches (flash twice an encoder layer bidirectional and twice a
+    decoder layer a step, forward and remat; kd_loss twice a step, all in
+    the general instance).  Then on one batch with stub frames: the
+    kernel path's loss and every gradient against the plain path's, and
+    ``dots`` against
+    full remat and no remat (the same loss and gradients; each one's
+    peak; the products the backward recomputes: fewer under ``dots``
+    than under full remat, none without remat)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import device as D
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config("whisper-small", variant="full").replace(
+        remat_policy="dots")
+    if not (cfg.use_kernels and cfg.remat and cfg.dtype == "bfloat16"):
+        fail(f"whisper-small config: {cfg}")
+    steps, B, S = ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = adamw_init(params)
+    sched = cosine_schedule(ENCDEC_TRAIN_LR, steps, warmup=1)
+    data = [make_batch(cfg, corpus, s, B, S, "cuda")
+            for s in range(ENCDEC_TRAIN_BATCHES)]
+    batches = [data[s % ENCDEC_TRAIN_BATCHES] for s in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms = [], []
+    for s, b in enumerate(batches):
+        t0 = time.perf_counter()
+        loss, _, _ = D.train_step(params, opt, cfg, b, sched(s),
+                                  weight_decay=0.01)
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = _counts()
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": steps * (E + L) * 2,
+            "flash_attention_bidir": steps * E * 2,
+            "kd_loss": steps * -(-S // min(cfg.loss_chunk, S)) * 2}
+    print(f"train_encdec: {steps} steps, losses "
+          f"{[round(x, 4) for x in losses]}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    n = ENCDEC_TRAIN_BATCHES
+    if not all(math.isfinite(x) for x in losses) or not all(
+            losses[-n + i] < losses[i] for i in range(n)):
+        fail(f"train_encdec: losses {losses}: each batch's must fall")
+    if launches != want:
+        fail(f"train_encdec: launches {launches} != expected {want}")
+    by = dict(kd_ops.LAUNCHES_BY_INSTANCE)
+    if by["general"] != launches["kd_loss"] or sum(by.values()) != by[
+            "general"]:
+        fail(f"train_encdec: kd_loss launches by instance {by}: V 51,865 "
+             f"takes the general instance")
+    del opt, batches, data
+    torch.cuda.empty_cache()
+
+    # one batch with stub frames: kernel vs plain, and the three remats
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
+        B, S, seed_salt=steps).items()}
+    batch["frames"] = (torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                                   generator=gen, device="cuda")
+                       * 0.05).bfloat16()
+    runs = {}
+    for name, c in (("dots", cfg),
+                    ("full", cfg.replace(remat_policy="nothing")),
+                    ("off", cfg.replace(remat=False)),
+                    ("plain", cfg.replace(use_kernels=False))):
+        runs[name] = _encdec_grads(M, c, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    (ld, gd, md, pd), (lf, gf, mf, pf), (lo, go, mo, po), (lp, gp, _, _) = (
+        runs[k] for k in ("dots", "full", "off", "plain"))
+    kp_leaf, kp_rel = _worst_rel(gd, gp)
+    rf_leaf, rf_rel = _worst_rel(gd, gf)
+    ro_leaf, ro_rel = _worst_rel(gd, go)
+    res = {"arch": cfg.name, "n_params": n_params, "steps": steps,
+           "batch": B, "seq": S, "frames": cfg.frontend_tokens,
+           "losses": losses, "step_ms": step_ms,
+           "ms_per_step": sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+           "peak_mem_gb": peak, "launches": {k: v for k, v in
+                                             launches.items() if v},
+           "loss_kernel": ld, "loss_plain": lp,
+           "loss_abs_err": abs(ld - lp),
+           "grad_worst_rel": kp_rel, "grad_worst_leaf": kp_leaf,
+           "remat_loss": {"dots": ld, "full": lf, "off": lo},
+           "dots_vs_full_worst_rel": rf_rel, "dots_vs_full_leaf": rf_leaf,
+           "dots_vs_off_worst_rel": ro_rel, "dots_vs_off_leaf": ro_leaf,
+           "dots_bit_equal_full": all(torch.equal(gd[k], gf[k]) for k in gd),
+           "dots_bit_equal_off": all(torch.equal(gd[k], go[k]) for k in gd),
+           "peak_gb": {"dots": pd, "full": pf, "off": po},
+           "backward_mm": {"dots": md, "full": mf, "off": mo},
+           "recomputed_mm": {"dots": md - mo, "full": mf - mo, "off": 0}}
+    ms = res["ms_per_step"]
+    res["tokens_per_s"] = B * S / (ms / 1e3)
+    res["mfu"] = _encdec_train_flops(cfg, B, S) / (ms / 1e3) / PEAK_BF16
+    print(f"train_encdec ({CARD}) " + json.dumps(res))
+    if not res["loss_abs_err"] <= ENCDEC_LOSS_TOL or \
+            not kp_rel <= ENCDEC_GRAD_TOL:
+        fail(f"train_encdec: kernel vs plain loss {res['loss_abs_err']}, "
+             f"gradient {kp_leaf} {kp_rel} past {ENCDEC_LOSS_TOL} / "
+             f"{ENCDEC_GRAD_TOL}")
+    if not (ld == lf == lo and rf_rel <= ENCDEC_REMAT_GRAD_TOL
+            and ro_rel <= ENCDEC_REMAT_GRAD_TOL):
+        fail(f"train_encdec: dots vs full / no remat: losses {ld} {lf} "
+             f"{lo}, gradients {rf_leaf} {rf_rel}, {ro_leaf} {ro_rel} (limit "
+             f"{ENCDEC_REMAT_GRAD_TOL})")
+    if not 0 < md - mo < mf - mo:
+        fail(f"train_encdec: backward products {res['backward_mm']}: dots "
+             f"must recompute fewer than full remat, and some")
     return launches
 
 
@@ -6895,13 +7432,18 @@ KERNELS = {
     "ssd_scan_h0": {
         "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:91"},
+    # the encoder-decoder family's encoder: kernel 1 with causal=False
+    "flash_attention_bidir": {
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:108"},
 }
 
 # the path phases, in the order they run
 PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
-         phase_serve_hybrid, phase_serve_mla, phase_serve_gemma, phase_train,
-         phase_train_ssm, phase_train_hybrid, phase_train_mla, phase_tune,
-         phase_distill, phase_pipeline, phase_methods, phase_fleet)
+         phase_serve_hybrid, phase_serve_mla, phase_serve_gemma,
+         phase_serve_encdec, phase_train, phase_train_ssm, phase_train_hybrid,
+         phase_train_mla, phase_train_encdec, phase_tune, phase_distill,
+         phase_pipeline, phase_methods, phase_fleet)
 
 
 def main() -> int:

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures whose model family has been ported are known
-here; the reference registry (``repro.configs.registry``) lists the
-rest, and asking for one of them raises ``KeyError``.
+Every architecture of the reference registry
+(``repro.configs.registry.ALL``) is here; asking for any other name
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.configs.paligemma_3b import CONFIG as PALIGEMMA_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
+from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 from repro_torch.models.config import ModelConfig, reduced
 
@@ -33,6 +34,7 @@ PORTED: Dict[str, ModelConfig] = {
     "paligemma-3b": PALIGEMMA_3B,
     "mamba2-1.3b": MAMBA2_1_3B,
     "zamba2-7b": ZAMBA2_7B,
+    "whisper-small": WHISPER_SMALL,
     # the paper's on-device families (configs/device_models.py)
     "gpt2": GPT2,
     "gpt2-medium": GPT2_MEDIUM,

@@ -14,7 +14,9 @@ is the reference's ``_fa_bhsd_bwd``: it recomputes the dense
 (scores (B·H, Sq, Sk) live in the backward only).  The GQA repeat in
 ``flash_attention_ref`` sums the K/V gradients over each group's query
 heads, as the VJP of the reference's ``jnp.repeat`` does.  ``LAUNCHES``
-counts kernel launches, so a run can show the path went through it.
+counts kernel launches, so a run can show the path went through it;
+``LAUNCHES_BIDIR`` those of them with ``causal=False`` (the
+encoder-decoder family's encoder).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LAUNCHES = 0
+LAUNCHES_BIDIR = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims csrc/flash_attention.cu is built for (dispatch_d)
 _HEAD_DIMS = (16, 24, 32, 64, 96, 112, 128, 256)
@@ -97,7 +100,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def _flash_fwd(q, k, v, *, causal, window, softcap):
     """The kernel launch (CUDA tensors)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BIDIR
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -121,4 +124,6 @@ def _flash_fwd(q, k, v, *, causal, window, softcap):
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention", err_str)
     LAUNCHES += 1
+    if not causal:
+        LAUNCHES_BIDIR += 1
     return out

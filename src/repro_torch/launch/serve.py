@@ -26,7 +26,9 @@ the dense ``tinyllama-1.1b`` and ``starcoder2-3b``, the gemma family
 ``gemma2-9b`` and ``gemma2-27b`` (local/global windows, both logit
 softcaps), the VLM ``paligemma-3b`` (each request carries stub patch
 embeddings, seeded normal x 0.05 in the model's dtype, as the
-reference's ``prompt_batch`` draws them), the MoEs
+reference's ``prompt_batch`` draws them), the encoder-decoder
+``whisper-small`` (stub audio frames drawn the same way, read by the
+encoder; the decoder serves the prompt), the MoEs
 ``qwen2-moe-a2.7b`` and ``deepseek-moe-16b`` (its leading dense layer
 included), ``deepseek-v3-671b`` (MLA's latent cache, read through the
 block-table gather), ``mamba2-1.3b``, ``zamba2-7b`` and the on-device
@@ -35,6 +37,9 @@ families.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
       --variant reduced --device cpu --paged --mixed --bucket \
       --check-unbucketed
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --variant reduced --device cpu --paged
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v3-671b --device cpu --paged --kv-dtype int8 \
@@ -75,12 +80,14 @@ def mixed_lengths(n: int, prompt_len: int, gen: int):
 
 def prompt_batch(cfg, rng, prompt_len: int):
     """One request's batch: ``prompt_len`` random tokens and, for the VLM
-    family, stub patch embeddings (1, frontend_tokens, d_model), normal x
-    0.05 in the model's dtype, drawn after the tokens from ``rng``."""
+    family, stub patch embeddings (the encoder-decoder family: stub audio
+    frames) (1, frontend_tokens, d_model), normal x 0.05 in the model's
+    dtype, drawn after the tokens from ``rng``."""
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, prompt_len))}
-    if cfg.arch_type == "vlm":
-        patches = rng.normal(size=(1, cfg.frontend_tokens, cfg.d_model))
-        batch["patches"] = torch.as_tensor(patches * 0.05).to(M._dtype(cfg))
+    key = M.frontend_key(cfg)
+    if key is not None:
+        rows = rng.normal(size=(1, cfg.frontend_tokens, cfg.d_model))
+        batch[key] = torch.as_tensor(rows * 0.05).to(M._dtype(cfg))
     return batch
 
 

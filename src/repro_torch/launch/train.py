@@ -1,10 +1,12 @@
 """Training launcher of the port: one model, on the card.
 
 The single-model path of ``repro.launch.train``: batches from
-``FederatedCorpus.mixed_eval_batch(batch, seq, seed_salt=step)``, the
-cosine schedule with warmup ``max(steps // 20, 1)``, AdamW with weight
-decay 0.01, through ``federated.device.train_step``.  No mesh: one
-device.  Weights are random, drawn from seed 0.
+``FederatedCorpus.mixed_eval_batch(batch, seq, seed_salt=step)`` (with
+zero stub ``patches`` or ``frames`` for the VLM and encoder-decoder
+families, ``make_batch``), the cosine schedule with warmup
+``max(steps // 20, 1)``, AdamW with weight decay 0.01, through
+``federated.device.train_step``.  No mesh: one device.  Weights are
+random, drawn from seed 0.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --variant full --steps 20 --batch 4 --seq 1024
@@ -12,6 +14,8 @@ device.  Weights are random, drawn from seed 0.
       --variant reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-v3-671b --device cpu     # MLA, the MTP loss
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-small --variant reduced --device cpu  # enc-dec
 
 Prints loss, accuracy and grad norm as the reference does, and ms per
 step and tokens/s over the steps after the first (which builds the
@@ -57,6 +61,22 @@ _NOT_PORTED = [
 # in seconds (the reference's ``_fleet_families``)
 _FLEET_TINY = dict(vocab_size=256, dtype="float32", remat=False,
                    attn_chunk_q=16, attn_chunk_k=16, loss_chunk=16)
+
+
+def make_batch(cfg: ModelConfig, corpus, step: int, batch: int, seq: int,
+               device):
+    """Step ``step``'s batch on ``device``: ``mixed_eval_batch(batch, seq,
+    seed_salt=step)``, and for a family with a stub frontend (VLM
+    ``patches``, encoder-decoder ``frames``) zero frontend rows (batch,
+    frontend_tokens, d_model) in the model's dtype, as the reference's
+    ``make_batch``."""
+    b = {k: v.to(device) for k, v in corpus.mixed_eval_batch(
+        batch, seq, seed_salt=step).items()}
+    key = M.frontend_key(cfg)
+    if key is not None:
+        b[key] = torch.zeros((batch, cfg.frontend_tokens, cfg.d_model),
+                             dtype=M._dtype(cfg), device=device)
+    return b
 
 
 def _fleet_families():
@@ -208,8 +228,7 @@ def main(argv=None):
     losses = []
     t0 = t1 = time.perf_counter()
     for s in range(args.steps):
-        b = corpus.mixed_eval_batch(args.batch, args.seq, seed_salt=s)
-        b = {k: v.to(device) for k, v in b.items()}
+        b = make_batch(cfg, corpus, s, args.batch, args.seq, device)
         loss, metrics, stats = train_step(params, opt, cfg, b, sched(s),
                                           weight_decay=0.01)
         losses.append(loss)

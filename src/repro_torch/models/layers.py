@@ -1,5 +1,5 @@
-"""Core neural layers of the port: norms, RoPE, GQA and MLA attention,
-MLPs.
+"""Core neural layers of the port: norms, RoPE and sinusoidal positions,
+GQA and MLA attention, MLPs.
 
 Counterpart of ``repro.models.layers`` (GQA with the quantized KV cache,
 and DeepSeek-V3's multi-head latent attention with its quantized latent
@@ -113,7 +113,7 @@ def apply_norm(p, x, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# rotary position embedding
+# position embeddings: rotary and sinusoidal
 # ---------------------------------------------------------------------------
 
 def apply_rope(x, positions, theta: float):
@@ -130,6 +130,17 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d: int):
+    """Sinusoidal position embeddings (..., d) in f32: ``[sin | cos]`` of
+    ``positions`` (...) times ``d // 2`` geometric frequencies."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

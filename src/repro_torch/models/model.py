@@ -1,5 +1,6 @@
 """Model assembly of the port: init / loss / prefill / decode, dense,
-MoE, VLM (PaliGemma), ssm (Mamba-2) and hybrid (Zamba-2) families.
+MoE, VLM (PaliGemma), ssm (Mamba-2), hybrid (Zamba-2) and
+encoder-decoder (Whisper) families.
 
 Counterpart of ``repro.models.model``.  The parameter layout is the
 reference's: nested dicts with the same keys, layer parameters stacked
@@ -50,6 +51,21 @@ feeds a prompt through the decode body in fixed chunks (bucketed
 admission): C > 1 in ``_chunk_hidden``, the Mamba-2 blocks through
 ``ssm_prefill_chunk`` with a carried state.
 
+The encoder-decoder family (``arch_type="encdec"``, Whisper) stacks
+``enc_blocks`` (n_enc_layers, ...) of plain blocks, ``enc_norm``, and
+``dec_blocks`` (n_layers, ...) of plain blocks with ``ln_x`` and a
+cross-attention ``xattn``.  ``batch["frames"]`` (B, frontend_tokens, D),
+the stub audio frontend's frame embeddings, go through the encoder
+bidirectionally (flash attention with ``causal=False`` on the kernel
+path); each decoder layer attends causally over the tokens, then over
+the encoder's memory through the plain ``chunked_attention`` (decode:
+``decode_attention`` over the cached cross K/V), as the reference does.
+Positions are sinusoidal.  No cache row holds a frame
+(``decode_offset`` 0).  ``remat_policy="dots"`` (``_maybe_remat``)
+keeps the outputs of the products without batch dims for the backward
+and recomputes the rest; the decoder's layers are rematerialised whole
+whatever the policy, as the reference's plain ``jax.checkpoint``.
+
 Caches follow the reference's layout too.  Contiguous decode cache:
 ``blocks/sub{i}/{k,v}`` of shape (n_groups, B, S, KH, Dh); for the ssm
 family ``blocks/{state,conv}`` of shape (n_layers, B, H, P, N) in f32
@@ -57,17 +73,20 @@ and (n_layers, B, K-1, conv_dim); for the hybrid family ``mamba`` of
 shape (n_groups, period, B, ...), ``attn`` ``{"k", "v"}`` with one entry
 per shared-attention application (n_groups, plus one with a tail) and
 ``tail`` (tail, B, ...); MLA's ``{"ckv", "kr"}`` of shape (n_groups, B,
-S, r) and (n_groups, B, S, pr).  Paged cache: the sequence-carrying
-leaves as block pools (n_groups, n_blocks, block_len, KH, Dh), where
-block id b is row b of every pool and block 0 is the trash block;
-leaves without a sequence axis (the ssm state and conv tail) keep one
-row per slot.  Under a quantized ``quant.CachePolicy`` (int8 or fp8) the
+S, r) and (n_groups, B, S, pr); the encoder-decoder family's ``self``
+{"k", "v"} (n_layers, B, S, KH, Dh), ``cross`` {"k", "v"} (n_layers, B,
+frontend_tokens, KH, Dh) and ``memory`` (B, frontend_tokens, D).  Paged
+cache: the sequence-carrying leaves as block pools (n_groups, n_blocks,
+block_len, KH, Dh), where block id b is row b of every pool and block 0
+is the trash block; leaves without a sequence axis (the ssm state and
+conv tail, the encoder-decoder ``cross`` and ``memory``) keep one row
+per slot.  Under a quantized ``quant.CachePolicy`` (int8 or fp8) the
 attention leaves are stored at the policy's dtype beside f32
 ``k_scale``/``v_scale`` (MLA: ``ckv_scale``/``kr_scale``) siblings
-without the trailing feature axis; the ssm
-state and conv tail opt out, as in the reference.  Decode writes these
-tensors in place (the reference returns new ones); the functions still
-return the cache so call sites read the same.
+without the trailing feature axis; the ssm state and conv tail,
+``cross`` and ``memory`` opt out, as in the reference.  Decode writes
+these tensors in place (the reference returns new ones); the functions
+still return the cache so call sites read the same.
 """
 from __future__ import annotations
 
@@ -75,7 +94,9 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.models import layers, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
@@ -111,15 +132,23 @@ def _n_groups(cfg: ModelConfig) -> int:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type in ("dense", "moe"):
         ok = cfg.attn_type in ("gqa", "mla")
-    elif cfg.arch_type in ("hybrid", "vlm"):
+    elif cfg.arch_type in ("hybrid", "vlm", "encdec"):
         ok = cfg.attn_type == "gqa" and not cfg.n_mtp
     else:
         ok = cfg.arch_type == "ssm"
     if not ok:
         raise NotImplementedError(
             f"{cfg.name} is not ported yet: only the dense and MoE families "
-            "(GQA or MLA, with or without MTP), the hybrid and VLM GQA "
-            "families and the ssm family are")
+            "(GQA or MLA, with or without MTP), the hybrid, VLM and "
+            "encoder-decoder GQA families without MTP and the ssm family "
+            "are")
+
+
+def frontend_key(cfg: ModelConfig):
+    """The batch key of a family's stub frontend input (B, frontend_tokens,
+    d_model): ``"patches"`` (VLM), ``"frames"`` (encoder-decoder), else
+    None."""
+    return {"vlm": "patches", "encdec": "frames"}.get(cfg.arch_type)
 
 
 def _hybrid_layout(cfg: ModelConfig):
@@ -221,20 +250,42 @@ def _groups(tree, n: int):
     return torch.unbind(tree, 0)
 
 
-def _maybe_remat(cfg: ModelConfig, fn):
+# the matrix products without batch dims: a (..., K) @ (K, N) product
+# folds its leading dims and dispatches to one of these
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy, the reference's
+    ``checkpoint_dots_with_no_batch_dims``: keep the outputs of the matrix
+    products without batch dims for the backward, recompute everything
+    else (batched products such as ``bmm``, and the kernels' launches)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _maybe_remat(cfg: ModelConfig, fn, *, policy=None):
     """``fn`` rematerialised in the backward when ``cfg.remat``, as the
     reference's ``jax.checkpoint`` (non-reentrant
-    ``torch.utils.checkpoint``: only the inputs are saved).  Without
-    autograd (serving) there is no backward, and ``fn`` runs as is."""
+    ``torch.utils.checkpoint``: only the inputs are saved), under
+    ``policy`` (default ``cfg.remat_policy``): ``"dots"`` also saves the
+    outputs of the products without batch dims (``_save_dots``), any
+    other policy recomputes all of ``fn``.  Without autograd (serving)
+    there is no backward, and ``fn`` runs as is."""
     if not cfg.remat:
         return fn
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError('remat_policy="dots" is not ported yet')
+    policy = cfg.remat_policy if policy is None else policy
+    context_fn = _dots_contexts if policy == "dots" else noop_context_fn
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
 
     return run
 
@@ -324,6 +375,20 @@ def init_params(cfg: ModelConfig, *, generator):
 
     if cfg.arch_type == "ssm":
         p["blocks"] = mamba_blocks((cfg.n_layers,))
+        return p
+    if cfg.arch_type == "encdec":
+        p["enc_blocks"] = _init_block(generator, cfg, dtype,
+                                      (cfg.n_enc_layers,), use_moe=False)
+        p["enc_norm"] = layers.init_norm(cfg, cfg.d_model, dtype, dev)
+        # each decoder layer: a plain block plus cross-attention over the
+        # encoder's memory, behind its own norm
+        dec = _init_block(generator, cfg, dtype, (cfg.n_layers,),
+                          use_moe=False)
+        dec["ln_x"] = layers.init_norm(cfg, cfg.d_model, dtype, dev,
+                                       (cfg.n_layers,))
+        dec["xattn"] = layers.init_attention(generator, cfg, dtype,
+                                             (cfg.n_layers,))
+        p["dec_blocks"] = dec
         return p
     if cfg.arch_type == "hybrid":
         period, n_groups, tail = _hybrid_layout(cfg)
@@ -469,6 +534,98 @@ def _hybrid_backbone(params, cfg: ModelConfig, x, positions,
     return x, caches, (torch.stack(stages) if collect_stages else None)
 
 
+def _positions(B: int, S: int, device):
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def _encode(params, cfg: ModelConfig, frames):
+    """The encoder over the stub frontend's frames (B, Ta, D), cast to the
+    model's dtype: sinusoidal positions added, every block bidirectional
+    (flash attention with ``causal=False`` on the kernel path), each
+    rematerialised under ``cfg.remat_policy``, then ``enc_norm``.
+    Returns (memory (B, Ta, D), its positions (B, Ta))."""
+    B, Ta = frames.shape[:2]
+    pos = _positions(B, Ta, frames.device)
+    x = frames.to(_dtype(cfg))
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+
+    def block(x, bp):
+        return _block_full(bp, cfg, x, pos, kind="full", causal=False)[0]
+
+    block = _maybe_remat(cfg, block)
+    for bp in _groups(params["enc_blocks"], cfg.n_enc_layers):
+        x = block(x, bp)
+    return layers.apply_norm(params["enc_norm"], x), pos
+
+
+def _cross_attend(bp, cfg: ModelConfig, x, pos, k, v, kpos, attend):
+    """x + the cross-attention of x's queries over the memory's K/V
+    (``attend(q, k, v, pos, kpos)``, a plain attention, as in the
+    reference), behind ``ln_x``."""
+    B, C = x.shape[:2]
+    h = layers.apply_norm(bp["ln_x"], x)
+    q = layers.attention_qkv(bp["xattn"], cfg, h, pos)[0]
+    xa = attend(q, k, v, pos, kpos)
+    return x + layers.mm(xa.reshape(B, C, -1), bp["xattn"]["wo"])
+
+
+def _encdec_backbone(params, cfg: ModelConfig, batch, collect_cache: bool,
+                     collect_stages: bool = False):
+    """The encoder over ``batch["frames"]``, then the decoder over the
+    tokens: per layer causal self-attention (flash attention on the
+    kernel path), cross-attention over the memory through the plain
+    ``chunked_attention``, the MLP.  Returns (x before the final norm,
+    caches, stages): with ``collect_cache`` ``{"self", "cross"}`` (each
+    ``{"k", "v"}`` stacked on the layer axis) and ``"memory"``; with
+    ``collect_stages`` each decoder layer's output (n_layers, B, S, D).
+
+    The encoder's blocks take ``cfg.remat_policy``; each decoder layer is
+    rematerialised whole whatever the policy, as the reference's decoder
+    body is a plain ``jax.checkpoint``."""
+    memory, mpos = _encode(params, cfg, batch["frames"])
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    pos = _positions(B, S, tokens.device)
+    x = _embed(params, cfg, tokens)
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+
+    def cross(q, k, v, qpos, kpos):
+        return layers.chunked_attention(
+            q, k, v, qpos, kpos, causal=False, q_chunk=cfg.attn_chunk_q,
+            k_chunk=cfg.attn_chunk_k)
+
+    def layer(x, bp, memory):
+        h = layers.apply_norm(bp["ln1"], x)
+        a, (k, v) = layers.attention_full(bp["attn"], cfg, h, pos, window=0,
+                                          causal=True)
+        _, mk, mv = layers.attention_qkv(bp["xattn"], cfg, memory, mpos)
+        x = _cross_attend(bp, cfg, x + a, pos, mk, mv, mpos, cross)
+        x = x + layers.apply_mlp(bp["mlp"], cfg,
+                                 layers.apply_norm(bp["ln2"], x))
+        if not collect_cache:
+            return x
+        return x, {"self": {"k": k, "v": v}, "cross": {"k": mk, "v": mv}}
+
+    layer = _maybe_remat(cfg, layer, policy="nothing")
+    entries, stages = [], []
+    for bp in _groups(params["dec_blocks"], cfg.n_layers):
+        if collect_cache:
+            x, c = layer(x, bp, memory)
+            entries.append(c)
+        else:
+            x = layer(x, bp, memory)
+        if collect_stages:
+            stages.append(x)
+    caches: Dict[str, Any] = {}
+    if collect_cache:
+        caches = {n: {k: torch.stack([e[n][k] for e in entries])
+                      for k in ("k", "v")} for n in ("self", "cross")}
+        caches["memory"] = memory
+    return x, caches, (torch.stack(stages) if collect_stages else None)
+
+
 def _frontend_embed(params, cfg: ModelConfig, batch):
     """The input sequence (B, S, D): the embedded tokens, behind the VLM
     family's precomputed patch rows ``batch["patches"]`` (B, P, D), cast
@@ -481,17 +638,25 @@ def _frontend_embed(params, cfg: ModelConfig, batch):
 
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
              collect_cache: bool = False, collect_stages: bool = False):
-    """Full-sequence forward of the dense, MoE, VLM, ssm and hybrid
-    families.  Returns (final-normed hidden (B, S, D), aux loss (f32
-    scalar, 0 but for MoE), caches, stages) — ``caches`` is ``{"blocks":
-    ...}`` (the hybrid family: ``_hybrid_backbone``'s entries) when
-    ``collect_cache``, else empty; ``stages`` the per-group hidden states
+    """Full-sequence forward of every family.  Returns (final-normed
+    hidden (B, S, D), aux loss (f32 scalar, 0 but for MoE), caches,
+    stages) — ``caches`` is ``{"blocks": ...}`` (the hybrid family:
+    ``_hybrid_backbone``'s entries) when ``collect_cache``, else empty;
+    ``stages`` the per-group hidden states
     (n_groups, B, S, D) before the final norm, the representation stages
     the VAA distiller reads, when ``collect_stages``, else None.  The VLM
     family runs the dense stack over ``[patches | text]`` (S = P +
     S_txt, positions from 0 over both), so its hidden states keep the
-    patch rows; the loss drops them."""
+    patch rows; the loss drops them.  The encoder-decoder family:
+    ``_encdec_backbone`` (caches ``{"self", "cross", "memory"}``, stages
+    the decoder layers')."""
     _check_ported(cfg)
+    if cfg.arch_type == "encdec":
+        x, caches, stages = _encdec_backbone(params, cfg, batch,
+                                             collect_cache, collect_stages)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return (layers.apply_norm(params["final_norm"], x), aux, caches,
+                stages)
     x = _frontend_embed(params, cfg, batch)
     B, S = x.shape[:2]
     caches: Dict[str, Any] = {}
@@ -691,7 +856,12 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
     quantizing them buys little and costs accuracy.  The hybrid family:
     ``mamba`` (n_groups, period, B, ...), ``attn`` with one entry per
     shared-attention application (n_groups, plus one with a tail), and
-    with a tail ``tail`` (tail, B, ...)."""
+    with a tail ``tail`` (tail, B, ...).  The encoder-decoder family:
+    the decoder's ``self`` entry of shape (n_layers, B, S, KH, Dh) under
+    the policy, the ``cross`` K/V of the encoder's memory (n_layers, B,
+    frontend_tokens, KH, Dh) and the ``memory`` (B, frontend_tokens, D),
+    both in the model's dtype whatever the policy and without a
+    sequence axis (like the recurrent state, read whole every step)."""
     _check_ported(cfg)
 
     def mamba(lead):
@@ -705,6 +875,14 @@ def init_decode_cache(cfg: ModelConfig, B: int, S: int, *, device,
 
     if cfg.arch_type == "ssm":
         return {"blocks": mamba((cfg.n_layers,))}
+    if cfg.arch_type == "encdec":
+        Ta = cfg.frontend_tokens
+        return {"self": _attn_cache_struct(cfg, (cfg.n_layers,), B, S,
+                                           device=device, policy=policy),
+                "cross": _attn_cache_struct(cfg, (cfg.n_layers,), B, Ta,
+                                            device=device),
+                "memory": torch.zeros((B, Ta, cfg.d_model),
+                                      dtype=_dtype(cfg), device=device)}
     if cfg.arch_type == "hybrid":
         period, n_groups, tail = _hybrid_layout(cfg)
         c = {"mamba": mamba((n_groups, period)),
@@ -781,7 +959,9 @@ def prefill_into_cache(cfg: ModelConfig, decode_cache, prefill_cache):
     and conv tail are position-free and adopted whole.  The hybrid
     family adopts its Mamba-2 entries, grafts the groups' shared-attention
     K/V into the first n_groups entries of ``attn``, and folds the
-    separately collected ``tail_attn`` into its last entry."""
+    separately collected ``tail_attn`` into its last entry.  The
+    encoder-decoder family grafts its decoder's ``self`` K/V and adopts
+    ``cross`` and ``memory`` whole."""
     _check_ported(cfg)
     if cfg.arch_type != "hybrid":
         return _map(graft_cache_entry, decode_cache, prefill_cache)
@@ -1000,6 +1180,49 @@ def _hybrid_decode(params, cfg: ModelConfig, x, pos, cache, *,
     return x
 
 
+def _encdec_decode(params, cfg: ModelConfig, x, pos, cache, *,
+                   block_tables=None, write_tables=None):
+    """The encoder-decoder family's decode body: sinusoidal positions
+    added, then per layer self-attention over ``self`` (written in place;
+    the paged kernel on the kernel path with ``block_tables``), the
+    cross-attention over the slot's ``cross`` K/V through the plain
+    ``decode_attention`` (no causal mask), and the MLP."""
+    B = x.shape[0]
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + layers.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    kpos = _positions(B, cfg.frontend_tokens, x.device)
+
+    def cross(q, k, v, qpos, kpos):
+        return layers.decode_attention(q, k, v, qpos, kpos, causal=False)
+
+    for i in range(cfg.n_layers):
+        bp = _layer(params["dec_blocks"], i)
+        h = layers.apply_norm(bp["ln1"], x)
+        a, _ = layers.attention_decode(bp["attn"], cfg, h, pos,
+                                       _layer(cache["self"], i), window=0,
+                                       block_table=block_tables,
+                                       write_table=write_tables)
+        cc = _layer(cache["cross"], i)
+        x = _cross_attend(bp, cfg, x + a, pos, cc["k"], cc["v"], kpos, cross)
+        x = x + layers.apply_mlp(bp["mlp"], cfg,
+                                 layers.apply_norm(bp["ln2"], x))
+    return x
+
+
+def _encdec_encode(params, cfg: ModelConfig, cache, frames) -> None:
+    """Run the encoder over ``frames`` and write every decoder layer's
+    cross K/V of its memory, and the memory, into the cache in place:
+    the fixed-shape half of the family's chunked prefill, the same
+    arithmetic as ``_encdec_backbone``'s."""
+    memory, mpos = _encode(params, cfg, frames)
+    for i in range(cfg.n_layers):
+        _, mk, mv = layers.attention_qkv(
+            _layer(params["dec_blocks"], i)["xattn"], cfg, memory, mpos)
+        cache["cross"]["k"][i].copy_(mk)
+        cache["cross"]["v"][i].copy_(mv)
+    cache["memory"].copy_(memory)
+
+
 def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
                   block_tables=None, write_tables=None, n_valid=None,
                   live=None):
@@ -1017,7 +1240,8 @@ def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
     ``n_valid``, so bucket pads are dead rows too.  Leading dense layers
     decode before ``blocks``.  The ssm family ignores positions and
     tables (its leaves are slot-resident); the hybrid family's shared
-    attention reads and writes through them."""
+    attention reads and writes through them, as the encoder-decoder
+    family's self-attention does (its cross K/V are slot-resident)."""
     _check_ported(cfg)
     C = x.shape[1]
     if live is None and n_valid is not None:
@@ -1032,6 +1256,11 @@ def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
                            block_tables=block_tables,
                            write_tables=write_tables, n_valid=n_valid,
                            live=live)
+        return layers.apply_norm(params["final_norm"], x), cache
+    if cfg.arch_type == "encdec":
+        x = _encdec_decode(params, cfg, x, pos, cache,
+                           block_tables=block_tables,
+                           write_tables=write_tables)
         return layers.apply_norm(params["final_norm"], x), cache
     if "dense_blocks" in params:
         x, cache["dense_blocks"] = _decode_stack(
@@ -1065,7 +1294,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
 
 def _zero_recurrent(cfg: ModelConfig, cache) -> None:
     """Zero the leaves without a sequence axis (the Mamba-2 state and
-    conv tail), in place."""
+    conv tail, the encoder-decoder ``cross`` and ``memory``), in place."""
     seq = decode_cache_seq_axes(cfg, policy=quant.policy_of(cache))
     _map(lambda leaf, ax: leaf.zero_() if ax < 0 else leaf, cache, seq)
 
@@ -1079,6 +1308,9 @@ def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
     ``chunk_len``; ``prompt_len`` (int or (B,)) is the true token count.
     The VLM family's ``batch["patches"]`` (B, P, D) lead the sequence,
     so the first chunks hold patch rows, and the real rows count them.
+    The encoder-decoder family's ``batch["frames"]`` go through the
+    encoder once, before the chunks, into the slot's ``cross`` K/V and
+    ``memory`` (``_encdec_encode``); its chunks hold tokens alone.
     ``cache`` is a decode cache, updated in place: contiguous, or the
     paged slot view plus pools with ``block_tables`` (B, nbt) wide enough
     for every padded position, written through ``write_tables`` (default
@@ -1110,6 +1342,8 @@ def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
             f"{T_pad}) must be a multiple of chunk_len {C}")
     dev = tokens.device
     _zero_recurrent(cfg, cache)
+    if cfg.arch_type == "encdec":
+        _encdec_encode(params, cfg, cache, batch["frames"])
     x_full = _frontend_embed(params, cfg, batch)
     total_real = offset + torch.as_tensor(
         prompt_len, dtype=torch.int64, device=dev).reshape(-1).expand(B)

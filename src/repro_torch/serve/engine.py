@@ -65,10 +65,16 @@ d_model) beside their tokens, held on the host in the model's dtype:
 every admission (one-shot, bucketed, a preempted request's replay)
 prefills ``[patches | text]``, a rung counts the patch rows, only the
 tokens are padded, and the paged engine's prefix keys digest the
-patches, so requests with other patches share no block.
+patches, so requests with other patches share no block.  The
+encoder-decoder family's requests carry ``frames`` the same way: every
+admission runs the encoder over them and writes the slot's ``cross``
+K/V and ``memory``, which stay one row per slot (no sequence axis)
+while the decoder's ``self`` K/V is pooled; no row of the sequence
+holds frames (``decode_offset`` 0), and the prefix keys digest them,
+so a block is shared only between requests with equal frames.
 
 Not ported yet, and refused with ``NotImplementedError``: speculative
-decode, sharded serving (``mesh``) and the families not ported yet.
+decode and sharded serving (``mesh``).
 """
 from __future__ import annotations
 
@@ -92,8 +98,9 @@ from repro_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``batch`` holds ``tokens`` (1, P) as a
-    host array and, for the VLM family, ``patches`` (1, frontend_tokens,
-    d_model) as a host tensor in the model's dtype; ``max_new`` counts
+    host array and, for the VLM family, ``patches`` (the encoder-decoder
+    family: ``frames``) (1, frontend_tokens, d_model) as a host tensor in
+    the model's dtype; ``max_new`` counts
     ALL generated tokens, including the one sampled from the prefill
     logits."""
     uid: int
@@ -244,8 +251,8 @@ class ServeEngine:
             self._uid_auto = max(self._uid_auto, uid + 1)
         if uid in self.completions or uid in self._out or uid in self._pending:
             raise ValueError(f"request {uid}: uid already in use")
-        vlm = self.cfg.arch_type == "vlm"
-        keys = {"tokens", "patches"} if vlm else {"tokens"}
+        front = M.frontend_key(self.cfg)
+        keys = {"tokens"} if front is None else {"tokens", front}
         if set(batch) != keys:
             raise ValueError(f"request {uid}: {self.cfg.name} takes a batch "
                              f"of {sorted(keys)}, got {sorted(batch)}")
@@ -258,8 +265,8 @@ class ServeEngine:
                 f"request {uid}: tokens must have shape (1, P), got "
                 f"{toks.shape} (one request per submit)")
         host = {"tokens": toks}
-        if vlm:
-            host["patches"] = self._host_patches(uid, batch["patches"])
+        if front is not None:
+            host[front] = self._host_frontend(uid, front, batch[front])
         self._validate_capacity(uid, toks.shape[1], max_new)
         if max_new < 1:
             raise ValueError(f"request {uid}: max_new must be >= 1")
@@ -268,21 +275,22 @@ class ServeEngine:
         self._t_submit[uid] = time.perf_counter()
         return uid
 
-    def _host_patches(self, uid: int, patches) -> torch.Tensor:
-        """A VLM request's patch rows as one host tensor in the model's
-        dtype (the cast the backbone would make), checked for shape."""
+    def _host_frontend(self, uid: int, key: str, rows) -> torch.Tensor:
+        """A request's stub frontend rows (VLM ``patches``, encoder-decoder
+        ``frames``) as one host tensor in the model's dtype (the cast the
+        backbone would make), checked for shape."""
         want = (1, self.cfg.frontend_tokens, self.cfg.d_model)
-        if tuple(patches.shape) != want:
-            raise ValueError(f"request {uid}: patches must have shape {want}, "
-                             f"got {tuple(patches.shape)}")
-        return torch.as_tensor(patches).to("cpu", M._dtype(self.cfg))
+        if tuple(rows.shape) != want:
+            raise ValueError(f"request {uid}: {key} must have shape {want}, "
+                             f"got {tuple(rows.shape)}")
+        return torch.as_tensor(rows).to("cpu", M._dtype(self.cfg))
 
     def _device_batch(self, req: Request, toks) -> Dict[str, torch.Tensor]:
         """The request's batch on the device with ``toks`` (1, T) as its
-        tokens; the VLM family's patches ride along."""
-        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
-        if "patches" in req.batch:
-            batch["patches"] = req.batch["patches"].to(self.device)
+        tokens; the frontend rows ride along."""
+        batch = {k: v.to(self.device) for k, v in req.batch.items()
+                 if k != "tokens"}
+        batch["tokens"] = torch.as_tensor(toks, device=self.device)
         return batch
 
     def _validate_capacity(self, uid: int, P: int, max_new: int) -> None:
@@ -321,7 +329,7 @@ class ServeEngine:
         """The request's batch on the device, tokens right-padded with 0 so
         the input sequence (patch rows included) is exactly ``length``
         long (pads are masked out of cache and state by
-        ``prefill_chunked``); the patches are never padded."""
+        ``prefill_chunked``); the frontend rows are never padded."""
         toks = np.zeros((1, length - M.decode_offset(self.cfg)), np.int32)
         toks[:, :req.prompt_len] = req.batch["tokens"]
         return self._device_batch(req, toks)

@@ -7,9 +7,10 @@ XLA's CPU silu rounds twice; tanh-GELU likewise), so their bf16 logits
 differ by as much as each differs from its own f32 model, and a bf16
 fault in the port (a dropped f32 upcast, a term rounded to bf16) could
 hide in that drift.  The checks, on reduced ``tinyllama-1.1b`` and
-``mamba2-1.3b``, the same converted weights in f32 and in bf16 (the bf16
-tree is the f32 one rounded, ``A_log``, ``D`` and ``dt_bias`` kept in f32
-as both packages keep them).  Mamba2's ``D`` is drawn from U(0.5, 2):
+``mamba2-1.3b`` (blocks also of ``gemma2-9b`` and ``whisper-small``),
+the same converted weights in f32 and in bf16 (the bf16 tree is the f32
+one rounded, ``A_log``, ``D`` and ``dt_bias`` kept in f32 as both
+packages keep them).  Mamba2's ``D`` is drawn from U(0.5, 2):
 the init's D = 1 makes D * x exact in bf16, so no fault of the D term
 could show.  The port takes its kernels' plain versions (CPU tensors),
 the reference its plain path.
@@ -49,6 +50,11 @@ the reference its plain path.
    ``DENSE_BLOCK_LIMIT``.  Readings (seeds 1, 2; layers 0, 1): 0.042,
    0.051, 0.161, 0.129.  The two post-block norms computed in bf16
    (their f32 upcast dropped) read 0.711-0.738.
+5. One whisper encoder block (reduced ``whisper-small``'s: bidirectional
+   attention, LayerNorm, ungated tanh-GELU rounding once in both), held
+   to the same ``DENSE_BLOCK_LIMIT``.  Readings (seeds 1, 2; layers 0,
+   1): 0.103, 0.063, 0.060, 0.142.  Its LayerNorms computed in bf16
+   (their f32 upcast dropped) read 0.986-1.000.
 """
 import math
 
@@ -256,7 +262,8 @@ def test_d_term_in_bf16_breaks_the_block_check(blocks, monkeypatch, seed,
 def dense_blocks():
     """(seed, layer[, arch]) -> the reference's f32 and bf16 outputs of
     one sub-layer of TinyLlama (or of ``arch``: gemma2's first, a local
-    one) with its silu and tanh-GELU rounding once, the port's f32
+    one; whisper's encoder block, bidirectional) with its silu and
+    tanh-GELU rounding once, the port's f32
     output, its bf16 sub-layer weights, its bf16 config, the bf16 input
     and the positions."""
     out = {}
@@ -275,9 +282,13 @@ def dense_blocks():
         kind = cfg.attn_pattern[0]
         tree, btree = _trees(cfg_j, seed)
         cfg_bf = cfg.replace(dtype="bfloat16")
+        causal = _causal(cfg)
+
+        def stack(t):
+            return t["enc_blocks"] if not causal else t["blocks"]["sub0"]
 
         def sub(t):
-            return jax.tree.map(lambda a: a[layer], t["blocks"]["sub0"])
+            return jax.tree.map(lambda a: a[layer], stack(t))
         x = np.random.default_rng(seed + 10).standard_normal(
             (4, 128, cfg.d_model)).astype(np.float32)
         xb = jnp.asarray(x).astype(jnp.bfloat16)
@@ -286,18 +297,18 @@ def dense_blocks():
         try:
             ref = [np.asarray(JM._block_full(
                 jax.tree.map(jnp.asarray, sub(t)), c, xi, jnp.asarray(pos),
-                kind=kind, mesh=None, causal=True)[0], np.float32)
+                kind=kind, mesh=None, causal=causal)[0], np.float32)
                 for t, c, xi in ((tree, cfg_j, jnp.asarray(x)),
                                  (btree, cfg_j.replace(dtype="bfloat16"),
                                   xb))]
         finally:
             jax.nn.silu, jax.nn.gelu = silu, gelu
         post = torch.from_numpy(pos.copy())
-        f32 = M._block_full(M._layer(convert.params_from_jax(
-            tree, cfg)["blocks"]["sub0"], layer), cfg, torch.from_numpy(x),
-            post, kind=kind)[0].numpy()
-        return (*ref, f32, M._layer(convert.params_from_jax(
-            btree, cfg_bf)["blocks"]["sub0"], layer), cfg_bf,
+        f32 = M._block_full(M._layer(stack(convert.params_from_jax(
+            tree, cfg)), layer), cfg, torch.from_numpy(x), post, kind=kind,
+            causal=causal)[0].numpy()
+        return (*ref, f32, M._layer(stack(convert.params_from_jax(
+            btree, cfg_bf)), layer), cfg_bf,
             torch.from_numpy(np.asarray(xb, np.float32)).bfloat16(), post)
 
     def get(seed, layer, arch="tinyllama-1.1b"):
@@ -307,13 +318,18 @@ def dense_blocks():
     return get
 
 
+def _causal(cfg):
+    """The whisper block is an encoder block: bidirectional."""
+    return cfg.arch_type != "encdec"
+
+
 def _dense_block_distance(dense_blocks, seed, layer, arch="tinyllama-1.1b"):
     """As ``_block_distance``, for one TinyLlama (or ``arch``) sub-layer."""
     ref_f32, ref_bf, f32, p_bf, cfg_bf, xb, pos = dense_blocks(seed, layer,
                                                                arch)
     np.testing.assert_allclose(f32, ref_f32, atol=1e-4, rtol=1e-4)
-    got = M._block_full(p_bf, cfg_bf, xb, pos,
-                        kind=cfg_bf.attn_pattern[0])[0]
+    got = M._block_full(p_bf, cfg_bf, xb, pos, kind=cfg_bf.attn_pattern[0],
+                        causal=_causal(cfg_bf))[0]
     return _rel_rms(got.float().numpy(), ref_bf) / _rel_rms(ref_bf, ref_f32)
 
 
@@ -389,4 +405,36 @@ def test_post_block_norms_in_bf16_break_the_gemma2_block_check(
         return (x * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
     monkeypatch.setattr(layers, "apply_norm", post_norms_in_bf16)
     d = _dense_block_distance(dense_blocks, seed, 0, "gemma2-9b")
+    assert d > DENSE_BLOCK_LIMIT, f"only {d:.3f} of the reference's bf16 drift"
+
+
+# ---------------------------------------------------------------------------
+# one whisper encoder block (bidirectional, LayerNorm, ungated tanh-GELU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_whisper_encoder_block_rounds_where_the_reference_does(
+        dense_blocks, seed, layer):
+    d = _dense_block_distance(dense_blocks, seed, layer, "whisper-small")
+    assert d <= DENSE_BLOCK_LIMIT, f"{d:.3f} of the reference's bf16 drift"
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_layernorm_in_bf16_breaks_the_whisper_block_check(
+        dense_blocks, monkeypatch, seed):
+    """Every LayerNorm of the block computed in bf16, without its f32
+    upcast."""
+    dense_blocks(seed, 0, "whisper-small")
+    norm = layers.apply_norm
+
+    def layernorm_in_bf16(p, x, eps=1e-6):
+        if "bias" not in p:
+            return norm(p, x, eps)
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        return ((x - mu) * torch.rsqrt(var + eps) * p["scale"]
+                + p["bias"]).to(x.dtype)
+    monkeypatch.setattr(layers, "apply_norm", layernorm_in_bf16)
+    d = _dense_block_distance(dense_blocks, seed, 0, "whisper-small")
     assert d > DENSE_BLOCK_LIMIT, f"only {d:.3f} of the reference's bf16 drift"

@@ -8,7 +8,9 @@ emulates that arithmetic in plain torch and holds it to the reference's
 ``attention_ref`` (JAX, f32 inside, one rounding to bf16) under the rule
 ``chip_smoke.py`` holds the kernel to: each element within two bf16 ulps
 of its own value + 1e-4.  On the same inputs P rounded once to bf16
-breaks that rule, so the rule sees the split.
+breaks that rule, so the rule sees the split.  The bidirectional case
+(the encoder's ``causal=False`` at an S that is no multiple of the key
+tile) must also break the rule with a causal mask planted in.
 
 Inputs are N(0, 1) draws made with numpy from a seed and rounded to
 bf16, as ``chip_smoke.py`` draws them on the card.
@@ -30,6 +32,8 @@ CASES = {
     "causal": (2, 300, True, 0, 0.0),
     "window": (2, 257, True, 40, 0.0),
     "softcap": (2, 200, True, 0, 30.0),
+    # the encoder's mode: every key visible, S no multiple of the tile
+    "bidir": (2, 300, False, 0, 0.0),
 }
 
 
@@ -106,3 +110,16 @@ def test_split_p_keeps_the_rule_and_single_p_breaks_it(name, D):
     assert split <= 1.0, f"split P: {split:.3g}x the limit"
     assert single > 1.0, f"single-rounded P: only {single:.3g}x the limit"
 
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_bidirectional_emulation_sees_the_keys_above_the_diagonal(D):
+    """The bidirectional case with a causal mask planted into the
+    emulation breaks the rule: the keys above the diagonal, the ragged
+    last tile's included, reach the output the rule holds."""
+    heads, S, causal, window, softcap = CASES["bidir"]
+    assert not causal and S % _block_k(D)
+    q, k, v = _inputs(heads, S, D, seed=D)
+    want = _reference(q, k, v, causal=False, window=0, softcap=0.0)
+    planted = emulate(q, k, v, causal=True, window=0, softcap=0.0)
+    assert bf16_err_over_limit(planted, want) > 1.0

@@ -138,12 +138,22 @@ def test_bucket_flags_need_bucket(flag, capsys):
     assert "requires --bucket" in capsys.readouterr().err
 
 
-# the gemma family and the VLM are ported: their case turned positive
-# (test_gemma_and_vlm_archs_resolve); enc-dec (whisper) is the refused one
-@pytest.mark.parametrize("arch", ["whisper-small", "nope"])
+# every family is ported: the gemma family's and the VLM's cases turned
+# positive (test_gemma_and_vlm_archs_resolve), enc-dec's too
+# (test_every_reference_arch_is_ported); an unknown name is still refused
+@pytest.mark.parametrize("arch", ["nope"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not ported yet"):
         get_config(arch)
+
+
+def test_every_reference_arch_is_ported():
+    """No architecture of the reference registry is missing from the
+    port's, whisper-small (the encoder-decoder family) the last."""
+    from repro.configs.registry import ALL
+    from repro_torch.configs.registry import PORTED
+    assert set(ALL) <= set(PORTED)
+    assert get_config("whisper-small").arch_type == "encdec"
 
 
 @pytest.mark.parametrize("variant", ["full", "reduced"])

@@ -8,7 +8,8 @@ machine with one:
 f32 inputs, so the kernels are held to 1e-4 (sums in another order);
 ``chip_smoke.py`` covers bf16 at the serve and train paths' shapes.
 The flash kernel's bf16 instance (tensor cores, split P) is held here at
-every head dim, each element within two bf16 ulps of the plain output +
+every head dim (both instances also with ``causal=False`` at a ragged
+S, the encoder's mode), each element within two bf16 ulps of the plain output +
 1e-4, the rule ``chip_smoke.py`` holds it to: both accumulate in f32
 and round once.
 The kd_loss kernel also takes bf16 here: its products are exact in f32,
@@ -185,6 +186,31 @@ def test_flash_bf16_kernel_matches_plain(cuda, B, S, H, KH, D, window,
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     worst = bf16_err_over_limit(out, flash_attention_ref(q, k, v, **kw))
     assert torch.isfinite(out).all() and worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bidirectional_matches_plain(cuda, dtype, D):
+    """``causal=False`` (the encoder's mode) at S 300, no multiple of the
+    64- (or 32-) key tile: every key visible to every query, the ragged
+    last tile masked.  The plain version with a causal mask misses the
+    limit, so the check sees the keys above the diagonal."""
+    g = torch.Generator(device=cuda).manual_seed(D + 300)
+    q = torch.randn(2, 300, 4, D, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 300, 4, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    n0 = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, causal=False)
+    assert fa.LAUNCHES == n0 + 1
+    want = flash_attention_ref(q, k, v, causal=False)
+    planted = flash_attention_ref(q, k, v, causal=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, **TOL)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(planted, want, **TOL)
+    else:
+        assert bf16_err_over_limit(out, want) <= 1.0
+        assert bf16_err_over_limit(planted, want) > 1.0
 
 
 @pytest.mark.parametrize("name", ["q", "k", "v"])

@@ -431,8 +431,7 @@ def test_convert_round_trips_moe_leaves(moe_params):
         convert.params_from_jax(convert.unflatten(bad), cfg)
 
 
-@pytest.mark.parametrize("what", ["a2a", "replicated_ep",
-                                  "whisper-small"])
+@pytest.mark.parametrize("what", ["a2a", "replicated_ep", "mesh"])
 def test_unported_moe_paths_raise(moe_params, what):
     cfg, pt, _ = moe_params
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -441,6 +440,7 @@ def test_unported_moe_paths_raise(moe_params, what):
             moe.apply_moe(p, cfg.replace(moe_impl=what),
                           torch.zeros((1, 2, cfg.d_model)))
         else:
-            # the encoder-decoder family stays refused
-            M.init_params(port_cfg(jax_config(what, variant="reduced")),
-                          generator="meta")
+            # the encoder-decoder family is ported (tests/test_torch_
+            # encdec.py); serving the MoE over a mesh stays refused
+            from repro_torch.serve import ServeEngine
+            ServeEngine(pt, cfg, mesh=object(), device="cpu")

@@ -31,7 +31,6 @@ from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.serve import PagedServeEngine, ServeEngine
 
-from test_torch_train import port_cfg  # repo root on sys.path
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -311,14 +310,14 @@ def test_convert_round_trip(dtype):
 
 def test_unported_ssm_paths_raise(models):
     # training and chunked prefill with a carried state are ported
-    # (tests/test_torch_ssm_train.py, tests/test_torch_serve_chunked.py);
-    # the chunk body still refuses the families not ported yet (enc-dec)
+    # (tests/test_torch_ssm_train.py, tests/test_torch_serve_chunked.py),
+    # and the chunk body takes every family, the encoder-decoder one the
+    # last (tests/test_torch_encdec_serve.py); speculative decode of the
+    # ssm model stays refused
     _, _, cfg, pt = models
-    enc = port_cfg(jax_config("whisper-small", variant="reduced"))
-    x = M._embed(pt, cfg, torch.as_tensor(_tokens(cfg, (1, 3))))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        M._chunk_hidden(pt, enc, {}, x, torch.zeros((1, 3),
-                                                    dtype=torch.int32))
+        PagedServeEngine(pt, cfg, n_slots=1, max_len=8, speculate=2,
+                         device="cpu")
 
 
 @pytest.mark.parametrize("paged", [True, False])

@@ -287,13 +287,13 @@ def test_cli_trains_on_the_cpu_and_needs_cuda_by_default(monkeypatch):
 
 
 def test_unported_training_options_raise():
+    from repro_torch.launch import train
     cfg = port_cfg(FAMILIES["tinyllama-reduced"])
-    params = M.init_params(cfg, generator="meta")
     spec = tdev.DeviceSpec(0, cfg, 0, 0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdev.train_fleet([spec], None, steps=1, batch=1, seq_len=4,
                          n_hosts=2, device="cpu")
+    # remat_policy="dots" is ported (tests/test_torch_encdec.py); the
+    # production mesh stays refused
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.loss_fn(params, cfg.replace(remat_policy="dots"),
-                  {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                   "labels": torch.zeros((1, 4), dtype=torch.int32)})
+        train.parse_args(["--arch", "tinyllama-1.1b", "--production-mesh"])
