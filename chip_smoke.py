@@ -68,7 +68,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    about 150) and at PaliGemma's S 1280, H 8 over KH 1; paged at C 1
    over 8 slots of ctx 4100-8192 and at C 256 over ctx 4608 with the
    window and the cap; the plain version without the window, and
-   without the cap, must each miss the limit;
+   without the cap, must each miss the limit; speculative decode's draft
+   block: flash at B 8, S 1, H 32 over KH 4, D 64 in bf16 (timed) and
+   f32, and the paged kernel at 4 rows a slot (bf16 and int8 timed);
 4. serve: full-width TinyLlama-1.1B (bf16, random weights from seed 0)
    behind ``PagedServeEngine``: 16 greedy requests, prompts of 128-1024
    tokens, 64 new tokens each.  Checks the completions, the allocator,
@@ -79,7 +81,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (the paged kernel at 256 rows, 22 a chunk; no flash), TTFT, admission
    time, ms a decode step, tok/s and peak beside the unbucketed run's;
    and the f32 model (the weights cast) served unbucketed and bucketed
-   on 8 of the requests, its completions equal token for token;
+   on 8 of the requests, its completions equal token for token.  Then
+   speculative decode (k SPEC_K = 3) through a seeded MTP head
+   (``n_mtp=1``): the 16 requests in bf16 (launches: per verify step 22
+   paged at 4 rows a slot and 3 flash at S 1, the draft block's;
+   acceptance, each request's first divergence from plain decode); the
+   f32 model's speculative completions equal plain ones in both engines,
+   bucketed and not; an oracle drafter (``_Oracle``, in place of
+   ``model._mtp_draft``) at acceptance 1.0 and, one chain depth wrong,
+   strictly between 0 and 1, with the plain tokens; no nonzero cache row
+   past any slot's frontier after the scrub, some without it; the
+   samplers (Temperature, TopK) equal at seg_len 8 and 3, the stream's
+   bits on the card equal the CPU's, ``_residual_verify``'s marginal
+   (accepting without the uniform must miss);
 5. profile: torch.profiler over one 1024-token prefill (flash's share
    read apart) and one decode segment (the paged kernel's share read
    apart, failing at zero; device launches a layer-step);
@@ -94,9 +108,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    runs, bf16 against int8 pools of equal bytes (live requests,
    preemptions), and profiles an int8 decode segment as phase 5 does;
 5b. serve_ssm: full-width, full-depth Mamba2-1.3B (bf16, random weights
-   from seed 0) behind ``PagedServeEngine``: 16 greedy requests, prompts
-   of 128-1024 tokens, 64 new tokens each.  Checks the completions, the
-   SSD kernel's launches (48 per prefill, all ``tc``), logits on two
+   from seed 0) behind ``PagedServeEngine``: 8 of the 16 greedy requests
+   (every other), prompts of 187-1024 tokens, 64 new tokens each.
+   Checks the completions, the SSD kernel's launches (48 per prefill, all ``tc``), logits on two
    prompts (f32 kernel path against the plain version; bf16 paths
    against the f32 model; prefill + decode against one prefill), and
    profiles one 1024-token prefill (the scan's three launches read
@@ -126,20 +140,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    prefill or decode step, no flash or paged attention), the pools'
    bytes and decode logits (dropped scales breaking the limit); 8
    requests unbucketed and bucketed; the bf16 model's distance to the
-   f32 model (RoPE on the nope half breaking it);
+   f32 model (RoPE on the nope half breaking it); speculative decode (k
+   3, the model's own MTP head) on 8 requests from each latent pool
+   (launches, acceptance, the live assignments a verify chunk drops),
+   and the f32 model's speculative completions at 2 slots (8 rows a
+   verify chunk: nothing can drop) equal plain ones, the oracle drafter's
+   at acceptance 1.0;
 5f. serve_gemma: Gemma-2-9B at full width and depth (42 layers, local
    windows of 4096, both softcaps): the f32 model's kernel path against
    its plain path on a 4,608-token request (its prefill masks in flash,
    its 4 decode steps read paged attention past the window), the same
    weights with ``sliding_window=0`` breaking the limit, each bf16
-   path's distance to the f32 model; the 16 requests and the long one
-   through the paged and the contiguous engine (launches, readings,
-   pool bytes); 8 requests unbucketed and bucketed; f32 completions
+   path's distance to the f32 model; 8 of the 16 requests (every other)
+   and the long one through the paged and the contiguous engine
+   (launches, readings, pool bytes); the 8 unbucketed and bucketed; f32 completions
    bucketed and unbucketed equal on GEMMA_F32_IDENTITY_LAYERS layers.
    Gemma-2-27B at full width on GEMMA27_LAYERS layers: the same check,
    three requests and the long one through both engines.  PaliGemma-3B
-   at full width and depth: 16 requests of 256 stub patch rows and
-   128-1024 text tokens through both engines, unbucketed and bucketed;
+   at full width and depth: 8 requests of 256 stub patch rows and
+   187-1024 text tokens through both engines, unbucketed and bucketed;
    the logit check with zeroed patches as the fault; equal patches and
    text sharing every full prompt block, other patches none;
 5g. serve_encdec: Whisper-small at full width and depth (12 encoder and
@@ -1553,7 +1572,8 @@ LONG_CTX = 4096
 
 def quant_cases(gen):
     """The dequant branch at the serve path's shape (8 slots, ctx
-    64-1088, H 32 over KH 4, D 64, block_len 16, bf16 out; timed), C = 4,
+    64-1088, H 32 over KH 4, D 64, block_len 16, bf16 out; timed), C = 4
+    (int8 timed),
     GQA with window and softcap in f32, and D = 24, whose int8/fp8 rows
     (24 bytes) take 8-byte loads; int8 and fp8 each; int8 timed at 8
     slots x ctx LONG_CTX."""
@@ -1563,7 +1583,9 @@ def quant_cases(gen):
     for kv in ("int8", "fp8"):
         rows += [paged_quant_case(gen, ctx, 1, 32, 4, 64, 16, bf, kv,
                                   timed=True),
-                 paged_quant_case(gen, ctx, 4, 32, 4, 64, 16, bf, kv),
+                 # speculative decode's verify chunk (k 3): 4 rows a slot
+                 paged_quant_case(gen, ctx, 4, 32, 4, 64, 16, bf, kv,
+                                  timed=kv == "int8"),
                  paged_quant_case(gen, [5, 40, 17], 3, 8, 2, 64, 4, f32, kv,
                                   window=12, softcap=30.0),
                  paged_quant_case(gen, [1, 70, 33], 1, 8, 2, 24, 16, bf, kv),
@@ -1628,9 +1650,13 @@ def phase_kernels():
     wide = mla_cases(gen)
     gemma = gemma_cases(gen)
     encdec = encdec_cases(gen)
+    # speculative decode's draft block: one query against one key a slot
+    # (TinyLlama's heads, 8 slots), in bf16 and f32
+    draft = [flash_case(gen, 8, 1, 32, 4, 64, bf, timed=True),
+             flash_case(gen, 8, 1, 32, 4, 64, f32)]
     for row in (flash + paged + pq + hd_flash + hd_paged + hd_quant + kd
                 + ffn + gmm + split + gsa + ssd + hybrid + chunked + wide
-                + gemma + encdec):
+                + gemma + encdec + draft):
         print("kernel " + json.dumps(row))
     return {"flash_attention": flash[0], "paged_attn": paged[0],
             "paged_attn_quant": pq[0], "kd_loss": kd[0], "kd_loss_kd": kd[3],
@@ -1944,8 +1970,30 @@ def phase_serve():
                             prompts[1::2], max_new, n_slots=n_slots,
                             block_len=bl, seg_len=seg_len,
                             max_len=max(lens) + max_new)
+        # speculative decode (k SPEC_K) through a seeded MTP head, and the
+        # samplers
+        params["mtp"] = _mtp_head(M, cfg, 1)
+        cfg_s = cfg.replace(n_mtp=1)
+
+        def make_spec(ps=prompts, **kw):
+            eng = PagedServeEngine(params, cfg_s, n_slots=n_slots,
+                                   block_len=bl, seg_len=seg_len,
+                                   max_len=max(lens) + max_new,
+                                   device="cuda", **kw)
+            for p in ps:
+                eng.submit({"tokens": p}, max_new=max_new)
+            return eng
+
+        _, spec_launches = _spec_bf16_run(
+            "serve", make_spec, prompts, lens, max_new, cfg_s, seg_len,
+            _tokens(comps), n_attn=cfg.n_layers)
+        _spec_f32_identity("serve", M, params, cfg_s, prompts[1::2],
+                           max_new, n_slots=n_slots, bl=bl, seg_len=seg_len,
+                           max_len=max(lens) + max_new)
+        _sampler_checks("serve", params, cfg_s, prompts[:2], bl=bl)
+        del params["mtp"]
     phase_profile(params, cfg, prompts[-1], make_engine, seg_len)
-    return _sum_counts(launches, chunk_launches)
+    return _sum_counts(launches, chunk_launches, spec_launches)
 
 
 def profile(fn, top: int = 8, groups=None, ranges=()):
@@ -1966,24 +2014,41 @@ def profile(fn, top: int = 8, groups=None, ranges=()):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows, range_ms = [], {}
-    for evt in prof.key_averages():
-        if evt.key in ranges:
-            # the host-side range sums its kernels' device time; its
-            # device-side copy spans them, gaps included: not a kernel
-            if evt.device_type != DeviceType.CUDA:
-                us = getattr(evt, "device_time_total", None)
-                range_ms[evt.key] = (evt.cuda_time_total if us is None
-                                     else us) / 1e3
-            continue
-        # device-side events only: a CPU op's self device time repeats
-        # the time of the kernels it launched
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        rows.append((dev_us, evt.key, evt.count))
+    # sums straight from the trace's events: key_averages() builds a
+    # Python object for every op and kernel, tens of seconds for one
+    # decode segment of a deep model
+    by_name, launched_at, kernels = {}, {}, []
+    spans = {r: [] for r in ranges}
+    for evt in prof.profiler.kineto_results.events():
+        name = evt.name()
+        if evt.device_type() == DeviceType.CUDA:
+            # device-side events only count (a CPU op's device time
+            # repeats its kernels'); a range's device-side copy spans its
+            # kernels, gaps included: not a kernel
+            if name in ranges:
+                continue
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + evt.duration_ns() / 1e3, n + 1)
+            kernels.append((evt.correlation_id(), evt.duration_ns()))
+        elif name in ranges:
+            spans[name].append((evt.start_thread_id(), evt.start_ns(),
+                                evt.end_ns()))
+        elif ranges and name.startswith("cu"):
+            # a CUDA API call (cudaLaunchKernel, cuLaunchKernel, ...):
+            # its correlation id is its kernel's
+            launched_at[evt.correlation_id()] = (evt.start_thread_id(),
+                                                 evt.start_ns())
+    range_ms = {}
+    for r, sp in spans.items():
+        # the device time of the kernels launched inside the range, on
+        # the range's own thread
+        ns = [d for c, d in kernels if c in launched_at and any(
+            t == launched_at[c][0] and a <= launched_at[c][1] <= b
+            for t, a, b in sp)]
+        if sp and not ns:
+            fail(f"the profile links no kernel to the range {r}")
+        range_ms[r] = sum(ns) / 1e6
+    rows = [(us, k, n) for k, (us, n) in by_name.items()]
     if not rows:
         fail("the profiler recorded no device events")
     rows.sort(reverse=True)
@@ -2193,6 +2258,381 @@ def _sum_counts(*runs):
 
 def _rms(a, b):
     return (a.float() - b.float()).pow(2).mean().sqrt().item()
+
+
+# ---------------------------------------------------------------------------
+# speculative MTP decode and the samplers, inside phase_serve (TinyLlama with
+# a seeded MTP head) and phase_serve_mla (DeepSeek-V3's own head)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3                 # drafts a step (the launcher's --n-draft)
+# the oracle runs' max_new: 1 + 15 x (k+1), so that every live step can
+# emit k+1 tokens; a greedy run's first 61 tokens are its 64-token run's
+SPEC_ORACLE_NEW = 61
+# DeepSeek-V3's f32 identity at 2 slots: 4 requests, 1 + 8 x (k+1) tokens
+SPEC_MLA_NEW = 33
+SPEC_T = 0.8               # the samplers' temperature
+SPEC_TOPK = 40
+SPEC_SAMPLE_NEW = 16
+# the reference's test of _residual_verify: V 6, N 20,000, atol 0.02
+SPEC_MARGINAL_N = 20000
+SPEC_MARGINAL_ATOL = 0.02
+# TopK at the model's V over this many draws: a uniform that rounds to 1
+# (a 24-bit map's largest) emits a masked token about (V - k) * 2**-24 of
+# draws, 0.0019 at V 32,000, so about 31 expected here
+SPEC_TOPK_ROWS = 16384
+SPEC_LOGITS = (1.2, -0.3, 0.7, 2.0, -1.0, 0.1)
+
+
+class _Oracle:
+    """Replaces ``model._mtp_draft`` while in use (a ``with`` block): the
+    draft called at position p for the request in slot s proposes the
+    token its plain run emitted at position p + 2 (``plain`` {uid:
+    tokens}, ``pos0`` {uid: its first decode position}); with
+    ``wrong_depth`` the drafts of that chain depth are off by one.  Its
+    logits are one-hot; the hidden it passes on is its input."""
+
+    def __init__(self, M, eng, plain, pos0, wrong_depth=None):
+        self.M, self.own, self.eng = M, M._mtp_draft, eng
+        self.wrong, self.calls = wrong_depth, 0
+        n, L = max(plain) + 1, max(map(len, plain.values()))
+        seq = torch.zeros((n + 1, L), dtype=torch.long)
+        first = torch.zeros((n + 1,), dtype=torch.long)
+        for u, t in plain.items():
+            seq[u, :len(t)] = torch.as_tensor(t)
+            first[u] = pos0[u]
+        self.seq, self.pos0, self.free = seq.cuda(), first.cuda(), n
+
+    def __call__(self, params, cfg, h, tok, pos):
+        depth = self.calls % self.eng.speculate
+        self.calls += 1
+        uid = torch.as_tensor(self.eng.slot_uid, device="cuda")
+        uid = torch.where(uid < 0, self.free, uid)
+        i = pos.long() + 2 - self.pos0[uid]
+        L = self.seq.shape[1]
+        t = self.seq[uid, i.clamp(0, L - 1)]
+        t = torch.where((i >= 0) & (i < L), t, 0)
+        if depth == self.wrong:
+            t = (t + 1) % cfg.vocab_size
+        logits = torch.zeros((tok.shape[0], cfg.vocab_size), device="cuda")
+        return logits.scatter_(1, t[:, None], 1.0), h
+
+    def __enter__(self):
+        self.M._mtp_draft = self
+        return self
+
+    def __exit__(self, *exc):
+        self.M._mtp_draft = self.own
+
+
+def _tokens(comps):
+    return {u: c.tokens.tolist() for u, c in comps.items()}
+
+
+def _first_divergence(got, want):
+    """{uid: first position where two runs' completions differ}, for the
+    requests that differ."""
+    return {u: next((i for i, (a, b) in enumerate(zip(t, want[u]))
+                     if a != b), min(len(t), len(want[u])))
+            for u, t in got.items() if t != want[u]}
+
+
+def _spec_stats(eng):
+    st = eng.stats
+    return {"acceptance": eng.spec_acceptance(),
+            "spec_steps": st["spec_steps"],
+            "spec_extra_tokens": st["spec_extra_tokens"]}
+
+
+def _nonzero_past_frontier(M, cfg, eng):
+    """Nonzero elements of a contiguous engine's sequence leaves in the
+    rows past each slot's final position."""
+    from repro_torch.utils.pytree import tree_leaves
+    n = 0
+    for leaf, sax in zip(tree_leaves(eng.cache), tree_leaves(
+            M.decode_cache_seq_axes(cfg, eng.policy))):
+        if sax < 0:
+            continue
+        for s in range(eng.n_slots):
+            n += int(leaf[:, s, int(eng.pos[s]) + 1:].count_nonzero())
+    return n
+
+
+def _mtp_head(M, cfg, seed):
+    """A seeded MTP head for ``cfg``, drawn on the card (from a one-layer
+    model with ``n_mtp=1``)."""
+    return M.init_params(cfg.replace(n_mtp=1, n_layers=1),
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(seed))["mtp"]
+
+
+def _oracle_runs(label, M, make, prompts, want, pos0):
+    """The oracle drafter through ``make(new=...)``'s engine: drafts equal
+    to the plain tokens ``want`` all accepted (acceptance exactly 1.0,
+    every live step k+1 tokens), then one chain depth wrong (acceptance
+    strictly between 0 and 1); the tokens equal ``want`` in both."""
+    new = len(next(iter(want.values())))
+    res = {}
+    for wrong in (None, 1):
+        eng = make(new=new)
+        with _Oracle(M, eng, want, pos0, wrong):
+            got = _tokens(eng.run())
+        r = _spec_stats(eng)
+        res["right" if wrong is None else "wrong_depth_1"] = r
+        steps = len(prompts) * ((new - 1) // (SPEC_K + 1))
+        if got != want:
+            fail(f"{label}: the oracle drafter's tokens differ from plain "
+                 f"decode at {_first_divergence(got, want)}")
+        if wrong is None and not (r["acceptance"] == 1.0
+                                  and r["spec_steps"] == steps):
+            fail(f"{label}: the right oracle's acceptance {r} (expected "
+                 f"1.0 over {steps} live steps)")
+        if wrong is not None and not 0.0 < r["acceptance"] < 1.0:
+            fail(f"{label}: a wrong oracle's acceptance {r['acceptance']}")
+    return res
+
+
+def _spec_f32_identity(label, M, params, cfg, prompts, max_new, *, n_slots,
+                       bl, seg_len, max_len):
+    """The f32 model (these weights cast, the MTP head's too): speculative
+    (k SPEC_K) completions equal the plain greedy ones token for token
+    through both engines, unbucketed and bucketed; the oracle drafter
+    (``_oracle_runs``) through the paged engine; after a wrong-oracle run
+    of the contiguous engine no nonzero row past any slot's frontier, and
+    with the scrub skipped, some (or other tokens)."""
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    from repro_torch.utils.pytree import tree_map
+    t0 = time.perf_counter()
+    p32 = tree_map(lambda t: t.float(), params)
+    c32 = cfg.replace(dtype="float32")
+
+    def make(cls, ps=prompts, new=max_new, **kw):
+        extra = {"block_len": bl} if cls is PagedServeEngine else {}
+        eng = cls(p32, c32, n_slots=n_slots, seg_len=seg_len,
+                  max_len=max_len, device="cuda", **extra, **kw)
+        for p in ps:
+            eng.submit({"tokens": p}, max_new=new)
+        return eng
+
+    res, plain = {}, {}
+    for cls in (PagedServeEngine, ServeEngine):
+        plain[cls] = _tokens(make(cls).run())
+        for bkw in ({}, {"chunk_len": CHUNK_LEN}):
+            eng = make(cls, speculate=SPEC_K, **bkw)
+            got = _tokens(eng.run())
+            tag = cls.__name__ + (" bucketed" if bkw else "")
+            diff = _first_divergence(got, plain[cls])
+            res[tag] = {**_spec_stats(eng), "requests_differing": len(diff),
+                        "ms_per_decode_step": 1e3 * eng.stats["decode_s"]
+                        / (eng.stats["segments"] * seg_len)}
+            if diff or not eng.stats["spec_steps"]:
+                fail(f"{label}: f32 speculative completions ({tag}) differ "
+                     f"from plain ones at (request, position) {diff}")
+            del eng
+    pos0 = {u: M.decode_pos0(c32, p.shape[1]) for u, p in enumerate(prompts)}
+    want = {cls: {u: t[:SPEC_ORACLE_NEW] for u, t in plain[cls].items()}
+            for cls in plain}
+    res["oracle"] = _oracle_runs(
+        label, M, lambda new: make(PagedServeEngine, new=new,
+                                   speculate=SPEC_K),
+        prompts, want[PagedServeEngine], pos0)
+    scrub = {}
+    for on in (True, False):
+        own = M._spec_zero_rejected
+        if not on:
+            M._spec_zero_rejected = lambda *a, **kw: None
+        try:
+            eng = make(ServeEngine, new=SPEC_ORACLE_NEW, speculate=SPEC_K)
+            with _Oracle(M, eng, want[ServeEngine], pos0, 1):
+                got = _tokens(eng.run())
+        finally:
+            M._spec_zero_rejected = own
+        scrub["scrubbed" if on else "not_scrubbed"] = {
+            "nonzero_past_frontier": _nonzero_past_frontier(M, c32, eng),
+            "tokens_equal": got == want[ServeEngine]}
+        del eng
+    res["scrub"] = scrub
+    res["wall_s"] = time.perf_counter() - t0
+    del p32
+    torch.cuda.empty_cache()
+    print(f"{label} f32 speculative vs plain ({CARD}) " + json.dumps(res))
+    ok, bad = scrub["scrubbed"], scrub["not_scrubbed"]
+    if ok["nonzero_past_frontier"] or not ok["tokens_equal"]:
+        fail(f"{label}: after the scrub {ok}")
+    if not (bad["nonzero_past_frontier"] or not bad["tokens_equal"]):
+        fail(f"{label}: skipping the scrub leaves the tokens and the rows "
+             f"past the frontier as they were: the check cannot see it")
+    return res
+
+
+def _spec_bf16_run(label, make_engine, prompts, lens, max_new, cfg, seg_len,
+                   plain, *, n_attn):
+    """The traffic speculatively (k SPEC_K) from counts at 0: the
+    completions, the launches (per decode step n_attn paged launches of
+    k+1 rows and k flash launches at S 1, the draft block's; per prefill
+    n_attn flash), the readings, acceptance and each request's first
+    divergence from ``plain`` ({uid: tokens})."""
+    eng, comps, wall, launches, peak = _engine_run(
+        lambda: make_engine(prompts, speculate=SPEC_K))
+    _check_served(f"{label} speculative", eng, comps, lens, max_new,
+                  cfg.vocab_size)
+    steps = eng.stats["segments"] * seg_len
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": n_attn * eng.stats["prefills"]
+            + SPEC_K * steps,
+            "paged_attn": n_attn * steps, "paged_attn_chunk": n_attn * steps}
+    if launches != want or not eng.stats["spec_steps"]:
+        fail(f"{label} speculative: launches {launches} != expected {want}")
+    diff = _first_divergence(_tokens(comps), plain)
+    res = {"k": SPEC_K, **_serve_readings(eng, comps, wall, peak, seg_len),
+           **_spec_stats(eng), "first_divergence": diff,
+           "requests_equal": len(comps) - len(diff), "launches": launches}
+    print(f"{label} speculative bf16 ({CARD}) " + json.dumps(res))
+    return res, launches
+
+
+def _sampler_checks(label, params, cfg, prompts, *, bl):
+    """The samplers on the card: Temperature(SPEC_T) and TopK(SPEC_TOPK,
+    SPEC_T) through the paged engine (2 slots, the requests given), the
+    same tokens at seg_len 8 and 3 (speculative verification's marginal
+    is held below); the stream's draws on the card equal the CPU's bit
+    for bit; TopK at the model's V over SPEC_TOPK_ROWS draws emits no
+    token outside the top k, where a 24-bit uniform map must;
+    ``_residual_verify``'s empirical marginal (V 6, N SPEC_MARGINAL_N)
+    within SPEC_MARGINAL_ATOL of the target, acceptance p(draft), no
+    rejection emitting the draft, where accepting without the uniform
+    must miss."""
+    from repro_torch.serve import PagedServeEngine, Temperature, TopK
+    from repro_torch.serve import sampling as S
+    from repro_torch.utils import rng as R
+    t0 = time.perf_counter()
+    max_len = max(p.shape[1] for p in prompts) + SPEC_SAMPLE_NEW
+    runs = {}
+    for sampler in (Temperature(SPEC_T), TopK(SPEC_TOPK, SPEC_T)):
+        outs = []
+        for seg in (8, 3):
+            eng = PagedServeEngine(params, cfg, n_slots=2, block_len=bl,
+                                   seg_len=seg, max_len=max_len,
+                                   sampler=sampler, device="cuda", seed=5)
+            for p in prompts:
+                eng.submit({"tokens": p}, max_new=SPEC_SAMPLE_NEW)
+            outs.append(_tokens(eng.run()))
+        tag = type(sampler).__name__
+        runs[tag] = {"equal_at_seg_len_8_and_3": outs[0] == outs[1],
+                     "tokens": sum(map(len, outs[0].values()))}
+        if outs[0] != outs[1]:
+            fail(f"{label} {tag}: tokens differ between seg_len 8 and 3 "
+                 f"at {_first_divergence(outs[1], outs[0])}")
+    V = cfg.vocab_size
+    keys = [R.stream_key(0, u) for u in range(8)]
+    streams = [R.Stream.of(keys, list(range(8)), d).advance(5).at(2)
+               for d in ("cuda", "cpu")]
+    bits = [st.bits(site, V).cpu() for st in streams for site in (0, 1)]
+    logits = torch.randn((8, V), generator=torch.Generator().manual_seed(0))
+    toks = [smp(st, logits.to(st.key.device)).cpu()
+            for st in streams for smp in (Temperature(SPEC_T),
+                                          TopK(SPEC_TOPK, SPEC_T))]
+    draws = {"bits_equal": torch.equal(bits[0], bits[2])
+             and torch.equal(bits[1], bits[3]),
+             "sampled_equal": torch.equal(toks[0], toks[2])
+             and torch.equal(toks[1], toks[3])}
+    if not draws["bits_equal"]:
+        fail(f"{label}: the stream's draws on the card differ from the CPU's")
+
+    def outside_topk():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        n, rows = 0, 4096
+        for c in range(SPEC_TOPK_ROWS // rows):
+            lg = torch.randn((rows, V), device="cuda", generator=g)
+            st = R.Stream.of([R.stream_key(9, c * rows + i)
+                              for i in range(rows)], [0] * rows, "cuda")
+            tok = TopK(SPEC_TOPK, SPEC_T)(st, lg).long()
+            kth = torch.topk(lg, SPEC_TOPK, -1).values[:, -1]
+            n += int((lg.gather(1, tok[:, None])[:, 0] < kth).sum())
+        return n
+
+    own = R.bits_to_uniform
+    R.bits_to_uniform = lambda b: ((b >> 8).float() + 0.5) * 2.0 ** -24
+    try:
+        fault = outside_topk()
+    finally:
+        R.bits_to_uniform = own
+    draws["topk_outside"] = {"draws": SPEC_TOPK_ROWS, "V": V,
+                             "emitted": outside_topk(),
+                             "24-bit map": fault}
+    if draws["topk_outside"]["emitted"]:
+        fail(f"{label}: TopK emitted tokens outside its top k "
+             f"{draws['topk_outside']}")
+    if not fault:
+        fail(f"{label}: a 24-bit uniform map emits no token outside the "
+             f"top k: the check cannot see a uniform of 1")
+    N = SPEC_MARGINAL_N
+    lg = torch.tensor(SPEC_LOGITS, device="cuda").expand(N, -1).contiguous()
+    target = torch.softmax(torch.tensor(SPEC_LOGITS, dtype=torch.float64)
+                           / SPEC_T, -1)
+    st = R.Stream.of([R.stream_key(3, i) for i in range(N)], [0] * N, "cuda")
+
+    def marginal(d, fault):
+        draft = torch.full((N,), d, dtype=torch.int32, device="cuda")
+        u_acc = (torch.zeros(N, device="cuda") if fault
+                 else st.uniform(0, 1)[:, 0])
+        tok, acc = S._residual_verify(u_acc, st.uniform(1, lg.shape[1]), lg,
+                                      draft, SPEC_T)
+        emp = torch.bincount(tok.long(), minlength=lg.shape[1]).double() / N
+        return {"max_marginal_err": (emp.cpu() - target).abs().max().item(),
+                "acceptance_err": abs(acc.double().mean().item()
+                                      - target[d].item()),
+                "rejection_emits_draft": bool((tok[~acc] == d).any())}
+
+    def holds(r):
+        return (r["max_marginal_err"] <= SPEC_MARGINAL_ATOL
+                and r["acceptance_err"] <= SPEC_MARGINAL_ATOL
+                and not r["rejection_emits_draft"])
+
+    verify = {f"draft {d}": marginal(d, False) for d in (3, 4)}
+    verify["accept without the uniform"] = marginal(3, True)
+    res = {"engines": runs, "stream": draws, "residual_verify": verify,
+           "wall_s": time.perf_counter() - t0}
+    print(f"{label} samplers ({CARD}) " + json.dumps(res))
+    if not (holds(verify["draft 3"]) and holds(verify["draft 4"])):
+        fail(f"{label}: _residual_verify's marginal on the card {verify}")
+    if holds(verify["accept without the uniform"]):
+        fail(f"{label}: accepting without the uniform holds the marginal "
+             f"check: it cannot see the acceptance draw")
+    return res
+
+
+def _mla_spec_f32(M, p32, c32, prompts):
+    """DeepSeek-V3's f32 model at 2 slots (a verify chunk's 8 rows fit
+    every expert's capacity of 8, so nothing drops): speculative (k
+    SPEC_K) completions of 4 requests equal plain greedy ones, and the
+    oracle drafter's too, at acceptance 1.0."""
+    from repro_torch.serve import PagedServeEngine
+    t0 = time.perf_counter()
+    ps = prompts[:4]
+    max_len = max(p.shape[1] for p in ps) + SPEC_MLA_NEW
+
+    def make(new=SPEC_MLA_NEW, **kw):
+        eng = PagedServeEngine(p32, c32, n_slots=2, block_len=16, seg_len=8,
+                               max_len=max_len, device="cuda", **kw)
+        for p in ps:
+            eng.submit({"tokens": p}, max_new=new)
+        return eng
+
+    plain = _tokens(make().run())
+    eng = make(speculate=SPEC_K)
+    got = _tokens(eng.run())
+    res = {"slots": 2, "requests": len(ps), **_spec_stats(eng),
+           "first_divergence": _first_divergence(got, plain)}
+    if got != plain:
+        fail(f"serve_mla: f32 speculative completions differ from plain "
+             f"ones at {res['first_divergence']}")
+    pos0 = {u: M.decode_pos0(c32, p.shape[1]) for u, p in enumerate(ps)}
+    res["oracle"] = _oracle_runs(
+        "serve_mla f32", M, lambda new: make(new, speculate=SPEC_K), ps,
+        plain, pos0)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2621,8 +3061,9 @@ def _ssd_on_tensor_cores(by_instance, n, phase="serve_ssm"):
 
 def phase_serve_ssm():
     """Full-width, full-depth Mamba2-1.3B (bf16, random weights from seed
-    0) behind ``PagedServeEngine`` with 8 slots: 16 greedy requests of
-    128-1024 prompt tokens, 64 new tokens each, after a warm-up run.
+    0) behind ``PagedServeEngine`` with 8 slots: 8 of the 16 greedy
+    requests of 128-1024 prompt tokens (every other, for the script's
+    time limit), 64 new tokens each, after a warm-up run.
     Checks the completions, the SSD kernel's launches on that run (48 per
     prefill, every one in the tc instance), the logit checks (i)-(iii) on
     two prompts, and profiles one 1024-token prefill and one decode
@@ -2657,11 +3098,13 @@ def phase_serve_ssm():
         for res in checks:
             check_ssm_logits(res)
         torch.cuda.empty_cache()
+        # the main path on 8 of the 16 requests, every other
+        max_len = max(lens) + max_new
+        prompts, lens = prompts[1::2], lens[1::2]
 
         def make_engine(ps=prompts):
             eng = PagedServeEngine(params, cfg, n_slots=n_slots,
-                                   seg_len=seg_len,
-                                   max_len=max(lens) + max_new,
+                                   seg_len=seg_len, max_len=max_len,
                                    device="cuda")
             for p in ps:
                 eng.submit({"tokens": p}, max_new=max_new)
@@ -2719,7 +3162,7 @@ def phase_serve_ssm():
     # run's paged engine holds no pool for this family: the same layout)
     def make_contiguous(ps, **kw):
         e = ServeEngine(params, cfg, n_slots=n_slots, seg_len=seg_len,
-                        max_len=max(lens) + max_new, device="cuda", **kw)
+                        max_len=max_len, device="cuda", **kw)
         for p in ps:
             e.submit({"tokens": p}, max_new=max_new)
         return e
@@ -2732,10 +3175,9 @@ def phase_serve_ssm():
             max_new, cfg, seg_len, unbucketed, n_attn=0, n_ssm=cfg.n_layers)
         _ssd_on_tensor_cores(dict(ssd_ops.LAUNCHES_BY_INSTANCE),
                              chunk_launches["ssd_scan"], "serve_ssm bucketed")
-        # on 8 of the 16 requests, every other: the script's time limit
         _f32_token_identity("serve_ssm", params, cfg, ServeEngine,
-                            prompts[1::2], max_new, n_slots=n_slots,
-                            seg_len=seg_len, max_len=max(lens) + max_new)
+                            prompts, max_new, n_slots=n_slots,
+                            seg_len=seg_len, max_len=max_len)
 
     toks = torch.as_tensor(prompts[-1], device="cuda")
     groups = {"ssd_scan": ("ssd_chunk", "ssd_state"),
@@ -2776,16 +3218,18 @@ def _launched(fn):
 
 class _RouteTap:
     """Wraps ``moe.route`` while in use (a ``with`` block): ``record``
-    collects each call's (x, w, idx), or idx alone with ``ids_only``;
+    collects each call's (x, w, idx), or idx alone with ``ids_only``, or
+    (idx, live) with ``with_live``;
     ``replay`` (a list of another run's idx, in call order: forward,
     then remat's recompute) makes the run take those expert choices,
     with weights and load-balance loss from its own router
     probabilities at them, and counts in ``replaced`` the tokens whose
     choice it changed."""
 
-    def __init__(self, moe, *, ids_only=False, replay=None):
+    def __init__(self, moe, *, ids_only=False, replay=None, with_live=False):
         self.moe, self.own = moe, moe.route
         self.ids_only, self.replay = ids_only, replay
+        self.with_live = with_live
         self.record, self.replaced = [], []
 
     def __call__(self, p, c, x, live=None):
@@ -2800,7 +3244,8 @@ class _RouteTap:
             if live is not None:
                 w = torch.where(live[:, None], w, torch.zeros_like(w))
             idx, aux = want, self.moe.load_balance_loss(c, probs, want)
-        self.record.append(idx if self.ids_only else (x, w, idx))
+        self.record.append((idx, live) if self.with_live else
+                           idx if self.ids_only else (x, w, idx))
         return w, idx, aux
 
     def __enter__(self):
@@ -3099,13 +3544,14 @@ MOE_BF16_RATIO = 1.5
 
 
 def _moe_f32_distance(M, cfg, toks, logits_bf16, extra=None,
-                      ratio_limit=MOE_BF16_RATIO):
+                      ratio_limit=MOE_BF16_RATIO, also=None):
     """The f32 model, the same seed's draws unrounded (the bf16 weights
     are their rounding; it does not fit beside them), through each path
     on the longest prompt: each bf16 path's RMS distance to it, and that
     of each of ``extra`` ({name: bf16 one-shot prefill logits}); the
     bucketed path's distance at most ``ratio_limit`` times the
-    unbucketed one's (None: reported)."""
+    unbucketed one's (None: reported).  ``also(p32, c32)``, run on the
+    f32 model before it is freed, gives ``res["also"]``."""
     c32 = cfg.replace(dtype="float32")
     p32 = M.init_params(
         c32, generator=torch.Generator(device="cuda").manual_seed(0))
@@ -3113,6 +3559,7 @@ def _moe_f32_distance(M, cfg, toks, logits_bf16, extra=None,
         t = torch.as_tensor(toks, device="cuda")
         l32 = (_chunked_prefill_logits(M, p32, c32, t, CHUNK_LEN),
                M.prefill(p32, c32, {"tokens": t})[0])
+        more = also(p32, c32) if also is not None else None
     del p32
     torch.cuda.empty_cache()
     lb, lu = logits_bf16
@@ -3124,6 +3571,8 @@ def _moe_f32_distance(M, cfg, toks, logits_bf16, extra=None,
               for k, v in (extra or {}).items()}}
     res["ratio"] = (res["bf16_bucketed_to_f32_rms"]
                     / res["bf16_unbucketed_to_f32_rms"])
+    if more is not None:
+        res["also"] = more
     print(f"serve_moe {cfg.name} bf16 paths to the f32 model ({CARD}) "
           + json.dumps(res))
     if not torch.isfinite(l32[0]).all() or (
@@ -3783,6 +4232,52 @@ def _mla_pool_logits(M, params, cfg, prompt):
     return res
 
 
+def _mla_spec_runs(M, moe, md_ops, cfg, make_engine, prompts, lens, max_new,
+                   seg_len, n_slots, n_moe, plain_tok):
+    """DeepSeek-V3 speculatively (k SPEC_K, its own MTP head) from the
+    bf16, int8 and fp8 latent pools on 8 of the requests: completions,
+    launches (kernels 4 and 6 once a MoE layer a prefill or verify step;
+    the draft block is dense, its attention MLA's plain ``mla_full``),
+    readings, acceptance, each request's first divergence from the plain
+    run of its pool, and the assignments of live rows each verify chunk
+    (n_slots x (k+1) rows) drops."""
+    picks = list(range(0, len(prompts), 2))
+    ps, ls = [prompts[i] for i in picks], [lens[i] for i in picks]
+    rows = n_slots * (SPEC_K + 1)
+    out, paths = {}, []
+    for kv in ("", "int8", "fp8"):
+        tag = kv or "bf16"
+        with _RouteTap(moe, with_live=True) as tap:
+            eng, comps, wall, launches, peak = _engine_run(
+                lambda: make_engine(ps, kv_dtype=kv, speculate=SPEC_K))
+        _gsa_all_vec(md_ops, f"serve_mla speculative {tag}")
+        _check_served(f"serve_mla speculative {tag}", eng, comps, ls,
+                      max_new, cfg.vocab_size)
+        steps = eng.stats["segments"] * seg_len
+        calls = eng.stats["prefills"] + steps
+        want = {**dict.fromkeys(launches, 0), "grouped_ffn": n_moe * calls,
+                "gather_scatter_add": 2 * n_moe * calls}
+        if launches != want or len(tap.record) != n_moe * calls:
+            fail(f"serve_mla speculative {tag}: launches {launches} != "
+                 f"expected {want}, {len(tap.record)} routing calls")
+        drops = [_dropped_live(i, live, cfg.n_experts)
+                 for i, live in tap.record if i.shape[0] == rows]
+        plain = {u: plain_tok[tag][i] for u, i in enumerate(picks)}
+        diff = _first_divergence(_tokens(comps), plain)
+        out[tag] = {**_serve_readings(eng, comps, wall, peak, seg_len),
+                    **_spec_stats(eng), "first_divergence": diff,
+                    "verify_chunks": len(drops),
+                    "dropped_live_per_verify_chunk":
+                        sum(d for d, _ in drops) / max(len(drops), 1),
+                    "live_assignments_per_verify_chunk":
+                        sum(n for _, n in drops) / max(len(drops), 1),
+                    "launches": launches}
+        paths.append(launches)
+        del eng, comps, tap
+    print(f"serve_mla speculative ({CARD}) " + json.dumps(out))
+    return out, paths
+
+
 def phase_serve_mla():
     """DeepSeek-V3 at full width, MLA_LAYERS deep (the 3 leading dense
     layers and 1 MoE layer of 256 experts, top-8; bf16, random weights
@@ -3878,7 +4373,7 @@ def phase_serve_mla():
 
         # the main path: the 16 requests from a bf16, an int8 and an fp8
         # latent pool, counts from 0 for each
-        runs, paths = {}, []
+        runs, paths, plain_tok = {}, [], {}
         for kv in ("", "int8", "fp8"):
             tag = kv or "bf16"
             with _RouteTap(moe, ids_only=True) as tap:
@@ -3913,8 +4408,13 @@ def phase_serve_mla():
                     if i.shape[0] == n_slots) / steps,
                 launches=launches)
             runs[tag] = r
+            plain_tok[tag] = _tokens(comps)
             paths.append(launches)
             del eng, comps, tap
+        spec, spec_paths = _mla_spec_runs(M, moe, md_ops, cfg, make_engine,
+                                          prompts, lens, max_new, seg_len,
+                                          n_slots, n_moe, plain_tok)
+        paths += spec_paths
         per_tok = {tag: (M.cache_nbytes(cfg, 1, 2, quant.CachePolicy(kv))
                          - M.cache_nbytes(cfg, 1, 1, quant.CachePolicy(kv)))
                    // cfg.n_layers
@@ -3922,7 +4422,7 @@ def phase_serve_mla():
                                    ("fp8", "fp8"))}
         if per_tok != {"bf16": 1152, "int8": 584, "fp8": 584}:
             fail(f"serve_mla: latent bytes a token and layer {per_tok}")
-        res = {**head, "runs": runs,
+        res = {**head, "runs": runs, "speculative": spec,
                "latent_bytes_per_token_layer": per_tok,
                "gqa_shaped_bytes_per_token_layer":
                    2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2,
@@ -3949,7 +4449,9 @@ def phase_serve_mla():
     torch.cuda.empty_cache()
     dist = _moe_f32_distance(M, cfg, prompts[-1], logits,
                              extra={"bf16_rope_on_nope_half": fault},
-                             ratio_limit=None)
+                             ratio_limit=None,
+                             also=lambda p32, c32: _mla_spec_f32(
+                                 M, p32, c32, prompts))
     print(f"serve_mla bf16 to f32 ({CARD}) " + json.dumps(
         {"pool_logits": pool_logits, **dist}))
     for path, tol in MLA_BF16_RMS_TOL.items():
@@ -4201,15 +4703,15 @@ def _serve_gemma2(arch, n_layers, picks):
 
 
 def _serve_gemma9():
-    """Gemma-2-9B at full width and depth: the 16 requests and the long
-    one through both engines, then 8 of the 16 unbucketed and bucketed,
-    then the f32 token identity on GEMMA_F32_IDENTITY_LAYERS layers."""
+    """Gemma-2-9B at full width and depth: 8 of the 16 requests (every
+    other, for the script's time limit) and the long one through
+    both engines, then the 8 unbucketed and bucketed, then the f32 token
+    identity on GEMMA_F32_IDENTITY_LAYERS layers."""
     from repro_torch.models import model as M
     from repro_torch.serve import PagedServeEngine
     res, launches, params, cfg, (lens, batches) = _serve_gemma2(
-        "gemma2-9b", 42, list(range(16)))
-    pick = list(range(1, 16, 2))
-    ps, ls = [batches[i] for i in pick], [lens[i] for i in pick]
+        "gemma2-9b", 42, list(range(1, 16, 2)))
+    ps, ls = batches[:-1], lens[:-1]     # all but the long request
     max_new = 64
     make = _gemma_make(PagedServeEngine, params, cfg, ps, max_new,
                        max(ls) + max_new)
@@ -4260,8 +4762,9 @@ def _vlm_prefix_blocks(M, params, cfg, batch, other):
 
 
 def _serve_paligemma():
-    """PaliGemma-3B at full width and depth: 16 requests of 256 stub patch
-    rows and 128-1024 text tokens through both engines, unbucketed and
+    """PaliGemma-3B at full width and depth: 8 requests of 256 stub patch
+    rows and 187-1024 text tokens (every other of the 16, for the
+    script's time limit) through both engines, unbucketed and
     bucketed; the logit check on the longest with the patches zeroed as
     the fault; the prefix blocks keyed by the patches."""
     from repro_torch.configs import get_config
@@ -4277,6 +4780,7 @@ def _serve_paligemma():
     rng = np.random.default_rng(2)
     lens = [int(p) for p in np.linspace(128, 1024, 16)]
     batches = [prompt_batch(cfg, rng, P) for P in lens]
+    lens, batches = lens[1::2], batches[1::2]
     max_new = 64
     max_len = M.decode_capacity(cfg, max(lens), max_new)
     runs, toks, counts = {}, {}, []

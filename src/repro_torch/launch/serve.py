@@ -2,8 +2,9 @@
 
 Thin client of ``repro_torch.serve`` with the CLI of ``repro.launch.serve``.
 Only the ported architectures (``repro_torch.configs``) and engine
-features run; the reference's other flags are accepted and refused with
-``NotImplementedError``.  Weights are random, drawn from ``--seed``.
+features run; the reference's sharded-serving flags are accepted and
+refused with ``NotImplementedError``.  Weights are random, drawn from
+``--seed``, which also keys the requests' random streams.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --variant full --paged
@@ -44,6 +45,20 @@ families.
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v3-671b --device cpu --paged --kv-dtype int8 \
       --bucket --chunk-len 4 --check-unbucketed
+
+Sampling: ``--temperature t`` samples from softmax(logits / t),
+``--top-k k`` from the k most likely tokens (at ``--temperature``, 1.0 by
+default); greedy otherwise.  Speculative decode: ``--speculate`` drafts
+``--n-draft`` tokens a step with the model's MTP head (DeepSeek-V3 has
+one; the other families' configs none) and verifies them in one chunk;
+``--check-unspeculated`` replays the traffic without it and fails unless
+the completions match (greedy: token for token).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --device cpu --paged --speculate \
+      --n-draft 3 --check-unspeculated
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --device cpu --paged --mixed --top-k 40 --temperature 0.8
 """
 from __future__ import annotations
 
@@ -56,20 +71,25 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models.layers import paged_read_path
-from repro_torch.serve import Greedy, PagedServeEngine, ServeEngine
+from repro_torch.serve import (Greedy, PagedServeEngine, ServeEngine,
+                               Temperature, TopK)
 from repro_torch.utils.device import resolve_device
 
 # reference flags with no port yet: (flag, argparse kwargs)
 _NOT_PORTED = [
-    ("--temperature", {"type": float, "default": 0.0}),
-    ("--top-k", {"type": int, "default": 0}),
     ("--sharded", {"action": "store_true"}),
     ("--overlap-a2a", {"action": "store_true"}),
     ("--check-unsharded", {"action": "store_true"}),
-    ("--speculate", {"action": "store_true"}),
-    ("--n-draft", {"type": int, "default": 0}),
-    ("--check-unspeculated", {"action": "store_true"}),
 ]
+
+
+def pick_sampler(args):
+    """The reference's choice: top-k, else temperature, else greedy."""
+    if args.top_k:
+        return TopK(args.top_k, args.temperature or 1.0)
+    if args.temperature:
+        return Temperature(args.temperature)
+    return Greedy()
 
 
 def mixed_lengths(n: int, prompt_len: int, gen: int):
@@ -133,6 +153,18 @@ def parse_args(argv=None):
     ap.add_argument("--check-unbucketed", action="store_true",
                     help="replay the same traffic through the unbucketed "
                          "engine and fail unless completions match")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample from softmax(logits / t) (0: greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the k most likely tokens")
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-speculative MTP decode: draft and verify "
+                         "--n-draft tokens a step (needs an MTP head)")
+    ap.add_argument("--n-draft", type=int, default=3,
+                    help="speculative decode: drafts a step")
+    ap.add_argument("--check-unspeculated", action="store_true",
+                    help="replay the same traffic without speculation and "
+                         "fail unless completions match")
     for flag, kw in _NOT_PORTED:
         ap.add_argument(flag, help="not ported yet", **kw)
     args = ap.parse_args(argv)
@@ -142,6 +174,8 @@ def parse_args(argv=None):
         ap.error("--buckets requires --bucket")
     if args.check_unbucketed and not args.bucket:
         ap.error("--check-unbucketed requires --bucket")
+    if args.check_unspeculated and not args.speculate:
+        ap.error("--check-unspeculated requires --speculate")
     for flag, kw in _NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")) != kw.get("default",
                                                               False):
@@ -163,16 +197,19 @@ def main(argv=None):
     max_len = max(M.decode_capacity(cfg, p, g) for p, g in lengths)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(cfg, generator=gen)
-    kw = dict(n_slots=args.slots, max_len=max_len, sampler=Greedy(),
-              seg_len=args.seg_len, device=device)
+    kw = dict(n_slots=args.slots, max_len=max_len,
+              sampler=pick_sampler(args), seg_len=args.seg_len,
+              device=device, seed=args.seed)
     bucket_kw = {}
     if args.bucket:
         bucket_kw["chunk_len"] = args.chunk_len
         if args.buckets:
             bucket_kw["buckets"] = [int(b) for b in args.buckets.split(",")]
 
-    def make_engine(kv_dtype, bucketed=True):
-        bkw = bucket_kw if bucketed else {}
+    def make_engine(kv_dtype, bucketed=True, speculate=args.speculate):
+        bkw = dict(bucket_kw if bucketed else {})
+        if speculate:
+            bkw["speculate"] = args.n_draft
         if args.paged:
             eng = PagedServeEngine(params, cfg, block_len=args.block_len,
                                    n_blocks=args.blocks or None,
@@ -228,6 +265,11 @@ def main(argv=None):
         print(f"kv-dtype: {args.kv_dtype} cache_bytes={cache_bytes}")
     first = comps[min(comps)]
     print("sample:", first.tokens[:16])
+    if args.speculate:
+        print(f"speculative: n_draft={args.n_draft} "
+              f"acceptance={engine.spec_acceptance():.1%} "
+              f"({st['spec_extra_tokens']} extra tokens over "
+              f"{st['spec_steps']} live steps)")
     if args.check_unquantized:
         want = {u: c.tokens.tolist() for u, c in make_engine("").run().items()}
         got = {u: c.tokens.tolist() for u, c in comps.items()}
@@ -247,6 +289,15 @@ def main(argv=None):
         print(f"check-unbucketed: completions match (admit_s "
               f"{st['admit_s']:.3f} bucketed, {ref.stats['admit_s']:.3f} "
               f"unbucketed)")
+    if args.check_unspeculated:
+        # the same layout, admission and KV policy, no drafts
+        ref = make_engine(args.kv_dtype, speculate=False)
+        want = {u: c.tokens.tolist() for u, c in ref.run().items()}
+        got = {u: c.tokens.tolist() for u, c in comps.items()}
+        if got != want:
+            raise SystemExit(f"speculative completions diverged from "
+                             f"unspeculated: {got} != {want}")
+        print("check-unspeculated: completions match")
     return comps
 
 

@@ -25,11 +25,13 @@ DeepSeek-V3's multi-head latent attention (``attn_type="mla"``) takes
 the attention's place in every sub-layer (``layers.mla_full`` /
 ``layers.mla_decode``); its cache entry is the latent ``{"ckv", "kr"}``
 (B, S, kv_lora_rank) and (B, S, rope_head_dim) in place of ``{"k",
-"v"}``.  The multi-token prediction head (``n_mtp``, dense and MoE
-families) is ``params["mtp"]``: ``proj`` (2D, D), one dense sub-layer
-``block`` and ``norm``; ``loss_fn`` adds ``mtp_loss_weight`` times its
-loss (``_mtp_loss``, predicting token t+2), and ``mtp_chain_loss``
-chains it to any depth.
+"v"}``.  The multi-token prediction head (``n_mtp``, dense, MoE and
+VLM families) is ``params["mtp"]``: ``proj`` (2D, D), one dense
+sub-layer ``block`` and ``norm``; ``loss_fn`` adds ``mtp_loss_weight``
+times its loss (``_mtp_loss``, predicting token t+2),
+``mtp_chain_loss`` chains it to any depth, and ``generate(speculate=k)``
+drafts with it (``_generate_spec``: k drafts, one k+1-row verify chunk,
+the rejected drafts' cache rows scrubbed).
 
 The VLM family (``arch_type="vlm"``) is the dense family behind a stub
 vision frontend: ``batch["patches"]`` (B, frontend_tokens, D),
@@ -100,6 +102,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import layers, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils.rng import Stream
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -132,16 +135,18 @@ def _n_groups(cfg: ModelConfig) -> int:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type in ("dense", "moe"):
         ok = cfg.attn_type in ("gqa", "mla")
-    elif cfg.arch_type in ("hybrid", "vlm", "encdec"):
+    elif cfg.arch_type == "vlm":
+        ok = cfg.attn_type == "gqa"
+    elif cfg.arch_type in ("hybrid", "encdec"):
         ok = cfg.attn_type == "gqa" and not cfg.n_mtp
     else:
         ok = cfg.arch_type == "ssm"
     if not ok:
         raise NotImplementedError(
             f"{cfg.name} is not ported yet: only the dense and MoE families "
-            "(GQA or MLA, with or without MTP), the hybrid, VLM and "
-            "encoder-decoder GQA families without MTP and the ssm family "
-            "are")
+            "(GQA or MLA), the VLM family (GQA), each with or without MTP, "
+            "the hybrid and encoder-decoder GQA families without MTP and "
+            "the ssm family are")
 
 
 def frontend_key(cfg: ModelConfig):
@@ -809,11 +814,17 @@ def mtp_chain_loss(params, cfg: ModelConfig, batch, *, depth: int):
 # serving: prefill + decode cache
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, batch):
+def prefill(params, cfg: ModelConfig, batch, *, return_hidden=False):
     """Runs the full prompt, returns (last_token_logits (B, V) f32,
-    cache) with the cache entries of every position."""
+    cache) with the cache entries of every position.  ``return_hidden``
+    packs the last position's final-normed hidden (B, D) beside the
+    logits, ``((logits, h_last), cache)``, so a speculative engine can
+    seed its first draft chain with it."""
     h, _, caches, _ = backbone(params, cfg, batch, collect_cache=True)
-    return _head(params, cfg, h[:, -1:])[:, 0], caches
+    logits = _head(params, cfg, h[:, -1:])[:, 0]
+    if return_hidden:
+        return (logits, h[:, -1]), caches
+    return logits, caches
 
 
 def _attn_cache_struct(cfg: ModelConfig, lead, B: int, S: int, *, device,
@@ -1365,14 +1376,177 @@ def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
     return _head(params, cfg, h_last[:, None])[:, 0], cache
 
 
-def greedy_sample(logits):
-    """Default sampler: per-slot argmax (first index on ties)."""
+def greedy_sample(stream, logits):
+    """Default sampler: per-slot argmax (first index on ties); the
+    stream is not read."""
     return torch.argmax(logits, -1).to(torch.int32)
 
 
+def greedy_verify(stream, logits, draft):
+    """Verify twin of ``greedy_sample``: emit the argmax of the target
+    logits at a drafted position; the draft is accepted iff it matches,
+    so the emitted stream is exactly the greedy stream."""
+    tgt = torch.argmax(logits, -1).to(torch.int32)
+    return tgt, tgt == draft
+
+
+greedy_sample.verify = greedy_verify
+
+
+def _verify_for(sampler):
+    v = getattr(sampler, "verify", None)
+    if v is None:
+        raise ValueError(
+            "speculative decode needs a sampler with a verify() method "
+            "(see repro_torch.serve.sampling)")
+    return v
+
+
+def _mtp_draft(params, cfg: ModelConfig, h, tok, pos):
+    """One inference-time MTP draft: the final-normed hidden ``h`` (B, D)
+    of the position that emitted ``tok`` (B,) combined with the embedding
+    of ``tok`` (``_mtp_step``'s combination), through the depth-1 MTP
+    block at the single position ``pos`` (B,) (kernel 1 at S 1 on the
+    card for a GQA block).  The head reuses the LM head without
+    ``final_norm``, as training feeds the block's output to the CE.
+    Returns (draft logits (B, V), the block's hidden for chaining)."""
+    mp = params["mtp"]
+    emb = _embed(params, cfg, tok[:, None])
+    hin = layers.mm(torch.cat([layers.apply_norm(mp["norm"], h[:, None]),
+                               emb.to(h.dtype)], dim=-1), mp["proj"])
+    hout, _, _ = _block_full(mp["block"], cfg, hin, pos[:, None],
+                             kind="full")
+    return _head(params, cfg, hout)[:, 0], hout[:, 0]
+
+
+def _spec_zero_rejected(cfg: ModelConfig, cache, pos, a, *, k: int,
+                        block_tables=None) -> None:
+    """Scrub, in place, the cache rows a verify chunk wrote for rejected
+    drafts: per slot the positions ``pos + a .. pos + k`` (``a`` (B,) the
+    kept length, at least 1), on every leaf with a sequence axis (K/V or
+    MLA's latents, their scales, ``dense_blocks``), so the cache equals
+    what token-by-token decode leaves.
+
+    Contiguous: positions past the row's capacity were never written (the
+    chunk's write drops them) and are dropped here too; the scatter
+    rewrites kept rows with their own values (positions past capacity
+    land on the slot's chunk position 0, which is always kept), so no
+    host sync is needed.  Paged: zeros through the block tables, kept
+    positions diverted to the trash block 0 (the tables' spare columns
+    already point there past a slot's blocks)."""
+    B = pos.shape[0]
+    dev = pos.device
+    jj = torch.arange(k + 1, device=dev)
+    tgt = pos.long()[:, None] + jj[None, :]               # (B, k+1)
+    rej = jj[None, :] >= a.long()[:, None]
+    bidx = torch.arange(B, device=dev)[:, None].expand_as(tgt)
+    pol = quant.policy_of(cache)
+    if block_tables is not None:
+        bl = next(leaf.shape[sax] for leaf, sax in zip(
+            _leaves(cache), _leaves(decode_cache_seq_axes(cfg, pol)))
+            if sax >= 0)
+        blk, off = layers.paged_rows(block_tables.long(), tgt, bl)
+        blk = torch.where(rej, blk, torch.zeros_like(blk))
+
+    def zero(leaf, bax, sax):
+        if sax < 0:
+            return leaf
+        # (slot or block, position, ...) view of the leaf
+        view = leaf.movedim(bax, 0).movedim(sax if sax > bax else sax + 1, 1)
+        if view.dtype.itemsize == 1:
+            view = view.view(torch.uint8)   # int8 / fp8 codes: 0 is 0
+        if block_tables is not None:
+            view[blk, off] = 0
+            return leaf
+        cap = view.shape[1]
+        inside = tgt < cap
+        p = torch.clamp(torch.where(inside, tgt, tgt[:, :1]), max=cap - 1)
+        rows = view[bidx, p]
+        drop = (rej & inside).reshape(rej.shape + (1,) * (rows.dim() - 2))
+        view[bidx, p] = torch.where(drop, torch.zeros_like(rows), rows)
+        return leaf
+
+    _map(zero, cache, decode_cache_batch_axes(cfg, pol),
+         decode_cache_seq_axes(cfg, pol))
+
+
+def _generate_spec(params, cfg: ModelConfig, cache, tok, pos, rem, done,
+                   stream, h, eos: int, *, steps: int, k: int, sampler,
+                   block_tables=None):
+    """Self-speculative decode, a Python loop as ``generate``'s: each step
+    drafts ``k`` tokens greedily with the MTP head (``_mtp_draft``
+    chained), verifies all ``C = k+1`` positions in one chunk through the
+    shared ``_chunk_hidden`` body (kernel 2 at C rows a slot when
+    paged), and advances each slot by its accepted length (at least 1
+    emission a live step, at most k+1).  Greedy acceptance is an exact
+    argmax-prefix match, so the emitted stream equals token-by-token
+    decode; stochastic samplers use residual rejection sampling
+    (``sampler.verify``), chunk position j drawing from lane j of the
+    step's stream.  ``h`` (B, D) is the final-normed hidden of the
+    position that emitted each slot's pending token.  Rejected drafts'
+    cache rows are scrubbed after acceptance; dead lanes keep chunk
+    position 0, which is the write token-by-token decode repeats at the
+    parked frontier, so the whole cache stays equal to it."""
+    verify = _verify_for(sampler)
+    B = tok.shape[0]
+    C = k + 1
+    dev = tok.device
+    ar = torch.arange(C, dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)
+    toks_out, valid_out = [], []
+    for i in range(steps):
+        live = ~done
+        st = stream.advance(i)
+        drafts, dh, dt = [], h, tok
+        for j in range(k):
+            dlogits, dh = _mtp_draft(params, cfg, dh, dt,
+                                     torch.clamp(pos - 1 + j, min=0))
+            dt = torch.argmax(dlogits, -1).to(torch.int32)
+            drafts.append(dt)
+        chunk = torch.stack([tok] + drafts, dim=1)        # (B, C)
+        cpos = pos[:, None] + ar[None, :]
+        hc, cache = _chunk_hidden(params, cfg, cache,
+                                  _embed(params, cfg, chunk), cpos,
+                                  block_tables=block_tables,
+                                  live=live[:, None].expand(B, C))
+        logits = _head(params, cfg, hc)                   # (B, C, V)
+        # position j's logits verify draft j+1 (j < k) or sample the
+        # bonus token (j = k); a rejection emits the verifier's token and
+        # ends the chain, so every live step emits at least once
+        emit = live
+        a = torch.zeros((B,), dtype=torch.int32, device=dev)
+        new_tok, new_done = tok, done
+        for j in range(C):
+            if j < k:
+                tj, acc = verify(st.at(j), logits[:, j], drafts[j])
+            else:
+                tj = sampler(st.at(j), logits[:, j]).to(torch.int32)
+                acc = torch.zeros_like(live)
+            valid = emit
+            rem = rem - valid.to(torch.int32)
+            stop = valid & ((tj == eos) | (rem <= 0))
+            new_done = new_done | stop
+            new_tok = torch.where(valid, tj, new_tok)
+            a = a + valid.to(torch.int32)
+            toks_out.append(tj)
+            valid_out.append(valid)
+            emit = emit & acc & ~stop
+        new_h = hc[rows, torch.clamp(a - 1, 0, k).long()]
+        h = torch.where(live[:, None], new_h, h)
+        _spec_zero_rejected(cfg, cache, pos, torch.clamp(a, min=1), k=k,
+                            block_tables=block_tables)
+        pos = torch.where(live, pos + a, pos)
+        tok, done = new_tok, new_done
+    return {"tokens": torch.stack(toks_out, 1),
+            "valid": torch.stack(valid_out, 1), "next_tok": tok, "pos": pos,
+            "remaining": rem, "done": done, "rng": stream.advance(steps),
+            "h_spec": h, "cache": cache}
+
+
 def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
-             sampler=None, eos_id=None, remaining=None,
-             return_logits: bool = False, block_tables=None):
+             sampler=None, rng=None, eos_id=None, remaining=None,
+             return_logits: bool = False, block_tables=None,
+             speculate: int = 0, spec_h=None):
     """Run ``steps`` decode steps, a Python loop over ``decode_step``.
 
     ``first_tok`` (B,) or (B, 1) is the token fed at ``pos0`` (B,) —
@@ -1382,12 +1556,26 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
     it: ``remaining`` emissions (slots with 0 start done and only
     produce discarded garbage), ``eos_id`` stopping, and finished slots
     stop advancing (their stale writes pin to one in-capacity position).
+    ``sampler(stream, logits)`` draws from ``rng``, a
+    ``utils.rng.Stream`` (default: keys of seed 0 and each row's
+    index), which moves on by one step per decode step whether a slot is
+    live or not, so a decode cut into segments samples as one long loop.
 
     The cache (contiguous, or paged with ``block_tables`` (B, nbt) fixed
     for the whole call) is updated IN PLACE; it is also returned under
     ``"cache"``.  Returns a dict with ``tokens``/``valid`` (B, steps),
-    the carried ``next_tok``/``pos``/``remaining``/``done`` and, when
-    ``return_logits``, the per-step ``logits`` (B, steps, V).
+    the carried ``next_tok``/``pos``/``remaining``/``done``/``rng`` and,
+    when ``return_logits``, the per-step ``logits`` (B, steps, V).
+
+    With ``speculate=k`` (> 0) each step drafts ``k`` tokens with the MTP
+    head and verifies ``k+1`` positions in one chunk
+    (``_generate_spec``): ``tokens``/``valid`` widen to (B, steps *
+    (k+1)) and the result gains the carried ``h_spec`` (pass it back as
+    ``spec_h`` to continue; zeros by default: a cold first draft is
+    simply rejected).  Needs an MTP head (``cfg.n_mtp`` with
+    ``params["mtp"]``: the dense, MoE and VLM families).  A paged table
+    must be wide enough for ``pos + k`` (the engine adds spare trash
+    columns).
     """
     if sampler is None:
         sampler = greedy_sample
@@ -1395,6 +1583,8 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
     dev = first_tok.device
     tok = first_tok.reshape(B).to(torch.int32)
     pos = torch.as_tensor(pos0, device=dev).reshape(B).to(torch.int32)
+    if rng is None:
+        rng = Stream.default(B, dev)
     if remaining is None:
         remaining = torch.full((B,), steps, dtype=torch.int32, device=dev)
     rem = torch.as_tensor(remaining, device=dev).reshape(B).to(torch.int32)
@@ -1402,12 +1592,27 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
     eos = -1 if eos_id is None else int(eos_id)
     if block_tables is not None:
         block_tables = block_tables.to(torch.int32)
+    if speculate:
+        if return_logits:
+            raise ValueError("return_logits is not supported with "
+                             "speculative decode")
+        if not (cfg.n_mtp and "mtp" in params):
+            raise ValueError(
+                "speculative decode needs an MTP head (cfg.n_mtp > 0 with "
+                "params['mtp'] — dense/moe/vlm families only)")
+        h = (torch.zeros((B, cfg.d_model), dtype=_dtype(cfg), device=dev)
+             if spec_h is None else
+             torch.as_tensor(spec_h, device=dev).to(_dtype(cfg)).reshape(
+                 B, cfg.d_model))
+        return _generate_spec(params, cfg, cache, tok, pos, rem, done, rng,
+                              h, eos, steps=int(steps), k=int(speculate),
+                              sampler=sampler, block_tables=block_tables)
     toks, valid, all_logits = [], [], []
-    for _ in range(steps):
+    for i in range(steps):
         live = ~done
         logits, cache = decode_step(params, cfg, cache, tok[:, None], pos,
                                     block_tables=block_tables, live=live)
-        sampled = sampler(logits).to(torch.int32)
+        sampled = sampler(rng.advance(i), logits).to(torch.int32)
         rem = rem - live.to(torch.int32)
         done = done | (live & ((sampled == eos) | (rem <= 0)))
         tok = torch.where(live, sampled, tok)
@@ -1418,7 +1623,7 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
             all_logits.append(logits)
     res = {"tokens": torch.stack(toks, 1), "valid": torch.stack(valid, 1),
            "next_tok": tok, "pos": pos, "remaining": rem, "done": done,
-           "cache": cache}
+           "rng": rng.advance(steps), "cache": cache}
     if return_logits:
         res["logits"] = torch.stack(all_logits, 1)
     return res

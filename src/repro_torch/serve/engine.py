@@ -73,8 +73,24 @@ while the decoder's ``self`` K/V is pooled; no row of the sequence
 holds frames (``decode_offset`` 0), and the prefix keys digest them,
 so a block is shared only between requests with equal frames.
 
-Not ported yet, and refused with ``NotImplementedError``: speculative
-decode and sharded serving (``mesh``).
+Sampling and speculative decode, as in the reference.  ``sampler``
+(``serve/sampling.py``: ``Greedy`` by default, ``Temperature``,
+``TopK``) draws from each slot's stream: its key comes from ``seed`` and
+the request's uid (or the int ``submit(key=)`` takes), emission #1 is
+drawn at counter 0, and every decode step moves every slot's counter on
+by one, live or not, so tokens are the same whatever the segment length
+and after a paged preemption replays the request.  ``speculate=k``
+drafts k tokens a step with the model's MTP head and verifies k+1
+positions in one chunk (``model.generate``); the slot's draft seed
+``h_spec`` starts from the prefill's last hidden (unbucketed) or zeros
+(bucketed admission); ``spec_acceptance()`` and the ``spec_steps`` /
+``spec_extra_tokens`` stats count what the drafts bought.  The paged
+engine's tables get ``_spec_spare`` trash columns past ``max_blocks``
+for the verify chunk's overshoot at a request's capacity, and its lazy
+claims reach ``speculate`` positions past the last accepted one.
+
+Not ported yet, and refused with ``NotImplementedError``: sharded
+serving (``mesh``).
 """
 from __future__ import annotations
 
@@ -93,6 +109,7 @@ from repro_torch.serve import bucketing as bk
 from repro_torch.serve import paged as pg
 from repro_torch.serve.sampling import Greedy
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.rng import Stream, stream_key
 
 
 @dataclasses.dataclass
@@ -106,6 +123,7 @@ class Request:
     uid: int
     batch: Dict[str, Any]
     max_new: int
+    key: Optional[int] = None  # the stream's seed (from uid if None)
     # memoised prefix-block content keys (paged engine)
     plan_keys: Optional[List] = None
 
@@ -165,19 +183,24 @@ class ServeEngine:
     ``device`` defaults to the card and must hold ``params``; pass
     ``device="cpu"`` to serve on the CPU.  ``chunk_len`` switches
     admission to bucketed chunked prefill (module docstring); ``buckets``
-    overrides its ladder and needs ``chunk_len``.
+    overrides its ladder and needs ``chunk_len``.  ``seed`` keys the
+    requests' random streams; ``speculate`` is the number of drafts a
+    step (0: no speculative decode).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 4,
                  max_len: int = 128, sampler=None,
                  eos_id: Optional[int] = None, seg_len: int = 8,
-                 device="cuda", history_limit: int = 4096,
+                 device="cuda", seed: int = 0, history_limit: int = 4096,
                  chunk_len: Optional[int] = None, buckets=None,
                  speculate: int = 0, kv_dtype: str = "", mesh=None):
-        for name, val, default in [("speculate", speculate, 0),
-                                   ("mesh", mesh, None)]:
-            if val != default:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet")
+        self.speculate = int(speculate)
+        if self.speculate and not (cfg.n_mtp and "mtp" in params):
+            raise ValueError(
+                "speculate requires an MTP head: cfg.n_mtp > 0 with "
+                "params['mtp'] (dense/moe/vlm families)")
         cfg.validate()
         if cfg.is_moe and not cfg.moe_dropless:
             # as the reference engine: serving sizes expert-parallel
@@ -193,7 +216,7 @@ class ServeEngine:
         self.policy = quant.CachePolicy(kv_dtype)
         self.n_slots, self.max_len, self.seg_len = n_slots, max_len, seg_len
         self.sampler = sampler if sampler is not None else Greedy()
-        self.eos_id = eos_id
+        self.eos_id, self.seed = eos_id, seed
         self.chunk_len = chunk_len
         if chunk_len is not None:
             ladder = (bk.bucket_ladder(chunk_len, max_len)
@@ -208,6 +231,13 @@ class ServeEngine:
         self.tok = np.zeros((n_slots,), np.int32)
         self.pos = np.zeros((n_slots,), np.int32)
         self.rem = np.zeros((n_slots,), np.int32)
+        # each slot's stream: key words and step counter
+        self.keys = np.zeros((n_slots, 2), np.int64)
+        self.ctr = np.zeros((n_slots,), np.int64)
+        # speculative decode's draft seed: the final-normed hidden of the
+        # position that emitted the slot's pending token
+        self.h_spec = torch.zeros((n_slots, cfg.d_model),
+                                  dtype=M._dtype(cfg), device=self.device)
         self.slot_uid = np.full((n_slots,), -1, np.int64)
         self._slot_seq = np.zeros((n_slots,), np.int64)  # admission order
         self._admit_seq = 0
@@ -224,7 +254,8 @@ class ServeEngine:
         # the next segment's time
         self.stats = {"generated_tokens": 0, "segments": 0, "prefills": 0,
                       "prefill_chunks": 0, "slot_steps": 0,
-                      "live_slot_steps": 0,
+                      "live_slot_steps": 0, "spec_steps": 0,
+                      "spec_extra_tokens": 0,
                       "peak_live_requests": 0, "admit_s": 0.0,
                       "decode_s": 0.0}
         self._t_submit: Dict[int, float] = {}
@@ -243,7 +274,10 @@ class ServeEngine:
 
     # -- request intake ----------------------------------------------------
 
-    def submit(self, batch, *, max_new: int, uid: Optional[int] = None) -> int:
+    def submit(self, batch, *, max_new: int, uid: Optional[int] = None,
+               key: Optional[int] = None) -> int:
+        """Queue one request; ``key`` (an int) seeds its random stream in
+        place of the engine's ``seed`` and its uid."""
         if uid is None:
             uid = self._uid_auto
             self._uid_auto += 1
@@ -270,7 +304,8 @@ class ServeEngine:
         self._validate_capacity(uid, toks.shape[1], max_new)
         if max_new < 1:
             raise ValueError(f"request {uid}: max_new must be >= 1")
-        self.queue.append(Request(uid, host, max_new))
+        self.queue.append(Request(uid, host, max_new,
+                                  None if key is None else int(key)))
         self._pending.add(uid)
         self._t_submit[uid] = time.perf_counter()
         return uid
@@ -383,6 +418,7 @@ class ServeEngine:
         # EOS can finish a slot with budget left: zero it so the freed
         # lane runs masked (done = rem<=0) until re-admitted
         self.rem[slot] = 0
+        self.h_spec[slot] = 0
 
     def _admit(self) -> None:
         free = [s for s in range(self.n_slots) if self.slot_uid[s] < 0]
@@ -394,17 +430,25 @@ class ServeEngine:
             self.queue.popleft()
             self._pending.discard(req.uid)
             slot = free[0]
+            h0 = None
             if self.chunk_len is None:
                 # slotless B=1 prefill; the graft is deferred so a request
                 # finishing at prefill never touches the cache
                 logits, pc = M.prefill(
                     self.params, self.cfg,
-                    self._device_batch(req, req.batch["tokens"]))
+                    self._device_batch(req, req.batch["tokens"]),
+                    return_hidden=bool(self.speculate))
+                if self.speculate:
+                    logits, h0 = logits
             else:
                 # bucketed: the chunked prefill IS the placement, through
                 # the slot's cache row / block tables
                 logits = self._admit_chunked_into(slot, req, plan)
-            e0 = int(self.sampler(logits)[0])
+            key = (stream_key(self.seed, req.uid) if req.key is None
+                   else stream_key(req.key))
+            # emission #1 draws at counter 0, decode steps from 1 on
+            e0 = int(self.sampler(Stream.of([key], [0], self.device),
+                                  logits)[0])
             # a preempted request's replay keeps its first answer's time
             self._ttft.setdefault(req.uid,
                                   time.perf_counter() - self._t_submit[req.uid])
@@ -429,13 +473,27 @@ class ServeEngine:
             self.tok[slot] = e0
             self.pos[slot] = M.decode_pos0(self.cfg, req.prompt_len)
             self.rem[slot] = req.max_new - 1
+            self.keys[slot], self.ctr[slot] = key, 1
+            # unbucketed admission seeds the draft chain with the prefill's
+            # last hidden (the position that emitted e0); bucketed stays
+            # cold (its first drafts are simply rejected).  Draft quality
+            # never changes the accepted tokens
+            self.h_spec[slot] = 0 if h0 is None else h0[0]
         self.stats["peak_live_requests"] = max(
             self.stats["peak_live_requests"], int((self.slot_uid >= 0).sum()))
 
     # -- decode segment ----------------------------------------------------
 
     def _segment_kw(self) -> dict:
-        return {}
+        if not self.speculate:
+            return {}
+        return {"speculate": self.speculate, "spec_h": self.h_spec}
+
+    def spec_acceptance(self) -> float:
+        """Fraction of the k draft lanes of the live steps that yielded an
+        accepted token (0.0 when not speculating or nothing ran)."""
+        denom = self.stats["spec_steps"] * self.speculate
+        return self.stats["spec_extra_tokens"] / denom if denom else 0.0
 
     def _segment(self) -> None:
         t0 = time.perf_counter()
@@ -444,9 +502,12 @@ class ServeEngine:
                          torch.as_tensor(self.tok, device=dev),
                          torch.as_tensor(self.pos, device=dev),
                          steps=self.seg_len, sampler=self.sampler,
+                         rng=Stream.of(self.keys, self.ctr, dev),
                          eos_id=self.eos_id,
                          remaining=torch.as_tensor(self.rem, device=dev),
                          **self._segment_kw())
+        # the stream moved on by seg_len steps in every slot
+        self.ctr += self.seg_len
         toks = res["tokens"].cpu().numpy()
         valid = res["valid"].cpu().numpy()
         done = res["done"].cpu().numpy()
@@ -455,6 +516,14 @@ class ServeEngine:
         self.pos = res["pos"].cpu().numpy().copy()
         self.rem = res["remaining"].cpu().numpy().copy()
         self.stats["decode_s"] += time.perf_counter() - t0
+        if self.speculate:
+            self.h_spec = res["h_spec"]
+            # a live slot always emits at column i*(k+1) of step i, so those
+            # columns count its live steps; every further valid column is a
+            # token the drafts got for free
+            first = valid[:, ::self.speculate + 1]
+            self.stats["spec_steps"] += int(first.sum())
+            self.stats["spec_extra_tokens"] += int(valid.sum() - first.sum())
         for s in range(self.n_slots):
             uid = int(self.slot_uid[s])
             if uid < 0:
@@ -468,7 +537,9 @@ class ServeEngine:
             if done[s]:
                 self._finish(uid)
                 self._release_slot(s)
-        self.stats["slot_steps"] += self.n_slots * self.seg_len
+        # each step can emit up to k+1 tokens a slot when speculating
+        self.stats["slot_steps"] += (self.n_slots * self.seg_len
+                                     * (self.speculate + 1))
         self.stats["segments"] += 1
         self.segment_idx += 1
 
@@ -511,7 +582,8 @@ class PagedServeEngine(ServeEngine):
     frontier crosses block boundaries (``_pre_segment``).  If the pool
     runs dry between segments the youngest-admitted live request is
     preempted: its blocks return to the pool and it re-queues for a
-    deterministic replay (greedy, so its final tokens are unchanged).
+    deterministic replay (its stream restarts from its key, so its final
+    tokens are unchanged).
     The oldest request is never preempted, which guarantees progress.
     ``lazy=False`` claims ``ceil(decode_capacity / block_len)`` blocks
     at admission.  For a family without paged leaves (ssm) no block is
@@ -524,6 +596,12 @@ class PagedServeEngine(ServeEngine):
                  lazy: bool = True, **kw):
         self.block_len = block_len
         self.max_blocks = -(-max_len // block_len)
+        # a verify chunk writes up to k positions past the accepted
+        # frontier: at a request's capacity that would index past its
+        # table, so each table gets spare columns, always the trash block
+        spec = int(kw.get("speculate", 0) or 0)
+        self._spec_spare = -(-spec // block_len) if spec else 0
+        self._table_w = self.max_blocks + self._spec_spare
         # default pool: worst case every slot holds max_len live tokens
         self.n_blocks = (1 + n_slots * self.max_blocks
                          if n_blocks is None else n_blocks)
@@ -531,7 +609,7 @@ class PagedServeEngine(ServeEngine):
         self.share_prefix = share_prefix and self._has_paged
         self.lazy = lazy and self._has_paged
         self.alloc = pg.PagedAllocator(self.n_blocks, block_len)
-        self.block_tables = np.full((n_slots, self.max_blocks), pg.TRASH,
+        self.block_tables = np.full((n_slots, self._table_w), pg.TRASH,
                                     np.int32)
         self._slot_blocks: Dict[int, List[int]] = {}  # uid -> held block ids
         super().__init__(params, cfg, n_slots=n_slots, max_len=max_len, **kw)
@@ -617,7 +695,9 @@ class PagedServeEngine(ServeEngine):
         return ids, fresh
 
     def _set_table_row(self, slot: int, ids) -> None:
-        row = np.full((self.max_blocks,), pg.TRASH, np.int32)
+        # ids never pass max_blocks, so the _spec_spare columns stay TRASH
+        # for the slot's whole life: writes past capacity are diverted
+        row = np.full((self._table_w,), pg.TRASH, np.int32)
         row[:len(ids)] = ids
         self.block_tables[slot] = row
 
@@ -673,17 +753,19 @@ class PagedServeEngine(ServeEngine):
 
     def _segment_needs(self) -> Dict[int, int]:
         """slot -> blocks to claim so the coming segment's writes stay
-        inside the slot's table (frontier can advance min(seg_len, rem)
-        positions; capacity-capped)."""
+        inside the slot's table (the frontier can advance min(seg_len ·
+        (speculate + 1), rem) positions; capacity-capped)."""
         bl, needs = self.block_len, {}
         for s in range(self.n_slots):
             uid = int(self.slot_uid[s])
             if uid < 0:
                 continue
-            adv = int(min(self.seg_len, self.rem[s]))
+            adv = int(min(self.seg_len * (self.speculate + 1), self.rem[s]))
             if adv <= 0:
                 continue
-            last_write = int(self.pos[s]) + adv - 1
+            # + speculate: the step that lands the last accepted token
+            # also wrote its rejected drafts past the frontier
+            last_write = int(self.pos[s]) + adv - 1 + self.speculate
             n_total = self._n_total_blocks(self._live_req[uid])
             need = min(last_write // bl + 1, n_total)
             have = len(self._slot_blocks[uid])
@@ -739,5 +821,6 @@ class PagedServeEngine(ServeEngine):
     # -- decode segment ----------------------------------------------------
 
     def _segment_kw(self) -> dict:
-        return {"block_tables": torch.as_tensor(self.block_tables,
+        return {**super()._segment_kw(),
+                "block_tables": torch.as_tensor(self.block_tables,
                                                 device=self.device)}

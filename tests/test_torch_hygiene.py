@@ -104,12 +104,13 @@ def test_launcher_serves_on_the_cpu_when_asked():
     assert [len(c.tokens) for _, c in sorted(comps.items())] == [6, 3, 2]
 
 
-# bucketed admission is ported: its cases hold the engine's validation
-# (a chunk length under 1, a ladder without a chunk length) instead
+# bucketed admission and speculative decode are ported: their cases hold
+# the engine's validation (a chunk length under 1, a ladder without a
+# chunk length, speculation on a model without an MTP head) instead
 @pytest.mark.parametrize("kw,err,match", [
     ({"chunk_len": 0}, ValueError, "chunk_len must be >= 1"),
     ({"buckets": [8, 16]}, ValueError, "buckets requires chunk_len"),
-    ({"speculate": 2}, NotImplementedError, "not ported yet"),
+    ({"speculate": 2}, ValueError, "requires an MTP head"),
     ({"mesh": object()}, NotImplementedError, "not ported yet")],
     ids=["chunk_len", "buckets", "speculate", "mesh"])
 @pytest.mark.parametrize("cls", [ServeEngine, PagedServeEngine])
@@ -119,8 +120,10 @@ def test_unported_engine_options_raise(small, cls, kw, err, match):
         cls(params, cfg, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--top-k", "4"], ["--speculate"],
-                                  ["--sharded"], ["--temperature", "0.7"]])
+# the samplers and speculative decode are ported: sharded serving's
+# flags stay refused, alone or beside another
+@pytest.mark.parametrize("flag", [["--overlap-a2a"], ["--check-unsharded"],
+                                  ["--sharded"], ["--sharded", "--paged"]])
 def test_unported_launcher_flags_raise(flag):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -65,6 +65,16 @@ FAULTS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # the emulation's many small products: one thread a test process, so
+    # that parallel test workers do not oversubscribe the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(x):
     return torch.from_numpy(np.asarray(x, np.float32)).bfloat16().float()
 

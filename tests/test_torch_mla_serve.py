@@ -23,7 +23,8 @@ gather.
   mixed-length traffic in full-precision, bf16, int8 and fp8 latent
   pools, on prefix-sharing and preemption traffic, and with bucketed
   admission (also equal to the port's unbucketed engine);
-* ``speculate`` stays refused; the launcher serves the arch.
+* both speculative engines equal the plain ones; the launcher serves
+  the arch.
 """
 import jax
 import jax.numpy as jnp
@@ -305,10 +306,19 @@ def test_bucketed_engines_match_reference(engine, kv):
 
 
 def test_speculate_stays_refused():
+    """Speculative decode is ported (``tests/test_torch_spec.py``): both
+    engines serve DeepSeek-V3 speculatively through its MTP head, from
+    a full-precision and an int8 latent pool, with the plain engines'
+    tokens."""
     _, _, cfg, pt = models()
-    for cls in (ServeEngine, PagedServeEngine):
-        with pytest.raises(NotImplementedError, match="speculate"):
-            cls(pt, cfg, n_slots=1, max_len=16, speculate=2, device="cpu")
+    prompts, gens = _mixed()
+    for cls, kw in ((ServeEngine, {}), (PagedServeEngine, {"block_len": 4})):
+        for kv in ("", "int8"):
+            plain, _ = _serve(cls, pt, cfg, prompts, gens, n_slots=2,
+                              seg_len=3, kv_dtype=kv, **kw)
+            got, eng = _serve(cls, pt, cfg, prompts, gens, n_slots=2,
+                              seg_len=3, kv_dtype=kv, speculate=2, **kw)
+            assert got == plain and eng.stats["spec_steps"] > 0
 
 
 def test_launcher_serves_the_arch(capsys):

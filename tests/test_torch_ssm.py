@@ -312,10 +312,11 @@ def test_unported_ssm_paths_raise(models):
     # training and chunked prefill with a carried state are ported
     # (tests/test_torch_ssm_train.py, tests/test_torch_serve_chunked.py),
     # and the chunk body takes every family, the encoder-decoder one the
-    # last (tests/test_torch_encdec_serve.py); speculative decode of the
-    # ssm model stays refused
+    # last (tests/test_torch_encdec_serve.py); speculative decode is
+    # ported, and the ssm model, which has no MTP head, is refused it
+    # with the reference's ValueError
     _, _, cfg, pt = models
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="requires an MTP head"):
         PagedServeEngine(pt, cfg, n_slots=1, max_len=8, speculate=2,
                          device="cpu")
 
