@@ -118,8 +118,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    contiguous engine as in phase 4 (the scan from a carried state, 48 a
    chunk, all ``tc``), f32 completions equal to the unbucketed ones on 8
    of the requests;
-5c. serve_moe: Qwen1.5-MoE-A2.7B, then DeepSeek-MoE-16B, at full width
-   and depth, 8 of the 16 requests each, then StarCoder2-3B
+5c. serve_moe: Qwen1.5-MoE-A2.7B at full width and depth, then
+   DeepSeek-MoE-16B at full width on 14 of its 28 layers
+   (SERVE_MOE_LAYERS), 8 of the 16 requests each, then StarCoder2-3B
    (``_serve_moe_model``).  On Qwen also
    bucketed admission: ``prefill_chunked`` at chunks of 8 kernel vs
    plain (nothing can drop), 8 of the requests unbucketed and bucketed
@@ -146,8 +147,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and the f32 model's speculative completions at 2 slots (8 rows a
    verify chunk: nothing can drop) equal plain ones, the oracle drafter's
    at acceptance 1.0;
-5f. serve_gemma: Gemma-2-9B at full width and depth (42 layers, local
-   windows of 4096, both softcaps): the f32 model's kernel path against
+5f. serve_gemma: Gemma-2-9B at full width on GEMMA9_LAYERS = 22 of its
+   42 layers (local windows of 4096, both softcaps): the f32 model's kernel path against
    its plain path on a 4,608-token request (its prefill masks in flash,
    its 4 decode steps read paged attention past the window), the same
    weights with ``sliding_window=0`` breaking the limit, each bf16
@@ -170,6 +171,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    through the paged engine, the contiguous one, the paged one bucketed
    (chunks of 64, the encoder once an admission) and from an int8 pool,
    launches counted; f32 completions bucketed and unbucketed equal;
+5h. serve_sharded (run last, after fleet): Qwen1.5-MoE-A2.7B at full
+   width on an NCCL process group of one rank over an in-process store
+   and its (1, 1) decode mesh
+   (NCCL will not put two ranks on one card), the MoE forced onto the
+   expert-parallel paths, so that the collectives and kernels 4-6 run on
+   the sharded buffer layout: one MoE layer in f32 at the tune step's
+   4,096 rows through ``moe_dense`` and both sharded paths (output, aux
+   loss and every gradient within SHARDED_REL_TOL; kernels 4, 5 and 6
+   launched, none by the plain runs; each path's forward time, the NCCL
+   kernels' device time); the f32 model on 4 layers, 4 requests through
+   both engines with chunks of 8 on both paths, tokens equal to
+   ``mesh=None``'s; the bf16 model at full depth, 8 requests through
+   the paged engine, ``mesh=None`` then a2a (launches; tok/s, ms a
+   decode step, first divergence), a decode segment profiled;
+   ``launch/serve.py --sharded --check-unsharded --paged`` in process;
 6. train: ``train_device`` on full-width TinyLlama-1.1B (bf16, random
    weights from seed 0), 8 steps of 4 x 1024 tokens at lr 1e-3.  Checks
    finite, falling losses and the kernels' launch counts on that run
@@ -422,6 +438,16 @@ def phase_build():
         print(f"  paged_attn {str(dt)[6:]}: shared bytes (keys a tile) by "
               f"head dim " + ", ".join(f"D{D} {s} ({tk})"
                                        for D, (tk, s) in cfg.items()))
+    # the autograd engine runs a CUDA backward on a thread of its own,
+    # whose cuBLAS handle takes a workspace from the caching allocator
+    # that lives until the process ends: taken by the first backward of a
+    # phase, it is cut from whatever large segment is free then and keeps
+    # that segment reserved for every later phase (16.6 GiB after
+    # serve_sharded's layer check, which left train_mla short).  One tiny
+    # backward here takes it while nothing is cached
+    a = torch.ones((8, 8), device="cuda", requires_grad=True)
+    (a @ a).sum().backward()
+    torch.cuda.synchronize()
 
 
 def _kernel_label(mangled: str) -> str:
@@ -2055,9 +2081,11 @@ def profile(fn, top: int = 8, groups=None, ranges=()):
     device_ms = sum(r[0] for r in rows) / 1e3
     group_ms = {g: sum(us for us, k, _ in rows if any(f in k for f in frags))
                 / 1e3 for g, frags in (groups or {}).items()}
+    group_n = {g: sum(n for _, k, n in rows if any(f in k for f in frags))
+               for g, frags in (groups or {}).items()}
     out = {"range_ms": range_ms} if ranges else {}
     return {**out, "wall_ms": wall * 1e3, "device_ms": device_ms,
-            "group_ms": group_ms,
+            "group_ms": group_ms, "group_launches": group_n,
             "device_idle_share": 1 - device_ms / (wall * 1e3),
             "device_launches": sum(r[2] for r in rows),
             "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n,
@@ -3203,6 +3231,9 @@ def phase_serve_ssm():
 # ---------------------------------------------------------------------------
 
 SERVE_MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
+# DeepSeek-MoE-16B on 14 of its 28 layers (the script's time limit, for
+# serve_sharded); Qwen1.5-MoE-A2.7B at full depth
+SERVE_MOE_LAYERS = {"deepseek-moe-16b": 14}
 MOE_DECODE_STEPS = 4        # (b): decode steps from one shared cache
 MOE_DEAD_SLOT = 3           # the freed slot of the dead-lane check
 STARCODER_REQUESTS = 4
@@ -3584,9 +3615,9 @@ def _moe_f32_distance(M, cfg, toks, logits_bf16, extra=None,
 
 
 def _serve_moe_model(arch):
-    """One global MoE at full width and depth behind ``PagedServeEngine``
-    (8 slots, block_len 16, seg_len 8), bf16, random weights from seed 0
-    drawn on the card: the checks (a)-(c) and the dead lane, a profile
+    """One global MoE at full width (depth: SERVE_MOE_LAYERS) behind
+    ``PagedServeEngine`` (8 slots, block_len 16, seg_len 8), bf16, random
+    weights from seed 0 drawn on the card: the checks (a)-(c) and the dead lane, a profile
     of one decode segment, then 8 of the serve phase's 16 requests (every
     other, the longest included) with every launch counted."""
     from repro_torch.configs import get_config
@@ -3598,6 +3629,7 @@ def _serve_moe_model(arch):
     from repro_torch.utils.pytree import tree_leaves
 
     cfg = get_config(arch, variant="full")
+    cfg = cfg.replace(n_layers=SERVE_MOE_LAYERS.get(arch, cfg.n_layers))
     if not cfg.use_kernels:
         fail(f"{arch}: the config does not route through the kernels")
     n_moe = cfg.n_layers - cfg.first_dense_layers
@@ -4488,9 +4520,11 @@ GEMMA_F32_LOGIT_TOL = 1e-4
 # by this many times the limit
 GEMMA_FAULT_MARGIN = 3.0
 # Gemma-2-27B at full width, its depth cut from 46 layers to 8 (full
-# depth would hold 54.4 GB of bf16 weights); the f32 token identity of
-# Gemma-2-9B on 14 of its 42 layers (the f32 copy of all 42 is 37 GB)
+# depth would hold 54.4 GB of bf16 weights); Gemma-2-9B's served on 22
+# of its 42 layers (the script's time limit, for serve_sharded); its f32
+# token identity on 14 (the f32 copy of all 42 is 37 GB)
 GEMMA27_LAYERS = 8
+GEMMA9_LAYERS = 22
 GEMMA_F32_IDENTITY_LAYERS = 14
 
 
@@ -4703,14 +4737,14 @@ def _serve_gemma2(arch, n_layers, picks):
 
 
 def _serve_gemma9():
-    """Gemma-2-9B at full width and depth: 8 of the 16 requests (every
-    other, for the script's time limit) and the long one through
-    both engines, then the 8 unbucketed and bucketed, then the f32 token
-    identity on GEMMA_F32_IDENTITY_LAYERS layers."""
+    """Gemma-2-9B at full width on GEMMA9_LAYERS layers: 8 of the 16
+    requests (every other, for the script's time limit) and the long one
+    through both engines, then the 8 unbucketed and bucketed, then the
+    f32 token identity on GEMMA_F32_IDENTITY_LAYERS layers."""
     from repro_torch.models import model as M
     from repro_torch.serve import PagedServeEngine
     res, launches, params, cfg, (lens, batches) = _serve_gemma2(
-        "gemma2-9b", 42, list(range(1, 16, 2)))
+        "gemma2-9b", GEMMA9_LAYERS, list(range(1, 16, 2)))
     ps, ls = batches[:-1], lens[:-1]     # all but the long request
     max_new = 64
     make = _gemma_make(PagedServeEngine, params, cfg, ps, max_new,
@@ -4821,8 +4855,8 @@ def _serve_paligemma():
 
 
 def phase_serve_gemma():
-    """Gemma-2-9B at full width and depth (its long request past the
-    window), Gemma-2-27B at full width on GEMMA27_LAYERS layers (three
+    """Gemma-2-9B at full width on GEMMA9_LAYERS layers (its long request
+    past the window), Gemma-2-27B at full width on GEMMA27_LAYERS layers (three
     of the serve requests and the long one), PaliGemma-3B at full width
     and depth; each freed before the next."""
     _, l9 = _serve_gemma9()
@@ -5039,6 +5073,303 @@ def phase_serve_encdec():
     del params
     torch.cuda.empty_cache()
     return _sum_counts(*counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: sharded serving, expert parallelism over an NCCL mesh
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCH = "qwen2-moe-a2.7b"
+SHARDED_IMPLS = ("a2a", "replicated_ep")
+# the layer check: the tune step's tokens (4 x 1024) through one MoE
+# layer at full width, f32.  capacity_factor 2.0 sizes every path's
+# buffers for twice the mean load (dense 548 slots an expert, a2a 552,
+# replicated_ep 548), so nothing drops (checked): the paths compute one
+# function and their outputs and gradients must agree to f32 sums in
+# another order, SHARDED_REL_TOL of each tensor's largest |value|
+SHARDED_LAYER_BS = (4, 1024)
+SHARDED_CF = 2.0
+SHARDED_REL_TOL = 1e-5
+# the engine check: f32 on the first 4 layers, the 4 shortest of the
+# serve prompts, 16 new tokens, bucketed admission in chunks of 8 rows
+# in every engine (a chunk of 8 rows fills at most 8 of the mesh=None
+# path's 8 capacity slots an expert, so it drops nothing either)
+SHARDED_F32_LAYERS = 4
+SHARDED_F32_NEW = 16
+SHARDED_CHUNK = 8
+# the profiles' kernel groups: NCCL's kernels, kernels 4 and 5 (the f32
+# instance runs the grouped FFN as grouped products and a gate pass),
+# kernel 6, kernel 2
+SHARDED_GROUPS = {"nccl": ("nccl",),
+                  "kernels 4-5": ("ffn_", "gmm_", "gate_kernel",
+                                  "split_kernel"),
+                  "kernel 6": ("gsa_",), "kernel 2": ("paged_fwd",)}
+
+
+def _nccl_mesh():
+    """An NCCL process group of one rank over an in-process store (NCCL
+    will not put two ranks on one card) and its (1, 1) decode mesh.
+    Returns (mesh, whether this call started the group)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as LM
+    started = LM.init_process_group("cuda")
+    mesh = LM.make_decode_mesh(device="cuda")
+    if tuple(mesh.shape) != (1, 1) or "nccl" not in str(dist.get_backend()):
+        fail(f"serve_sharded: mesh {tuple(mesh.shape)} on "
+             f"{dist.get_backend()}, expected (1, 1) on nccl")
+    return mesh, started
+
+
+def _rel_err(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _sharded_layer_check(moe, cfg, p, mesh):
+    """One full-width MoE layer (f32) through moe_dense on the kernel path
+    and through both forced sharded paths on the (1, 1) mesh: output,
+    aux loss and every gradient (x, router, experts, shared experts) of
+    sum(out * ct) + aux within SHARDED_REL_TOL; kernels 4, 5 and 6
+    launched by each sharded path's forward and backward, none by their
+    plain versions (``use_kernels=False``, forward held to the same
+    limit); each path's forward time and the NCCL kernels' device time
+    of a forward and backward."""
+    from repro_torch.kernels.moe_dispatch import ops as md
+    from repro_torch.utils.pytree import tree_map, tree_paths
+    B, S = SHARDED_LAYER_BS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    ct = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    c = cfg.replace(capacity_factor=SHARDED_CF, moe_dropless=False)
+    T, k, E = B * S, c.top_k, c.n_experts
+    with torch.no_grad():
+        _, idx, _ = moe.route(p, c, x.reshape(T, -1))
+    load = int(torch.bincount(idx.reshape(-1), minlength=E).max())
+    caps = {"dense": max(-(-T * k // E) * 2, 8),
+            "a2a": moe._capacity(c, T, E, align=8),
+            "replicated_ep": min(-(-moe._capacity(c, T, E, align=1) // 4)
+                                 * 4, max(T, 4))}
+    if load > min(caps.values()):
+        fail(f"serve_sharded layer check: an expert takes {load} rows, past "
+             f"a capacity of {caps}: paths that drop are not comparable")
+
+    def run(impl, use_kernels=True, grads=True):
+        cc = c.replace(moe_impl=impl, use_kernels=use_kernels)
+        q = tree_map(lambda t: t.detach().requires_grad_(grads),
+                     moe.shard_experts({"moe": p}, cc, mesh)["moe"])
+        xx = x.detach().requires_grad_(grads)
+
+        def fwd_bwd():
+            out, aux = moe.apply_moe(q, cc, xx, mesh)
+            if grads:
+                ((out * ct).sum() + aux).backward()
+            return out.detach(), aux.detach()
+
+        (out, aux), n = _launched(fwd_bwd)
+        g = {"x": xx.grad} if grads else {}
+        if grads:
+            g.update({path: t.grad for path, t in tree_paths(q)})
+        return out, aux, g, n
+
+    want, want_aux, want_g, n_dense = run("dense")
+    res = {"T": T, "E": E, "top_k": k, "largest_load": load,
+           "capacities": caps, "dense_launches": n_dense}
+    for impl in SHARDED_IMPLS:
+        out, aux, g, n = run(impl)
+        errs = {"out": _rel_err(out, want), "aux": _rel_err(aux, want_aux),
+                **{f"d{name}": _rel_err(g[name], want_g[name])
+                   for name in want_g}}
+        worst = max(errs.values())
+        if not worst <= SHARDED_REL_TOL or not torch.isfinite(out).all():
+            fail(f"serve_sharded layer check {impl}: {errs}")
+        if not (n["grouped_ffn"] and n["grouped_matmul"]
+                and n["gather_scatter_add"] >= 4):
+            fail(f"serve_sharded layer check {impl}: launches {n}")
+        pout, _, _, pn = run(impl, use_kernels=False, grads=False)
+        if any(pn.values()) or not _rel_err(pout, want) <= SHARDED_REL_TOL:
+            fail(f"serve_sharded layer check {impl} plain: launches {pn}, "
+                 f"err {_rel_err(pout, want)}")
+        cc = c.replace(moe_impl=impl)
+        q = moe.shard_experts({"moe": p}, cc, mesh)["moe"]
+        with torch.no_grad():
+            ms = time_ms(lambda: moe.apply_moe(q, cc, x, mesh), iters=5,
+                         warmup=1)
+        prof = profile(lambda: run(impl), top=4, groups=SHARDED_GROUPS)
+        res[impl] = {"rel_err": errs, "worst_rel_err": worst,
+                     "launches_fwd_bwd": {kk: v for kk, v in n.items() if v},
+                     "plain_max_rel_err": _rel_err(pout, want),
+                     "fwd_ms": ms, "fwd_bwd_device_ms": prof["device_ms"],
+                     "group_ms": prof["group_ms"],
+                     "group_launches": prof["group_launches"]}
+    with torch.no_grad():
+        res["dense_fwd_ms"] = time_ms(
+            lambda: moe.apply_moe(p, c.replace(moe_impl="dense"), x), iters=5,
+            warmup=1)
+    res["gsa_instances"] = dict(md.LAUNCHES_BY_INSTANCE)
+    return res
+
+
+def _sharded_engines_f32(M, moe, params, cfg, mesh, prompts, lens):
+    """The f32 model cut to SHARDED_F32_LAYERS layers: 4 requests through
+    both engines with bucketed admission (chunks of SHARDED_CHUNK), on
+    mesh=None and on the mesh through both forced paths; every sharded
+    run's tokens equal to mesh=None's, and kernels 4 and 6 launched in
+    them."""
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    from repro_torch.utils.pytree import tree_map
+    p32, c32 = _cut_depth(params, cfg, SHARDED_F32_LAYERS)
+    p32 = tree_map(lambda t: t.float(), p32)
+    c32 = c32.replace(dtype="float32")
+    pick = range(4)
+    max_len = max(lens[i] for i in pick) + SHARDED_F32_NEW
+
+    def make(cls, c, on_mesh):
+        kw = {"block_len": 16} if cls is PagedServeEngine else {}
+        eng = cls(p32, c, n_slots=4, seg_len=8, max_len=max_len,
+                  device="cuda", chunk_len=SHARDED_CHUNK,
+                  mesh=mesh if on_mesh else None, **kw)
+        for i in pick:
+            eng.submit({"tokens": prompts[i]}, max_new=SHARDED_F32_NEW)
+        return eng
+
+    res = {}
+    for cls in (ServeEngine, PagedServeEngine):
+        _, comps, wall, _, _ = _engine_run(lambda: make(cls, c32, False))
+        want = _tokens(comps)
+        row = {"mesh=None_wall_s": wall}
+        for impl in SHARDED_IMPLS:
+            eng, comps, wall, n, _ = _engine_run(
+                lambda: make(cls, c32.replace(moe_impl=impl), True))
+            if _tokens(comps) != want:
+                fail(f"serve_sharded f32 {cls.__name__} {impl}: tokens "
+                     f"{_first_divergence(_tokens(comps), want)} differ "
+                     f"from mesh=None")
+            if not (n["grouped_ffn"] and n["gather_scatter_add"]):
+                fail(f"serve_sharded f32 {cls.__name__} {impl}: launches {n}")
+            row[impl] = {"wall_s": wall, "equal": True,
+                         "tokens": sum(len(t) for t in want.values()),
+                         "grouped_ffn": n["grouped_ffn"],
+                         "gather_scatter_add": n["gather_scatter_add"]}
+        res[cls.__name__] = row
+    del p32
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sharded_launcher():
+    """``launch/serve.py --sharded --check-unsharded --paged`` in process,
+    on the group this phase holds."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch_serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", SHARDED_ARCH, "--variant", "reduced",
+                           "--sharded", "--check-unsharded", "--paged"])
+    text = out.getvalue()
+    if "check-unsharded: completions match" not in text:
+        fail(f"serve_sharded launcher: {text[-500:]}")
+    return [ln for ln in text.splitlines() if ln.startswith(("sharded:",
+                                                             "check-"))]
+
+
+def phase_serve_sharded():
+    """Qwen1.5-MoE-A2.7B at full width with its experts on an NCCL mesh of
+    one rank, (1, 1), the MoE forced onto the sharded paths, so that the
+    collectives and kernels 4-6 run on the sharded buffer layout: the
+    layer check (``_sharded_layer_check``); the f32 engine check
+    (``_sharded_engines_f32``); then the bf16 model at full depth, 8 of
+    the 16 requests (every other) through the paged engine, mesh=None,
+    then the a2a path with every launch counted (the main path): tok/s,
+    ms a decode step against mesh=None's, each request's first
+    divergence from it (mesh=None's kernel path drops assignments in
+    prefill, the sharded path's serving capacity none); the launcher with
+    ``--sharded --check-unsharded``.  Returns the a2a run's launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve import PagedServeEngine
+    mesh, started = _nccl_mesh()
+    cfg = get_config(SHARDED_ARCH, variant="full")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    params = M.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    lens, prompts = _serve_prompts(cfg)
+    with torch.no_grad():
+        p32 = {k: v.float() for k, v in M._layer(
+            params["blocks"]["sub0"]["moe"], 0).items() if k != "shared"}
+        p32["shared"] = {k: v.float() for k, v in M._layer(
+            params["blocks"]["sub0"]["moe"], 0)["shared"].items()}
+    layer = _sharded_layer_check(moe, cfg.replace(dtype="float32"), p32,
+                                 mesh)
+    del p32
+    print(f"serve_sharded layer check ({CARD}) " + json.dumps(layer))
+    with torch.no_grad():
+        f32 = _sharded_engines_f32(M, moe, params, cfg, mesh, prompts, lens)
+    print(f"serve_sharded f32 engines ({CARD}) " + json.dumps(f32))
+
+    ps, ls = prompts[1::2], lens[1::2]
+    max_new, n_slots, bl, seg_len = 64, 8, 16, 8
+
+    def make_engine(c, on_mesh):
+        eng = PagedServeEngine(params, c, n_slots=n_slots, block_len=bl,
+                               seg_len=seg_len, max_len=max(lens) + max_new,
+                               device="cuda", mesh=mesh if on_mesh else None)
+        for p in ps:
+            eng.submit({"tokens": p}, max_new=max_new)
+        return eng
+
+    with torch.no_grad():
+        eng, comps, wall, _, peak = _engine_run(
+            lambda: make_engine(cfg, False))
+        base = _serve_readings(eng, comps, wall, peak, seg_len)
+        want = _tokens(comps)
+        del eng
+        c = cfg.replace(moe_impl="a2a")
+        eng, comps, wall, launches, peak = _engine_run(
+            lambda: make_engine(c, True))
+    _check_served("serve_sharded a2a", eng, comps, ls, max_new,
+                  cfg.vocab_size)
+    st = eng.stats
+    steps = st["segments"] * seg_len
+    calls = st["prefills"] + steps
+    expect = {**dict.fromkeys(launches, 0),
+              "flash_attention": cfg.n_layers * st["prefills"],
+              "paged_attn": cfg.n_layers * steps,
+              "grouped_ffn": n_moe * calls,
+              "gather_scatter_add": 2 * n_moe * calls}
+    if launches != expect or steps <= 0:
+        fail(f"serve_sharded a2a: launches {launches} != {expect}")
+    got = _tokens(comps)
+    div = _first_divergence(got, want)
+    shard = _serve_readings(eng, comps, wall, peak, seg_len)
+    del eng
+    with torch.no_grad():
+        # one decode segment with every slot live, under the profiler
+        # (serve_moe profiles mesh=None's on the same card)
+        eng = make_engine(c, True)
+        eng.step()
+        seg = profile(eng.step, top=6, groups=SHARDED_GROUPS)
+    seg["launches_per_layer_step"] = seg["device_launches"] / (
+        cfg.n_layers * seg_len)
+    res = {"arch": SHARDED_ARCH, "mesh": list(mesh.shape),
+           "backend": str(dist.get_backend()), "a2a": shard,
+           "mesh=None": base,
+           "decode_step_ratio": (shard["ms_per_decode_step"]
+                                 / base["ms_per_decode_step"]),
+           "tok_per_s_ratio": shard["tok_per_s"] / base["tok_per_s"],
+           "requests_diverging": len(div), "first_divergence": div,
+           "launches": launches}
+    print(f"serve_sharded bf16 ({CARD}) " + json.dumps(res))
+    print(f"serve_sharded profile (a2a, decode segment of {seg_len} steps) "
+          + json.dumps(seg))
+    del eng, params
+    torch.cuda.empty_cache()
+    print("serve_sharded launcher: " + json.dumps(_sharded_launcher()))
+    if started:
+        dist.destroy_process_group()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -7947,7 +8278,12 @@ PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
          phase_serve_hybrid, phase_serve_mla, phase_serve_gemma,
          phase_serve_encdec, phase_train, phase_train_ssm, phase_train_hybrid,
          phase_train_mla, phase_train_encdec, phase_tune, phase_distill,
-         phase_pipeline, phase_methods, phase_fleet)
+         phase_pipeline, phase_methods, phase_fleet,
+         # last: run before the train phases, it left train_mla (75.3 GB
+         # at its peak on a 79.2 GiB card) out of memory twice on the H100,
+         # though PyTorch had freed all it allocated and the NCCL group
+         # was destroyed
+         phase_serve_sharded)
 
 
 def main() -> int:
@@ -7975,7 +8311,13 @@ def main() -> int:
     for run in PATHS:
         t0 = time.perf_counter()
         paths.append(run())
-        print(f"phase {run.__name__[6:]}: {time.perf_counter() - t0:.1f}s")
+        wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"phase {run.__name__[6:]}: {wall:.1f}s (then "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
+              f"{(total - free) / 2**30:.3f} GiB of the card in use)")
     launches = {k: sum(path.get(k, 0) for path in paths) for k in KERNELS}
     line = []
     for kname in KERNELS:

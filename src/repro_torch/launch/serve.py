@@ -1,10 +1,8 @@
 """Serving launcher of the port: continuous batching on the card.
 
 Thin client of ``repro_torch.serve`` with the CLI of ``repro.launch.serve``.
-Only the ported architectures (``repro_torch.configs``) and engine
-features run; the reference's sharded-serving flags are accepted and
-refused with ``NotImplementedError``.  Weights are random, drawn from
-``--seed``, which also keys the requests' random streams.
+Weights are random, drawn from ``--seed`` (the same on every rank), which
+also keys the requests' random streams.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --variant full --paged
@@ -59,28 +57,39 @@ the completions match (greedy: token for token).
       --n-draft 3 --check-unspeculated
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --device cpu --paged --mixed --top-k 40 --temperature 0.8
+
+Sharded serving: ``--sharded`` serves on the decode mesh (``launch/mesh.py``)
+over every rank: ranks come from ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` (one rank without them), NCCL on the card, gloo on the
+CPU; the MoEs take the expert-parallel a2a path on more than one rank,
+and only rank 0 prints.  ``--overlap-a2a`` runs a contiguous MoE decode
+step as two batch halves; ``--check-unsharded`` replays the traffic with
+``mesh=None`` and the overlap off and fails unless the completions
+match.
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2-moe-a2.7b --variant reduced --device cpu --sharded \
+      --check-unsharded --paged
 """
 from __future__ import annotations
 
 import argparse
+import builtins
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.launch import mesh as LM
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.layers import paged_read_path
 from repro_torch.serve import (Greedy, PagedServeEngine, ServeEngine,
                                Temperature, TopK)
+from repro_torch.sharding import rules
 from repro_torch.utils.device import resolve_device
-
-# reference flags with no port yet: (flag, argparse kwargs)
-_NOT_PORTED = [
-    ("--sharded", {"action": "store_true"}),
-    ("--overlap-a2a", {"action": "store_true"}),
-    ("--check-unsharded", {"action": "store_true"}),
-]
 
 
 def pick_sampler(args):
@@ -165,8 +174,15 @@ def parse_args(argv=None):
     ap.add_argument("--check-unspeculated", action="store_true",
                     help="replay the same traffic without speculation and "
                          "fail unless completions match")
-    for flag, kw in _NOT_PORTED:
-        ap.add_argument(flag, help="not ported yet", **kw)
+    ap.add_argument("--sharded", action="store_true",
+                    help="serve on the decode mesh (data x model over every "
+                         "rank) instead of one device")
+    ap.add_argument("--overlap-a2a", action="store_true",
+                    help="MoE decode: run the step as two batch halves "
+                         "around the expert all-to-all")
+    ap.add_argument("--check-unsharded", action="store_true",
+                    help="replay the same traffic single-device (mesh=None, "
+                         "overlap off) and fail unless completions match")
     args = ap.parse_args(argv)
     if args.check_unquantized and args.kv_dtype not in ("int8", "fp8"):
         ap.error("--check-unquantized requires a quantized --kv-dtype")
@@ -176,19 +192,36 @@ def parse_args(argv=None):
         ap.error("--check-unbucketed requires --bucket")
     if args.check_unspeculated and not args.speculate:
         ap.error("--check-unspeculated requires --speculate")
-    for flag, kw in _NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) != kw.get("default",
-                                                              False):
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.check_unsharded and not args.sharded:
+        ap.error("--check-unsharded requires --sharded")
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    mesh, started = None, False
+    if args.sharded:
+        started = LM.init_process_group(device)
+        device = LM.local_device(device)
+        mesh = LM.make_decode_mesh(device=device.type)
+    try:
+        return _serve(args, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, mesh):
+    """The traffic through the engine(s) on ``device``; only rank 0 of a
+    mesh prints."""
+    print = (builtins.print if mesh is None or dist.get_rank() == 0
+             else (lambda *a, **k: None))
     cfg = get_config(args.arch, variant=args.variant)
     if args.variant == "reduced":
         cfg = cfg.replace(vocab_size=args.vocab)
+    if args.overlap_a2a:
+        cfg = cfg.replace(overlap_a2a=True)
     rng = np.random.default_rng(args.seed)
     P, G = args.prompt_len, args.gen
     lengths = (mixed_lengths(args.requests, P, G) if args.mixed
@@ -206,7 +239,8 @@ def main(argv=None):
         if args.buckets:
             bucket_kw["buckets"] = [int(b) for b in args.buckets.split(",")]
 
-    def make_engine(kv_dtype, bucketed=True, speculate=args.speculate):
+    def make_engine(kv_dtype, bucketed=True, speculate=args.speculate,
+                    mesh=mesh, cfg=cfg):
         bkw = dict(bucket_kw if bucketed else {})
         if speculate:
             bkw["speculate"] = args.n_draft
@@ -214,9 +248,10 @@ def main(argv=None):
             eng = PagedServeEngine(params, cfg, block_len=args.block_len,
                                    n_blocks=args.blocks or None,
                                    lazy=not args.eager_blocks,
-                                   kv_dtype=kv_dtype, **kw, **bkw)
+                                   kv_dtype=kv_dtype, mesh=mesh, **kw, **bkw)
         else:
-            eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, **kw, **bkw)
+            eng = ServeEngine(params, cfg, kv_dtype=kv_dtype, mesh=mesh,
+                              **kw, **bkw)
         for batch, (_, g) in zip(prompts, lengths):
             eng.submit(batch, max_new=g)
         return eng
@@ -298,6 +333,22 @@ def main(argv=None):
             raise SystemExit(f"speculative completions diverged from "
                              f"unspeculated: {got} != {want}")
         print("check-unspeculated: completions match")
+    if args.sharded:
+        path = moe.moe_path(cfg, mesh) if cfg.is_moe else "no MoE"
+        print(f"sharded: mesh={dict(rules.as_abstract(mesh).shape)} "
+              f"moe path={path} overlap_a2a={cfg.overlap_a2a}"
+              + (f" allocator shards={engine.alloc.n_shards}" if args.paged
+                 else ""))
+    if args.check_unsharded:
+        # the same layout, admission and KV policy on one device
+        ref = make_engine(args.kv_dtype, mesh=None,
+                          cfg=cfg.replace(overlap_a2a=False))
+        want = {u: c.tokens.tolist() for u, c in ref.run().items()}
+        got = {u: c.tokens.tolist() for u, c in comps.items()}
+        if got != want:
+            raise SystemExit(f"sharded completions diverged from "
+                             f"single-device: {got} != {want}")
+        print("check-unsharded: completions match")
     return comps
 
 

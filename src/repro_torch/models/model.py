@@ -102,6 +102,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import layers, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import rules
 from repro_torch.utils.rng import Stream
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -114,6 +115,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def shard_act(x, mesh):
+    """The reference's layout constraint on an activation's batch dim.
+    The identity here: on a mesh the port keeps every dense weight,
+    activation and cache whole on every rank, and only the MoE's experts
+    are split (``models/moe.py``).  The dense layout (batch over the data
+    axes, heads over "model") comes with the tensor-parallel slice."""
+    return x
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int:
@@ -187,7 +197,7 @@ def _init_block(generator, cfg: ModelConfig, dtype, lead, *, use_moe: bool):
 
 
 def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
-                causal: bool = True):
+                causal: bool = True, mesh=None):
     """Full-sequence sub-layer.  Returns (x, aux, cache_entry): ``aux``
     is the MoE load-balance loss (0 for a dense sub-layer), the entry
     ``{"k", "v"}`` (MLA: ``{"ckv", "kr"}``)."""
@@ -205,17 +215,18 @@ def _block_full(p, cfg: ModelConfig, x, positions, *, kind: str,
     x = x + attn_out
     h = layers.apply_norm(p["ln2"], x)
     if "moe" in p:
-        ffn_out, aux = moe.apply_moe(p["moe"], cfg, h)
+        ffn_out, aux = moe.apply_moe(p["moe"], cfg, h, mesh)
     else:
         ffn_out = layers.apply_mlp(p["mlp"], cfg, h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_block_norm:
         ffn_out = layers.apply_norm(p["ln2_post"], ffn_out)
-    return x + ffn_out, aux, kv
+    return shard_act(x + ffn_out, mesh), aux, kv
 
 
 def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
-                  block_tables=None, write_tables=None, live=None):
+                  block_tables=None, write_tables=None, live=None,
+                  mesh=None):
     """Decode / chunk sub-layer.  x: (B, C, D), pos: (B, C) — C=1 is the
     single-token decode step.  ``cache`` is the layer's ``{"k", "v"}``
     (MLA: ``{"ckv", "kr"}``; contiguous rows, or block pools when
@@ -236,12 +247,12 @@ def _block_decode(p, cfg: ModelConfig, x, pos, cache, *, kind: str,
     x = x + attn_out
     h = layers.apply_norm(p["ln2"], x)
     if "moe" in p:
-        ffn_out, _ = moe.apply_moe(p["moe"], cfg, h, live=live)
+        ffn_out, _ = moe.apply_moe(p["moe"], cfg, h, mesh, live=live)
     else:
         ffn_out = layers.apply_mlp(p["mlp"], cfg, h)
     if cfg.post_block_norm:
         ffn_out = layers.apply_norm(p["ln2_post"], ffn_out)
-    return x + ffn_out, cache
+    return shard_act(x + ffn_out, mesh), cache
 
 
 def _groups(tree, n: int):
@@ -297,7 +308,7 @@ def _maybe_remat(cfg: ModelConfig, fn, *, policy=None):
 
 def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
                causal: bool, collect_cache: bool,
-               collect_stages: bool = False):
+               collect_stages: bool = False, mesh=None):
     """Loop over the stacked groups of sub-layers (full sequence), each
     group rematerialised in the backward when ``cfg.remat``.  Returns
     (x, aux, caches, stages): ``aux`` the MoE load-balance losses summed
@@ -314,7 +325,7 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(pattern):
             x, a, kv = _block_full(gp[f"sub{i}"], cfg, x, positions,
-                                   kind=kind, causal=causal)
+                                   kind=kind, causal=causal, mesh=mesh)
             aux = aux + a
             kvs.append(kv)
         return x, aux, (kvs if collect_cache else [])
@@ -338,14 +349,16 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, *, pattern,
 
 
 def _decode_stack(blocks, cfg: ModelConfig, x, pos, cache, *, pattern,
-                  block_tables=None, write_tables=None, live=None):
+                  block_tables=None, write_tables=None, live=None,
+                  mesh=None):
     n = next(iter(blocks["sub0"]["ln1"].values())).shape[0]
     for g in range(n):
         gp, gc = _layer(blocks, g), _layer(cache, g)
         for i, kind in enumerate(pattern):
             x, _ = _block_decode(gp[f"sub{i}"], cfg, x, pos, gc[f"sub{i}"],
                                  kind=kind, block_tables=block_tables,
-                                 write_tables=write_tables, live=live)
+                                 write_tables=write_tables, live=live,
+                                 mesh=mesh)
     return x, cache
 
 
@@ -642,7 +655,8 @@ def _frontend_embed(params, cfg: ModelConfig, batch):
 
 
 def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-             collect_cache: bool = False, collect_stages: bool = False):
+             collect_cache: bool = False, collect_stages: bool = False,
+             mesh=None):
     """Full-sequence forward of every family.  Returns (final-normed
     hidden (B, S, D), aux loss (f32 scalar, 0 but for MoE), caches,
     stages) — ``caches`` is ``{"blocks": ...}`` (the hybrid family:
@@ -654,7 +668,8 @@ def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     S_txt, positions from 0 over both), so its hidden states keep the
     patch rows; the loss drops them.  The encoder-decoder family:
     ``_encdec_backbone`` (caches ``{"self", "cross", "memory"}``, stages
-    the decoder layers')."""
+    the decoder layers').  ``mesh`` (``launch/mesh.py``) reaches the MoE
+    sub-layers (``moe.apply_moe``); the other families have none."""
     _check_ported(cfg)
     if cfg.arch_type == "encdec":
         x, caches, stages = _encdec_backbone(params, cfg, batch,
@@ -682,13 +697,15 @@ def backbone(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             x, aux, dc, _ = _run_stack(params["dense_blocks"], cfg, x,
                                        positions, pattern=("full",),
                                        causal=True,
-                                       collect_cache=collect_cache)
+                                       collect_cache=collect_cache,
+                                       mesh=mesh)
             if collect_cache:
                 caches["dense_blocks"] = dc
         x, a, c, stages = _run_stack(params["blocks"], cfg, x, positions,
                                      pattern=cfg.attn_pattern, causal=True,
                                      collect_cache=collect_cache,
-                                     collect_stages=collect_stages)
+                                     collect_stages=collect_stages,
+                                     mesh=mesh)
         aux = aux + a
     if collect_cache:
         caches["blocks"] = c
@@ -744,12 +761,13 @@ def chunked_ce(params, cfg: ModelConfig, h, labels, mask):
     return nll_s, tok_s, cor_s
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
+def loss_fn(params, cfg: ModelConfig, batch, *, mesh=None):
     """Autoregressive LM loss (Eq. 2) plus the MoE load-balance loss and,
     with an MTP head, ``mtp_loss_weight`` times its loss.  Returns
     (loss + aux, metrics) with the reference's keys; ``aux_loss`` is 0
-    but for the MoE family, ``mtp_loss`` present with an MTP head."""
-    h, aux, _, _ = backbone(params, cfg, batch)
+    but for the MoE family, ``mtp_loss`` present with an MTP head.
+    ``mesh``: the MoE's expert-parallel paths (``backbone``)."""
+    h, aux, _, _ = backbone(params, cfg, batch, mesh=mesh)
     labels = batch["labels"]
     if cfg.arch_type == "vlm":  # drop the patch positions
         h = h[:, -labels.shape[1]:]
@@ -794,14 +812,15 @@ def _mtp_loss(params, cfg: ModelConfig, h, batch):
     return _mtp_step(params, cfg, h, batch["tokens"], batch["labels"], 1)[1]
 
 
-def mtp_chain_loss(params, cfg: ModelConfig, batch, *, depth: int):
+def mtp_chain_loss(params, cfg: ModelConfig, batch, *, depth: int,
+                   mesh=None):
     """Teacher-forced chained MTP loss: the head at every depth
     ``1..depth``, fed its own output hidden back in (how the reference's
     ``_mtp_draft`` chains at inference).  Depth j at position i combines
     the depth j-1 hidden with the embedding of token i+j and predicts
     token i+j+1; the last j+1 positions are masked out.  Returns the
     mean NLL averaged over depths (depth 1 is ``_mtp_loss``)."""
-    h, _, _, _ = backbone(params, cfg, batch)
+    h, _, _, _ = backbone(params, cfg, batch, mesh=mesh)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(1, depth + 1):
         h, nll = _mtp_step(params, cfg, h, batch["tokens"], batch["labels"],
@@ -814,13 +833,15 @@ def mtp_chain_loss(params, cfg: ModelConfig, batch, *, depth: int):
 # serving: prefill + decode cache
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, batch, *, return_hidden=False):
+def prefill(params, cfg: ModelConfig, batch, *, return_hidden=False,
+            mesh=None):
     """Runs the full prompt, returns (last_token_logits (B, V) f32,
     cache) with the cache entries of every position.  ``return_hidden``
     packs the last position's final-normed hidden (B, D) beside the
     logits, ``((logits, h_last), cache)``, so a speculative engine can
     seed its first draft chain with it."""
-    h, _, caches, _ = backbone(params, cfg, batch, collect_cache=True)
+    h, _, caches, _ = backbone(params, cfg, batch, collect_cache=True,
+                               mesh=mesh)
     logits = _head(params, cfg, h[:, -1:])[:, 0]
     if return_hidden:
         return (logits, h[:, -1]), caches
@@ -1236,7 +1257,7 @@ def _encdec_encode(params, cfg: ModelConfig, cache, frames) -> None:
 
 def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
                   block_tables=None, write_tables=None, n_valid=None,
-                  live=None):
+                  live=None, mesh=None):
     """Shared decode / chunked-prefill body: pre-embedded inputs x
     (B, C, D) at positions pos (B, C) int32, written into (and attended
     against) the cache in place.  Returns (final-normed hidden (B, C, D),
@@ -1277,29 +1298,72 @@ def _chunk_hidden(params, cfg: ModelConfig, cache, x, pos, *,
         x, cache["dense_blocks"] = _decode_stack(
             params["dense_blocks"], cfg, x, pos, cache["dense_blocks"],
             pattern=("full",), block_tables=block_tables,
-            write_tables=write_tables, live=live)
+            write_tables=write_tables, live=live, mesh=mesh)
     x, cache["blocks"] = _decode_stack(
         params["blocks"], cfg, x, pos, cache["blocks"],
         pattern=cfg.attn_pattern, block_tables=block_tables,
-        write_tables=write_tables, live=live)
+        write_tables=write_tables, live=live, mesh=mesh)
     return layers.apply_norm(params["final_norm"], x), cache
 
 
+def _overlap_ok(cfg: ModelConfig, mesh, B: int, block_tables) -> bool:
+    """Gate for the EP-A2A overlapped decode step: contiguous-cache MoE
+    decode through the a2a path on a "model" axis of more than one rank,
+    and a batch that splits into two equal halves.  Paged caches are
+    excluded: both halves would write the same trash block row."""
+    if not (cfg.overlap_a2a and cfg.is_moe and block_tables is None):
+        return False
+    if cfg.moe_impl not in ("auto", "a2a"):
+        return False
+    if mesh is None or "model" not in rules.as_abstract(mesh).shape:
+        return False
+    return rules.as_abstract(mesh).shape["model"] > 1 and B >= 2 \
+        and B % 2 == 0
+
+
+def _decode_step_overlapped(params, cfg: ModelConfig, cache, x, pos, *,
+                            mesh, live):
+    """The decode body on two independent batch halves, each over its own
+    rows of the cache (narrowed views: the writes land in place).  Expert
+    capacity is computed per half (over B/2 rows), as in the reference,
+    so under drops this is not the unsplit step.  The halves run one
+    after the other with synchronous collectives: hiding one half's
+    all-to-all under the other's attention is speed work for later."""
+    B = x.shape[0]
+    half = B // 2
+    bat = decode_cache_batch_axes(cfg, policy=quant.policy_of(cache))
+
+    def run(lo, hi):
+        c = _map(lambda leaf, ax: leaf.narrow(ax, lo, hi - lo), cache, bat)
+        lv = None if live is None else live[lo:hi]
+        return _chunk_hidden(params, cfg, c, x[lo:hi], pos[lo:hi],
+                             mesh=mesh, live=lv)[0]
+
+    return torch.cat([run(0, half), run(half, B)]), cache
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
-                block_tables=None, live=None):
+                block_tables=None, live=None, mesh=None):
     """One serving step: tokens (B, 1) at positions pos (B,).
 
     With ``block_tables`` (B, nbt) int32 the cache is the paged layout of
     ``init_paged_cache``, read and written through the tables.  ``live``
     (B,) bool marks rows holding real requests: freed slots are masked
-    out of MoE routing (None: every row live).  The cache is updated in
-    place.  Returns (logits (B, V) f32, cache).
+    out of MoE routing (None: every row live).  ``mesh``: the MoE's
+    expert-parallel paths; with ``cfg.overlap_a2a`` the step runs as two
+    batch halves (``_overlap_ok``).  The cache is updated in place.
+    Returns (logits (B, V) f32, cache).
     """
     x = _embed(params, cfg, tokens)
-    h, cache = _chunk_hidden(params, cfg, cache, x,
-                             pos.to(torch.int32)[:, None],
-                             block_tables=block_tables,
-                             live=None if live is None else live[:, None])
+    pos = pos.to(torch.int32)[:, None]
+    lv = None if live is None else live[:, None]
+    if _overlap_ok(cfg, mesh, x.shape[0], block_tables):
+        h, cache = _decode_step_overlapped(params, cfg, cache, x, pos,
+                                           mesh=mesh, live=lv)
+    else:
+        h, cache = _chunk_hidden(params, cfg, cache, x, pos,
+                                 block_tables=block_tables, live=lv,
+                                 mesh=mesh)
     return _head(params, cfg, h)[:, 0], cache
 
 
@@ -1311,7 +1375,8 @@ def _zero_recurrent(cfg: ModelConfig, cache) -> None:
 
 
 def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
-                    chunk_len: int, block_tables=None, write_tables=None):
+                    chunk_len: int, block_tables=None, write_tables=None,
+                    mesh=None):
     """Prefill a prompt THROUGH the decode cache in fixed-size chunks.
 
     ``batch["tokens"]`` (B, T_pad) is padded (any values) so that the
@@ -1368,7 +1433,8 @@ def prefill_chunked(params, cfg: ModelConfig, cache, batch, prompt_len, *,
         h, cache = _chunk_hidden(params, cfg, cache,
                                  x_full[:, start:start + C], pos_c,
                                  block_tables=block_tables,
-                                 write_tables=write_tables, n_valid=n_valid)
+                                 write_tables=write_tables, n_valid=n_valid,
+                                 mesh=mesh)
         off = total_real - 1 - start
         here = (off >= 0) & (off < C)
         h_sel = h[rows, torch.clamp(off, 0, C - 1)]
@@ -1472,7 +1538,7 @@ def _spec_zero_rejected(cfg: ModelConfig, cache, pos, a, *, k: int,
 
 def _generate_spec(params, cfg: ModelConfig, cache, tok, pos, rem, done,
                    stream, h, eos: int, *, steps: int, k: int, sampler,
-                   block_tables=None):
+                   block_tables=None, mesh=None):
     """Self-speculative decode, a Python loop as ``generate``'s: each step
     drafts ``k`` tokens greedily with the MTP head (``_mtp_draft``
     chained), verifies all ``C = k+1`` positions in one chunk through the
@@ -1508,7 +1574,8 @@ def _generate_spec(params, cfg: ModelConfig, cache, tok, pos, rem, done,
         hc, cache = _chunk_hidden(params, cfg, cache,
                                   _embed(params, cfg, chunk), cpos,
                                   block_tables=block_tables,
-                                  live=live[:, None].expand(B, C))
+                                  live=live[:, None].expand(B, C),
+                                  mesh=mesh)
         logits = _head(params, cfg, hc)                   # (B, C, V)
         # position j's logits verify draft j+1 (j < k) or sample the
         # bonus token (j = k); a rejection emits the verifier's token and
@@ -1546,7 +1613,7 @@ def _generate_spec(params, cfg: ModelConfig, cache, tok, pos, rem, done,
 def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
              sampler=None, rng=None, eos_id=None, remaining=None,
              return_logits: bool = False, block_tables=None,
-             speculate: int = 0, spec_h=None):
+             speculate: int = 0, spec_h=None, mesh=None):
     """Run ``steps`` decode steps, a Python loop over ``decode_step``.
 
     ``first_tok`` (B,) or (B, 1) is the token fed at ``pos0`` (B,) —
@@ -1575,7 +1642,7 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
     simply rejected).  Needs an MTP head (``cfg.n_mtp`` with
     ``params["mtp"]``: the dense, MoE and VLM families).  A paged table
     must be wide enough for ``pos + k`` (the engine adds spare trash
-    columns).
+    columns).  ``mesh``: the MoE's expert-parallel paths (``decode_step``).
     """
     if sampler is None:
         sampler = greedy_sample
@@ -1606,12 +1673,14 @@ def generate(params, cfg: ModelConfig, cache, first_tok, pos0, *, steps: int,
                  B, cfg.d_model))
         return _generate_spec(params, cfg, cache, tok, pos, rem, done, rng,
                               h, eos, steps=int(steps), k=int(speculate),
-                              sampler=sampler, block_tables=block_tables)
+                              sampler=sampler, block_tables=block_tables,
+                              mesh=mesh)
     toks, valid, all_logits = [], [], []
     for i in range(steps):
         live = ~done
         logits, cache = decode_step(params, cfg, cache, tok[:, None], pos,
-                                    block_tables=block_tables, live=live)
+                                    block_tables=block_tables, live=live,
+                                    mesh=mesh)
         sampled = sampler(rng.advance(i), logits).to(torch.int32)
         rem = rem - live.to(torch.int32)
         done = done | (live & ((sampled == eos) | (rem <= 0)))

@@ -89,25 +89,38 @@ engine's tables get ``_spec_spare`` trash columns past ``max_blocks``
 for the verify chunk's overshoot at a request's capacity, and its lazy
 claims reach ``speculate`` positions past the last accepted one.
 
-Not ported yet, and refused with ``NotImplementedError``: sharded
-serving (``mesh``).
+Sharded serving: with ``mesh`` (a ``DeviceMesh`` of dims ``("data",
+"model")``, ``launch/mesh.py``) every rank runs one engine over the
+same host schedule, and the MoE sub-layers take the expert-parallel path
+``moe.moe_path`` picks (``cfg.moe_impl``; "auto" is "a2a" on more than
+one rank); each rank keeps only its own experts (``moe.shard_experts``).
+The dense weights and the cache stay whole on every rank in this slice,
+so every rank computes the same tokens; ``run`` ends by checking that
+every rank's completions are equal.  The paged engine splits its
+allocator's free lists over the data axes (``n_shards``), as the
+reference's does for its sharded pool.  With ``cfg.overlap_a2a`` a
+contiguous decode step runs as two batch halves
+(``model._decode_step_overlapped``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import model as M
-from repro_torch.models import quant
+from repro_torch.models import moe, quant
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import bucketing as bk
 from repro_torch.serve import paged as pg
 from repro_torch.serve.sampling import Greedy
+from repro_torch.sharding import rules
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.rng import Stream, stream_key
 
@@ -139,6 +152,16 @@ class Completion:
     tokens: np.ndarray     # (n_generated,) — includes the EOS token if hit
     n_segments: int        # decode segments this request rode through
     ttft_s: float          # submit -> first token on the host (first try)
+
+
+def _mesh_axes(mesh):
+    """The axes of an engine's mesh, which must be a ``DeviceMesh`` of
+    dims ("data", "model")."""
+    if tuple(getattr(mesh, "mesh_dim_names", None) or ()) != ("data",
+                                                              "model"):
+        raise TypeError(f"mesh must be a DeviceMesh of dims ('data', "
+                        f"'model') (launch/mesh.py), not {mesh!r}")
+    return rules.as_abstract(mesh)
 
 
 def _first_leaf(tree):
@@ -185,7 +208,9 @@ class ServeEngine:
     admission to bucketed chunked prefill (module docstring); ``buckets``
     overrides its ladder and needs ``chunk_len``.  ``seed`` keys the
     requests' random streams; ``speculate`` is the number of drafts a
-    step (0: no speculative decode).
+    step (0: no speculative decode).  ``mesh``: sharded serving (module
+    docstring); ``params`` are whole, the engine keeps this rank's
+    experts.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 4,
@@ -195,7 +220,7 @@ class ServeEngine:
                  chunk_len: Optional[int] = None, buckets=None,
                  speculate: int = 0, kv_dtype: str = "", mesh=None):
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet")
+            _mesh_axes(mesh)
         self.speculate = int(speculate)
         if self.speculate and not (cfg.n_mtp and "mtp" in params):
             raise ValueError(
@@ -211,6 +236,12 @@ class ServeEngine:
         if leaf_dev.type != self.device.type:
             raise ValueError(f"params lie on {leaf_dev}, engine device is "
                              f"{self.device}")
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot serve "
+                                 f"on {self.device}")
+            params = moe.shard_experts(params, cfg, mesh)
+        self.mesh = mesh
         self.params, self.cfg = params, cfg
         self.kv_dtype = kv_dtype
         self.policy = quant.CachePolicy(kv_dtype)
@@ -405,7 +436,7 @@ class ServeEngine:
         logits, _ = M.prefill_chunked(
             self.params, self.cfg, _slot_view(self.cache, slot, bat, seq),
             self._padded_batch(req, n_chunks * C), req.prompt_len,
-            chunk_len=self.chunk_len, **tables)
+            chunk_len=self.chunk_len, mesh=self.mesh, **tables)
         return logits
 
     def _rollback_place(self, slot: int, req: Request) -> None:
@@ -437,7 +468,7 @@ class ServeEngine:
                 logits, pc = M.prefill(
                     self.params, self.cfg,
                     self._device_batch(req, req.batch["tokens"]),
-                    return_hidden=bool(self.speculate))
+                    return_hidden=bool(self.speculate), mesh=self.mesh)
                 if self.speculate:
                     logits, h0 = logits
             else:
@@ -505,7 +536,7 @@ class ServeEngine:
                          rng=Stream.of(self.keys, self.ctr, dev),
                          eos_id=self.eos_id,
                          remaining=torch.as_tensor(self.rem, device=dev),
-                         **self._segment_kw())
+                         mesh=self.mesh, **self._segment_kw())
         # the stream moved on by seg_len steps in every slot
         self.ctr += self.seg_len
         toks = res["tokens"].cpu().numpy()
@@ -560,13 +591,25 @@ class ServeEngine:
             self._segment()
 
     def run(self) -> Dict[int, Completion]:
-        """Drain the queue: segments with admission in between."""
+        """Drain the queue: segments with admission in between.  On a mesh
+        of more than one rank, every rank's completions must be equal."""
         t0 = time.perf_counter()
         while not self.idle:
             self.step()
         self.stats["wall_s"] = (self.stats.get("wall_s", 0.0)
                                 + time.perf_counter() - t0)
+        if self.mesh is not None and dist.get_world_size() > 1:
+            self._check_ranks_agree()
         return self.completions
+
+    def _check_ranks_agree(self) -> None:
+        mine = {u: c.tokens.tolist() for u, c in self.completions.items()}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        bad = [r for r, theirs in enumerate(every) if theirs != mine]
+        if bad:
+            raise RuntimeError(f"rank {dist.get_rank()}: completions differ "
+                               f"from ranks {bad}")
 
 
 class PagedServeEngine(ServeEngine):
@@ -608,7 +651,16 @@ class PagedServeEngine(ServeEngine):
         self._has_paged = M.has_paged_leaves(cfg)
         self.share_prefix = share_prefix and self._has_paged
         self.lazy = lazy and self._has_paged
-        self.alloc = pg.PagedAllocator(self.n_blocks, block_len)
+        # per-shard free lists over the data axes, as the reference's
+        # sharded pool (each data shard a contiguous run of block ids)
+        n_shards = 1
+        if kw.get("mesh") is not None:
+            m = _mesh_axes(kw["mesh"])
+            n_data = math.prod(m.shape[a] for a in rules.data_axes_of(m))
+            if n_data > 1 and self.n_blocks % n_data == 0:
+                n_shards = n_data
+        self.alloc = pg.PagedAllocator(self.n_blocks, block_len,
+                                       n_shards=n_shards)
         self.block_tables = np.full((n_slots, self._table_w), pg.TRASH,
                                     np.int32)
         self._slot_blocks: Dict[int, List[int]] = {}  # uid -> held block ids

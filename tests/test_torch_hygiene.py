@@ -104,14 +104,15 @@ def test_launcher_serves_on_the_cpu_when_asked():
     assert [len(c.tokens) for _, c in sorted(comps.items())] == [6, 3, 2]
 
 
-# bucketed admission and speculative decode are ported: their cases hold
-# the engine's validation (a chunk length under 1, a ladder without a
-# chunk length, speculation on a model without an MTP head) instead
+# bucketed admission, speculative decode and sharded serving are ported:
+# their cases hold the engine's validation (a chunk length under 1, a
+# ladder without a chunk length, speculation on a model without an MTP
+# head, a mesh that is no DeviceMesh of dims ("data", "model")) instead
 @pytest.mark.parametrize("kw,err,match", [
     ({"chunk_len": 0}, ValueError, "chunk_len must be >= 1"),
     ({"buckets": [8, 16]}, ValueError, "buckets requires chunk_len"),
     ({"speculate": 2}, ValueError, "requires an MTP head"),
-    ({"mesh": object()}, NotImplementedError, "not ported yet")],
+    ({"mesh": object()}, TypeError, "DeviceMesh of dims")],
     ids=["chunk_len", "buckets", "speculate", "mesh"])
 @pytest.mark.parametrize("cls", [ServeEngine, PagedServeEngine])
 def test_unported_engine_options_raise(small, cls, kw, err, match):
@@ -120,14 +121,27 @@ def test_unported_engine_options_raise(small, cls, kw, err, match):
         cls(params, cfg, device="cpu", **kw)
 
 
-# the samplers and speculative decode are ported: sharded serving's
-# flags stay refused, alone or beside another
-@pytest.mark.parametrize("flag", [["--overlap-a2a"], ["--check-unsharded"],
-                                  ["--sharded"], ["--sharded", "--paged"]])
-def test_unported_launcher_flags_raise(flag):
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
+# sharded serving's flags are ported (tests/test_torch_serve_sharded.py):
+# --check-unsharded without --sharded is the reference's usage error, and
+# the other cases hold what stays refused, the training launcher's
+# production mesh and multi-host fleets
+@pytest.mark.parametrize("launcher,flag,err", [
+    ("serve", ["--check-unsharded"], SystemExit),
+    ("train", ["--production-mesh"], NotImplementedError),
+    ("train", ["--n-hosts", "2"], NotImplementedError),
+    ("train", ["--fleet", "4", "--n-hosts", "2"], NotImplementedError)],
+    ids=["check-unsharded", "production-mesh", "n-hosts",
+         "fleet-n-hosts"])
+def test_unported_launcher_flags_raise(launcher, flag, err, capsys):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    with pytest.raises(err) as exc:
+        mod.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
+    if err is SystemExit:
+        assert exc.value.code == 2
+        assert "requires --sharded" in capsys.readouterr().err
+    else:
+        assert "not ported yet" in str(exc.value)
 
 
 @pytest.mark.parametrize("flag", [["--buckets", "8,16"],

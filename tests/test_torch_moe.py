@@ -431,16 +431,18 @@ def test_convert_round_trips_moe_leaves(moe_params):
         convert.params_from_jax(convert.unflatten(bad), cfg)
 
 
+# the expert-parallel paths are ported (tests/test_torch_moe_ep.py): their
+# cases hold that they run over a mesh only, and the mesh case holds what
+# stays refused, a mesh behind the federated server
 @pytest.mark.parametrize("what", ["a2a", "replicated_ep", "mesh"])
 def test_unported_moe_paths_raise(moe_params, what):
     cfg, pt, _ = moe_params
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if what in ("a2a", "replicated_ep"):
-            p = M._layer(pt["blocks"]["sub0"]["moe"], 0)
+    if what in ("a2a", "replicated_ep"):
+        p = M._layer(pt["blocks"]["sub0"]["moe"], 0)
+        with pytest.raises(ValueError, match="runs over a mesh"):
             moe.apply_moe(p, cfg.replace(moe_impl=what),
                           torch.zeros((1, 2, cfg.d_model)))
-        else:
-            # the encoder-decoder family is ported (tests/test_torch_
-            # encdec.py); serving the MoE over a mesh stays refused
-            from repro_torch.serve import ServeEngine
-            ServeEngine(pt, cfg, mesh=object(), device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            server.DeepFusionServer(server.ServerConfig(moe_cfg=cfg), None,
+                                    [], mesh=object(), device="cpu")

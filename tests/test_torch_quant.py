@@ -36,8 +36,24 @@ from repro_torch.models import quant
 from repro_torch.serve import PagedServeEngine, ServeEngine
 from repro_torch.serve import paged as pg
 
+from test_torch_simulation import fast_reference_compiles
+
 QUANT = ("int8", "fp8")
 TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fast_reference():
+    with fast_reference_compiles():
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _codes(q):

@@ -31,8 +31,24 @@ from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.serve import PagedServeEngine, ServeEngine
 
+from test_torch_simulation import fast_reference_compiles
+
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fast_reference():
+    with fast_reference_compiles():
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _slow(np_tree):
