@@ -297,6 +297,7 @@ f32 matrix products run in full f32 (TF32 off) throughout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -305,6 +306,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -5108,16 +5110,17 @@ SHARDED_GROUPS = {"nccl": ("nccl",),
 
 def _nccl_mesh():
     """An NCCL process group of one rank over an in-process store (NCCL
-    will not put two ranks on one card) and its (1, 1) decode mesh.
-    Returns (mesh, whether this call started the group)."""
+    will not put two ranks on one card), started by the first phase that
+    asks and kept for the next (``main`` ends it), and its (1, 1) decode
+    mesh."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as LM
-    started = LM.init_process_group("cuda")
+    LM.init_process_group("cuda")
     mesh = LM.make_decode_mesh(device="cuda")
     if tuple(mesh.shape) != (1, 1) or "nccl" not in str(dist.get_backend()):
-        fail(f"serve_sharded: mesh {tuple(mesh.shape)} on "
-             f"{dist.get_backend()}, expected (1, 1) on nccl")
-    return mesh, started
+        fail(f"mesh {tuple(mesh.shape)} on {dist.get_backend()}, expected "
+             "(1, 1) on nccl")
+    return mesh
 
 
 def _rel_err(a, b):
@@ -5290,7 +5293,7 @@ def phase_serve_sharded():
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.serve import PagedServeEngine
-    mesh, started = _nccl_mesh()
+    mesh = _nccl_mesh()
     cfg = get_config(SHARDED_ARCH, variant="full")
     n_moe = cfg.n_layers - cfg.first_dense_layers
     params = M.init_params(
@@ -5367,8 +5370,6 @@ def phase_serve_sharded():
     del eng, params
     torch.cuda.empty_cache()
     print("serve_sharded launcher: " + json.dumps(_sharded_launcher()))
-    if started:
-        dist.destroy_process_group()
     return launches
 
 
@@ -8225,6 +8226,386 @@ def phase_fleet():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11b: the federated pipeline over ranks (an NCCL group of one rank)
+# ---------------------------------------------------------------------------
+
+# Phase III on the server's (1, 1) mesh, the MoE forced onto a2a, and the
+# same tune at mesh=None.  mesh=None's kernel path sizes an expert's
+# buffer at twice the mean load, a2a at capacity_factor times it aligned
+# to 8 rows: at factor 2.0 and 4 x 960 rows (T k / E = 256) both are 512
+# slots, and both rank a call's assignments alike, so they drop the same
+# ones and compute one function (the f32 check; at 4 x 1024 rows, 548
+# against 552 slots, the first reading dropped other assignments and
+# missed by 3.6e-2).
+FS_CF = 2.0
+FS_STEPS = 4                 # bf16 tune steps at TUNE_LAYERS, each path
+FS_F32_LAYERS, FS_F32_STEPS, FS_F32_SEQ = 2, 3, 960
+FS_EVAL_BATCHES = 1          # evaluate_model: 4 domains x 1 batch 4 x 1024
+FS_FLEET_STEPS = 2           # train_fleet steps; the async run 2 rounds x 1
+# The f32 check: losses, the clip's grad_norm each step, every leaf and
+# evaluate_model's metrics of the mesh run against mesh=None's, relative
+# to each quantity's largest |value|.  Reading on an H100 (700 W): 0.0 on
+# each, bit for bit (at one rank a2a computes mesh=None's function, with
+# the same drops).  The limit leaves the room of f32 sums in another
+# order, should a kernel's order change with its buffer's row count.
+FS_REL_TOL = 1e-5
+# the planted fault (the expert blocks' squares summed twice in the
+# clip's norm) must miss the grad_norm limit by this factor; it read
+# 4.1e-2, 4,100 limits (the same card)
+FS_FAULT_MARGIN = 10.0
+
+
+class _NormTap:
+    """Wraps ``federated.device.adamw_update`` (the tune step's update)
+    while in use, collecting each step's clip norm in ``norms``."""
+
+    def __init__(self, Dv):
+        self.Dv, self.own, self.norms = Dv, Dv.adamw_update, []
+
+    def __call__(self, *a, **k):
+        out = self.own(*a, **k)
+        self.norms.append(float(out[2]["grad_norm"]))
+        return out
+
+    def __enter__(self):
+        self.Dv.adamw_update = self
+        return self
+
+    def __exit__(self, *exc):
+        self.Dv.adamw_update = self.own
+
+
+@contextlib.contextmanager
+def _norm_twice(AW):
+    """A planted fault: the clip's sum over the expert blocks' ranks
+    doubled, as if each block were counted on two ranks."""
+    own = AW.dist
+
+    def all_reduce(t, *a, **k):
+        out = own.all_reduce(t, *a, **k)
+        t.mul_(2.0)
+        return out
+
+    AW.dist = types.SimpleNamespace(all_reduce=all_reduce)
+    try:
+        yield
+    finally:
+        AW.dist = own
+
+
+@torch.no_grad()
+def _max_abs_diff(a, b, chunk=1 << 26):
+    """max |a - b| in f32, a chunk of a flattened expert stack at a time
+    (a whole stack in f32 is 8.3 GB at 12 layers)."""
+    if torch.equal(a, b):
+        return 0.0
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(
+        a.reshape(-1).split(chunk), b.reshape(-1).split(chunk)))
+
+
+def _fs_bases(M, base_cfg, dtype):
+    return [M.init_params(base_cfg.replace(dtype=dtype), generator=torch.
+                          Generator(device="cuda").manual_seed(100 + i))
+            for i in range(TUNE_K)]
+
+
+def _fs_f32_check(S, Dv, M, moe, AW, merge, SIM, corpus, cfg, mesh):
+    """The f32 model at FS_F32_LAYERS, 4 x FS_F32_SEQ rows: ``merge_and_
+    tune`` on the mesh and at mesh=None (the same drops, counted at 512
+    slots), then ``evaluate_model`` of each tuned model (mesh and None),
+    held to FS_REL_TOL; the tune again on the mesh with the norm summed
+    twice, which must miss the grad_norm limit."""
+    from repro_torch.utils.pytree import tree_paths
+    c = cfg.replace(n_layers=FS_F32_LAYERS, dtype="float32")
+    bases = _fs_bases(M, merge.base_config_of(c), "float32")
+    runs = {}
+    for tag, on_mesh, fault in (("none", False, False), ("mesh", True, False),
+                                ("fault", True, True)):
+        cc = c.replace(moe_impl="a2a") if on_mesh else c
+        scfg = S.ServerConfig(cc, tune_steps=FS_F32_STEPS,
+                              tune_batch=TUNE_BATCH, seq_len=FS_F32_SEQ,
+                              seed=0)
+        srv = S.DeepFusionServer(scfg, corpus, [], device="cuda",
+                                 mesh=mesh if on_mesh else None)
+        tap = _RouteTap(moe, ids_only=True)
+        with _NormTap(Dv) as norms, tap:
+            if fault:
+                with _norm_twice(AW):
+                    params, losses = srv.merge_and_tune(bases)
+            else:
+                params, losses = srv.merge_and_tune(bases)
+        drops = sum(_dropped(i, c.n_experts) for i in tap.record)
+        runs[tag] = (dict(tree_paths(params)), losses, norms.norms, drops)
+        if fault:
+            del params
+            continue
+        ev = SIM.evaluate_model(params, cc, corpus,
+                                seq_len=FS_F32_SEQ, batch=TUNE_BATCH,
+                                n_batches=FS_EVAL_BATCHES,
+                                mesh=mesh if on_mesh else None)
+        runs[tag] += (ev,)
+        del params
+    want_p, want_l, want_n, want_d, want_ev = runs["none"]
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a, dtype=torch.float64), \
+            torch.as_tensor(b, dtype=torch.float64)
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+    res = {"layers": FS_F32_LAYERS, "steps": FS_F32_STEPS,
+           "dropped_assignments": {k: v[3] for k, v in runs.items()}}
+    for tag in ("mesh", "fault"):
+        p, losses, norms, _ = runs[tag][:4]
+        res[tag] = {"losses": losses, "grad_norms": norms,
+                    "loss_rel_err": rel(losses, want_l),
+                    "grad_norm_rel_err": rel(norms, want_n),
+                    "param_rel_err": max(rel(p[k].detach().cpu(),
+                                             want_p[k].detach().cpu())
+                                         for k in want_p)}
+    ev = runs["mesh"][4]
+    res["mesh"]["eval_rel_err"] = max(
+        abs(ev[k] - want_ev[k]) / max(abs(want_ev[k]), 1e-300)
+        for k in want_ev if k.startswith(("logppl", "log_ppl", "acc")))
+    res["none"] = {"losses": want_l, "grad_norms": want_n,
+                   "log_ppl": want_ev["log_ppl"]}
+    print(f"federated_sharded f32 check ({CARD}) " + json.dumps(res))
+    if len({v[3] for v in runs.values()}) != 1:
+        fail(f"federated_sharded f32: assignments dropped "
+             f"{res['dropped_assignments']}: the paths differ")
+    worst = max(res["mesh"][k] for k in ("loss_rel_err", "grad_norm_rel_err",
+                                         "param_rel_err", "eval_rel_err"))
+    if not worst <= FS_REL_TOL:
+        fail(f"federated_sharded f32: the mesh run misses mesh=None's by "
+             f"{worst} > {FS_REL_TOL}: {res['mesh']}")
+    if not res["fault"]["grad_norm_rel_err"] > FS_FAULT_MARGIN * FS_REL_TOL:
+        fail(f"federated_sharded f32: the clip's norm summed twice moves "
+             f"grad_norm by only {res['fault']['grad_norm_rel_err']}")
+    return res
+
+
+def _fs_tune_bf16(S, M, merge, moe, corpus, cfg, mesh):
+    """The bf16 model at TUNE_LAYERS through ``merge_and_tune``, mesh=None
+    then the mesh (its launches counted from 0, the main path): ms a step,
+    peak memory, drops, the two runs' distance, frozen experts unchanged.
+    mesh=None's params wait in host memory while the mesh runs, so that
+    each peak holds one model (detached: the tune leaves them requiring
+    grad, and a copy's graph would keep the card's tensors alive).  Returns (the mesh run's whole params,
+    readings, launches)."""
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_gemm import ops as mg_ops
+    from repro_torch.utils.pytree import tree_map, tree_paths
+    bases = _fs_bases(M, merge.base_config_of(cfg), cfg.dtype)
+    out, launches = {}, None
+    for tag, m in (("none", None), ("mesh", mesh)):
+        scfg = S.ServerConfig(cfg if m is None else cfg.replace(
+            moe_impl="a2a"), tune_steps=FS_STEPS, tune_batch=TUNE_BATCH,
+            seq_len=TUNE_SEQ, seed=0)
+        marks = []
+
+        def on_step(s, loss):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        srv = S.DeepFusionServer(scfg, corpus, [], device="cuda", mesh=m,
+                                 on_step=on_step)
+        tap = _RouteTap(moe, ids_only=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with tap:
+            params, losses = srv.merge_and_tune(bases)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if m is not None:
+            launches = _counts()
+            _all_wgmma(kd_ops, "federated_sharded tune")
+            _gmm_on_tensor_cores(mg_ops, cfg.n_layers * FS_STEPS,
+                                 "federated_sharded tune")
+            _gsa_all_vec(md_ops, "federated_sharded tune")
+        step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        out[tag] = {"losses": losses, "wall_s": wall, "step_ms": step_ms,
+                    "ms_per_step": sorted(step_ms)[len(step_ms) // 2],
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "dropped_per_step": sum(_dropped(i, cfg.n_experts)
+                                            for i in tap.record) / 2
+                    / FS_STEPS}
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"federated_sharded bf16 {tag}: non-finite losses {losses}")
+        _check_merge(params, bases, cfg)
+        out[tag]["params"] = params if m is not None else tree_map(
+            lambda t: t.detach().cpu(), params)
+        del srv, params
+    params = out["mesh"].pop("params")
+    a, b = dict(tree_paths(params)), dict(tree_paths(out["none"].pop(
+        "params")))
+    out["max_param_abs_diff"] = max(_max_abs_diff(a[k], b[k].cuda())
+                                    for k in b)
+    out["max_loss_abs_diff"] = max(abs(x - y) for x, y in zip(
+        out["mesh"]["losses"], out["none"]["losses"]))
+    out["step_ratio"] = out["mesh"]["ms_per_step"] / out["none"]["ms_per_step"]
+    L, n = cfg.n_layers, FS_STEPS
+    want = {"flash_attention": 2 * L * n,
+            "kd_loss": 2 * (TUNE_SEQ // cfg.loss_chunk) * n,
+            "gather_scatter_add": 6 * L * n, "grouped_ffn": 2 * L * n,
+            "grouped_matmul": 7 * L * n, "split_f32": 3 * L * n}
+    got = {k: launches[k] for k in want}
+    if got != want or any(v for k, v in launches.items() if k not in want):
+        fail(f"federated_sharded tune launches {launches}, expected {want}")
+    return params, out, got
+
+
+def _fs_fleet(AF, Dv, S, SIM, LM):
+    """The fleet phase's fleet on ``make_fleet_mesh(1)`` over NCCL and at
+    mesh=None: ``train_fleet`` and straggler ``train_fleet_async`` rounds,
+    uploads (and aggregates) bit for bit.  Returns (readings, the mesh
+    runs' launches)."""
+    from repro_torch.utils.pytree import tree_leaves
+    own, fam, moe_cfg, sim, _ = _pipeline_configs()
+    corpus = SIM.build_corpus(sim)
+    fleet = SIM.build_fleet(sim, corpus, fam)
+    slow = SIM.build_fleet(sim, corpus, fam, traffic="harsh")
+    fmesh = LM.make_fleet_mesh(1, device="cuda")
+    if tuple(fmesh.mesh_dim_names) != ("hosts",) or fmesh.size() != 1:
+        fail(f"fleet mesh {fmesh}")
+    run = dict(batch=PIPE_BATCH, seq_len=PIPE_SEQ, seed=0, device="cuda")
+    acfg = S.AsyncFleetConfig(rounds=2, steps_per_round=1,
+                              participation=STRAG_PARTICIPATION,
+                              deadline_s=STRAG_DEADLINE_S,
+                              deadline_policy="stale", seed=STRAG_SEED)
+    res, launches = {}, dict.fromkeys(_counts(), 0)
+    for what in ("sync", "async"):
+        ups = {}
+        for tag, m in (("none", None), ("mesh", fmesh)):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            if what == "sync":
+                ups[tag] = (Dv.train_fleet(fleet, corpus,
+                                           steps=FS_FLEET_STEPS, mesh=m,
+                                           **run), None)
+            else:
+                ups[tag] = AF.train_fleet_async(slow, corpus, acfg, mesh=m,
+                                                **run)
+            torch.cuda.synchronize()
+            res[f"{what}_{tag}_wall_s"] = time.perf_counter() - t0
+            if m is not None:
+                for k, v in _counts().items():
+                    launches[k] += v
+        diff = _first_difference(ups["mesh"][0], ups["none"][0])
+        if diff:
+            fail(f"federated_sharded fleet {what}: the mesh run differs "
+                 f"from mesh=None's at {diff}")
+        if what == "async":
+            rep, rep0 = ups["mesh"][1], ups["none"][1]
+            if rep["n_hosts"] != 1 or rep["rounds"] != rep0["rounds"]:
+                fail(f"federated_sharded fleet async: report {rep['n_hosts']} "
+                     f"hosts, rounds {rep['rounds']} vs {rep0['rounds']}")
+            for k in rep0["aggregates"]:
+                if not all(torch.equal(x, y) for x, y in zip(
+                        tree_leaves(rep["aggregates"][k]),
+                        tree_leaves(rep0["aggregates"][k]))):
+                    fail(f"federated_sharded fleet async: aggregate {k} "
+                         "differs from mesh=None's")
+            res["async_rounds"] = rep["rounds"]
+        res[f"{what}_device_steps"] = sum(len(u["losses"])
+                                          for u in ups["mesh"][0])
+        del ups
+    res["uploads_bit_equal"] = True
+    return res, launches
+
+
+def phase_federated_sharded():
+    """The federated pipeline over ranks on an NCCL group of one rank (the
+    card holds one), sharing serve_sharded's group: (a) Phase III through
+    ``DeepFusionServer(mesh=(1, 1))`` with the MoE forced onto a2a
+    (Qwen1.5-MoE-A2.7B at full width, TUNE_LAYERS layers, 4 x 1024 tokens,
+    capacity factor FS_CF), the f32 model at FS_F32_LAYERS held to
+    mesh=None's tune (losses, grad_norm, every leaf; the norm summed twice
+    must break it), the bf16 model's step against mesh=None's (ms, peak,
+    the NCCL kernels' device time in a profiled step); (b)
+    ``evaluate_model(mesh=)`` against mesh=None's (f32 held, bf16
+    reported); (c) the fleet phase's fleet through ``train_fleet`` and
+    ``train_fleet_async`` on ``make_fleet_mesh(1)``, uploads bit-equal to
+    mesh=None's.  Returns the mesh runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import merge, tuning
+    from repro_torch.data.federated import FederatedCorpus
+    from repro_torch.federated import async_fleet as AF
+    from repro_torch.federated import device as Dv
+    from repro_torch.federated import server as S
+    from repro_torch.federated import simulation as SIM
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw as AW
+    mesh = _nccl_mesh()
+    cfg = get_config("qwen2-moe-a2.7b", variant="full").replace(
+        n_layers=TUNE_LAYERS, capacity_factor=FS_CF, moe_impl="a2a")
+    if moe.moe_path(cfg, mesh) != "a2a" or \
+            moe.moe_path(cfg.replace(moe_impl="auto"), mesh) != "dense":
+        fail("federated_sharded: the (1, 1) mesh does not take a2a when "
+             "forced, or auto takes it")
+    corpus = FederatedCorpus.build(seed=0, n_devices=4, n_domains=4,
+                                   vocab=cfg.vocab_size)
+    # (a) the f32 check, then the bf16 main path; mesh=None's config keeps
+    # "auto" (dense), the mesh's is forced onto a2a
+    f32 = _fs_f32_check(S, Dv, M, moe, AW, merge, SIM, corpus,
+                        cfg.replace(moe_impl="auto"), mesh)
+    torch.cuda.empty_cache()
+    whole, tune, launches = _fs_tune_bf16(
+        S, M, merge, moe, corpus, cfg.replace(moe_impl="auto"), mesh)
+    print(f"federated_sharded tune bf16 ({CARD}) " + json.dumps(tune))
+    # (b) evaluate_model of the bf16 tuned model, mesh=None then the mesh
+    evals = {}
+    for tag, c, m in (("none", cfg.replace(moe_impl="auto"), None),
+                      ("mesh", cfg, mesh)):
+        _zero_counts()
+        t0 = time.perf_counter()
+        evals[tag] = SIM.evaluate_model(whole, c, corpus, seq_len=TUNE_SEQ,
+                                        batch=TUNE_BATCH,
+                                        n_batches=FS_EVAL_BATCHES, mesh=m)
+        evals[f"{tag}_wall_s"] = time.perf_counter() - t0
+        if m is not None:
+            for k, v in _counts().items():
+                launches[k] = launches.get(k, 0) + v
+        if not all(math.isfinite(v) for v in evals[tag].values()):
+            fail(f"federated_sharded eval {tag}: {evals[tag]}")
+    evals["log_ppl_abs_diff"] = abs(evals["mesh"]["log_ppl"]
+                                    - evals["none"]["log_ppl"])
+    print(f"federated_sharded eval bf16 ({CARD}) " + json.dumps(evals))
+    # one more step on the mesh under the profiler (NCCL's device time),
+    # after the evaluation: at one rank shard_experts returns whole's own
+    # tensors, which the step updates in place
+    mask, opt = tuning.init_tuning(whole)
+    p = moe.shard_experts(whole, cfg, mesh)
+    opt = moe.shard_opt_state(opt, cfg, mesh)
+    step = tuning.make_tune_step(cfg, mask, mesh=mesh)
+    b = {k: v.cuda() for k, v in corpus.mixed_eval_batch(
+        TUNE_BATCH, TUNE_SEQ, seed_salt=78).items()}
+    prof = profile(lambda: step(p, opt, b, 5e-4), top=8,
+                   groups={"nccl": ("nccl",),
+                           "kernels 4-5": ("ffn_", "gmm_", "split_kernel"),
+                           "kernel 6": ("gsa_",)})
+    del opt, step, p
+    if not prof["group_launches"]["nccl"]:
+        fail("federated_sharded: the profiled mesh step launched no NCCL "
+             "kernel")
+    print("federated_sharded profile (a2a tune step) " + json.dumps(prof))
+    del whole
+    torch.cuda.empty_cache()
+    # (c) the fleet over a one-host fleet mesh
+    fleet, fl = _fs_fleet(AF, Dv, S, SIM, LM)
+    print(f"federated_sharded fleet ({CARD}) " + json.dumps(fleet))
+    for k, v in fl.items():
+        launches[k] = launches.get(k, 0) + v
+    print("federated_sharded launches " + json.dumps(launches))
+    return launches
+
+
 KERNELS = {
     "kd_loss": {
         "route": "cuda", "source": "src/repro_torch/csrc/kd_loss.cu",
@@ -8279,6 +8660,7 @@ PATHS = (phase_serve, phase_serve_kv, phase_serve_ssm, phase_serve_moe,
          phase_serve_encdec, phase_train, phase_train_ssm, phase_train_hybrid,
          phase_train_mla, phase_train_encdec, phase_tune, phase_distill,
          phase_pipeline, phase_methods, phase_fleet,
+         phase_federated_sharded,
          # last: run before the train phases, it left train_mla (75.3 GB
          # at its peak on a 79.2 GiB card) out of memory twice on the H100,
          # though PyTorch had freed all it allocated and the NCCL group
@@ -8318,6 +8700,9 @@ def main() -> int:
               f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
               f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
               f"{(total - free) / 2**30:.3f} GiB of the card in use)")
+    import torch.distributed as dist
+    if dist.is_initialized():      # the NCCL group of the sharded phases
+        dist.destroy_process_group()
     launches = {k: sum(path.get(k, 0) for path in paths) for k in KERNELS}
     line = []
     for kname in KERNELS:

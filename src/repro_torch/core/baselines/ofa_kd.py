@@ -48,12 +48,13 @@ def ofa_loss(trainable, s_cfg: ModelConfig, t_params, t_cfg: ModelConfig,
              n_stages: int, gamma_stage: float = 0.5, mesh=None):
     """CE + β·KL on the final logits + γ·(mean over J stages of the exit
     head's τ²-scaled KL to the teacher's final logits) + the MoE aux
-    loss.  Returns (total, metrics)."""
-    if mesh is not None:
-        raise NotImplementedError("an OFA-KD mesh is not ported yet")
+    loss.  Returns (total, metrics).  ``mesh`` reaches the student's
+    ``M.backbone``, as in the reference: a MoE student's experts take
+    their expert-parallel path and hold the rank's block
+    (``models/moe.py::shard_experts``); a dense student is unchanged."""
     s_params, heads = trainable["student"], trainable["ofa"]
     h_s, aux, _, stages = M.backbone(s_params, s_cfg, batch,
-                                     collect_stages=True)
+                                     collect_stages=True, mesh=mesh)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:

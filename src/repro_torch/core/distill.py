@@ -17,6 +17,14 @@ features and final hidden states are reused by the student update.  The
 reference compiles the epoch into one scanned program; the port runs the
 same steps eagerly (``optim.loops.scan_epoch``), updating the student
 and VAA parameters in place.
+
+``mesh`` (``launch/mesh.py``) reaches ``M.backbone`` of the teacher and
+the student, as in the reference, where only a MoE's experts take a
+path of their own on a mesh (``models/moe.py``; an MoE student then
+holds the rank's block of its experts, ``shard_experts``, and the clip
+sums the blocks over their ranks).  The teacher and Phase II's student
+base are dense, so on this layout the mesh changes nothing there: the
+dense weights stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import vaa as vaa_mod
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import scan_epoch
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
@@ -48,11 +57,13 @@ def select_stages(stages, n_stages: int) -> List[torch.Tensor]:
 
 
 @torch.no_grad()
-def teacher_forward(t_params, t_cfg: ModelConfig, batch, *, n_stages: int):
+def teacher_forward(t_params, t_cfg: ModelConfig, batch, *, n_stages: int,
+                    mesh=None):
     """Frozen teacher pass.  Returns {"h": final hidden, "stages": J
     stage tensors}, none of which carries a graph.  Without autograd the
     model's remat wrapper runs each group once (no checkpoint)."""
-    h, _, _, stages = M.backbone(t_params, t_cfg, batch, collect_stages=True)
+    h, _, _, stages = M.backbone(t_params, t_cfg, batch, collect_stages=True,
+                                 mesh=mesh)
     return {"h": h, "stages": select_stages(stages, n_stages)}
 
 
@@ -125,14 +136,14 @@ def chunked_ce_kl(s_params, s_cfg: ModelConfig, h_s, t_params, t_cfg,
 def distill_loss(trainable, s_cfg: ModelConfig, t_params, t_cfg: ModelConfig,
                  batch, teacher_out, *, alpha: float = 1.0, beta: float = 1.0,
                  temperature: float = 2.0, n_stages: int = 4,
-                 vaa_heads: int = 4, p_q: int = 64):
+                 vaa_heads: int = 4, p_q: int = 64, mesh=None):
     """trainable = {"student": student_params, "vaa": vaa_params}.
 
     Eq. 11: L_KD = L_CE + α L_FM + β L_KL (+ the student's MoE aux loss,
     0 for the dense base).  Returns (total, metrics)."""
     s_params, vaa_params = trainable["student"], trainable["vaa"]
     h_s, aux, _, stages = M.backbone(s_params, s_cfg, batch,
-                                     collect_stages=True)
+                                     collect_stages=True, mesh=mesh)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -154,27 +165,28 @@ def distill_loss(trainable, s_cfg: ModelConfig, t_params, t_cfg: ModelConfig,
 
 def make_distill_step(s_cfg: ModelConfig, t_cfg: ModelConfig, *, alpha, beta,
                       temperature, n_stages, vaa_heads, p_q,
-                      optimizer_update):
+                      optimizer_update, mesh=None):
     """``step(trainable, opt_state, t_params, batch, lr) -> (trainable,
     opt_state, loss, metrics)``: the teacher pass, the gradient of Eq. 11
     with respect to every student and VAA leaf, and
-    ``optimizer_update(grads, opt_state, trainable, lr=lr)``, in place on
-    ``trainable`` and ``opt_state``."""
+    ``optimizer_update(grads, opt_state, trainable, lr=lr, shards=)``
+    (``shards``: ``moe.clip_shards``, None unless a MoE student's experts
+    are cut over the mesh), in place on ``trainable`` and ``opt_state``."""
 
     def step(trainable, opt_state, t_params, batch, lr):
         teacher_out = teacher_forward(t_params, t_cfg, batch,
-                                      n_stages=n_stages)
+                                      n_stages=n_stages, mesh=mesh)
         leaves = [p.requires_grad_(True) for p in tree_leaves(trainable)]
         loss, metrics = distill_loss(
             trainable, s_cfg, t_params, t_cfg, batch, teacher_out,
             alpha=alpha, beta=beta, temperature=temperature,
-            n_stages=n_stages, vaa_heads=vaa_heads, p_q=p_q)
+            n_stages=n_stages, vaa_heads=vaa_heads, p_q=p_q, mesh=mesh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
         del leaves, teacher_out
         trainable, opt_state, stats = optimizer_update(
             tree_unflatten_like(trainable, grads), opt_state, trainable,
-            lr=lr)
+            lr=lr, shards=moe.clip_shards(trainable, s_cfg, mesh))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(stats)
         return trainable, opt_state, loss.detach(), metrics
@@ -185,7 +197,7 @@ def make_distill_step(s_cfg: ModelConfig, t_cfg: ModelConfig, *, alpha, beta,
 def make_distill_epoch(s_cfg: ModelConfig, t_cfg: ModelConfig, *, steps,
                        schedule, alpha, beta, temperature, n_stages,
                        vaa_heads, p_q, optimizer_update,
-                       on_step: Optional[Callable] = None):
+                       on_step: Optional[Callable] = None, mesh=None):
     """``epoch(trainable, opt_state, t_params, batches) -> (trainable,
     opt_state, losses)`` over stacked ``{tokens/labels: (steps, B, S)}``
     batches, the lr ``schedule`` applied to the step counter
@@ -194,7 +206,7 @@ def make_distill_epoch(s_cfg: ModelConfig, t_cfg: ModelConfig, *, steps,
     step_fn = make_distill_step(
         s_cfg, t_cfg, alpha=alpha, beta=beta, temperature=temperature,
         n_stages=n_stages, vaa_heads=vaa_heads, p_q=p_q,
-        optimizer_update=optimizer_update)
+        optimizer_update=optimizer_update, mesh=mesh)
 
     def epoch(trainable, opt_state, t_params, batches):
         def carry_step(carry, b, lr):

@@ -10,6 +10,14 @@ experts included, because AdamW clips on the global norm of all of them
 (``optim/adamw.py``): marking the experts ``requires_grad=False`` would
 change the clip scale and with it every update.  The port keeps the
 reference's parameter paths, so ``_FROZEN`` is the reference's pattern.
+
+On a ``mesh`` (``launch/mesh.py``) the step takes the MoE's
+expert-parallel paths: ``params`` and the moments hold the rank's block
+of each expert stack (``models/moe.py::shard_experts`` and
+``shard_opt_state``; the freeze mask has the same leaves), every other
+leaf is whole and updated alike on every rank, and the clip sums the
+blocks' squares over their ranks (``device.train_step``), so the step
+is the reference's on its global arrays.
 """
 from __future__ import annotations
 
@@ -38,13 +46,15 @@ def trainable_fraction(params) -> float:
     return train / max(tree_size(params), 1)
 
 
-def make_tune_step(cfg: ModelConfig, freeze_mask, *, weight_decay=0.01):
+def make_tune_step(cfg: ModelConfig, freeze_mask, *, weight_decay=0.01,
+                   mesh=None):
     """``step(params, opt_state, batch, lr) -> (params, opt_state, loss,
-    metrics)``, in place on ``params`` and ``opt_state``."""
+    metrics)``, in place on ``params`` and ``opt_state``; ``metrics``
+    carries the clip's ``grad_norm``."""
     def step(params, opt_state, batch, lr):
         loss, metrics, stats = train_step(params, opt_state, cfg, batch, lr,
                                           weight_decay=weight_decay,
-                                          freeze_mask=freeze_mask)
+                                          freeze_mask=freeze_mask, mesh=mesh)
         metrics.update(stats)
         return params, opt_state, loss, metrics
 
@@ -52,12 +62,13 @@ def make_tune_step(cfg: ModelConfig, freeze_mask, *, weight_decay=0.01):
 
 
 def make_tune_epoch(cfg: ModelConfig, freeze_mask, *, steps, schedule,
-                    weight_decay=0.01, on_step=None):
+                    weight_decay=0.01, on_step=None, mesh=None):
     """``epoch(params, opt_state, batches) -> (params, opt_state,
     losses)`` over stacked ``(steps, B, S)`` batches, the lr schedule
     applied to the step counter (``optim.loops.scan_epoch``).
     ``on_step(step, loss)``, if given, runs after each step."""
-    step_fn = make_tune_step(cfg, freeze_mask, weight_decay=weight_decay)
+    step_fn = make_tune_step(cfg, freeze_mask, weight_decay=weight_decay,
+                             mesh=mesh)
 
     def carry_step(carry, b, lr):
         params, opt_state, loss, _ = step_fn(*carry, b, lr)

@@ -36,8 +36,15 @@ The reference vmaps each bucket's round and masks offline lanes; here
 every device's params and moments stay resident on ``device`` across
 rounds and an offline device is simply not stepped (no copy of its
 state, no NaN loss lane).  A report that arrives late carries a copy of
-the params it was trained to, since training goes on in place.  Not
-ported: multi-host sharding (``n_hosts`` / ``mesh`` raise).
+the params it was trained to, since training goes on in place.
+
+Multi-host (``n_hosts`` > 1 or a ``("hosts",)`` ``mesh``): the round's
+schedule (selection, dropout, deadlines, traffic) comes from the seeds
+alone, so every rank draws the same one; a rank keeps and trains only
+its own lanes' state across rounds (``device.FleetHosts``), every report
+reaches every rank from its owner before ``FleetAggregator`` merges it,
+so the aggregates are equal on every rank, and the final uploads are
+shared as ``train_fleet``'s are.
 """
 from __future__ import annotations
 
@@ -48,11 +55,11 @@ import numpy as np
 import torch
 
 from repro_torch.data.federated import FederatedCorpus
-from repro_torch.federated.device import (DeviceSpec, _device_init,
-                                          _refuse_hosts, _upload,
+from repro_torch.federated.device import (DeviceSpec, FleetHosts,
+                                          _device_init, _upload,
                                           device_upload_bytes, fleet_buckets,
-                                          model_param_bytes, sample_traffic,
-                                          train_round)
+                                          fleet_mesh, model_param_bytes,
+                                          sample_traffic, train_round)
 from repro_torch.federated.server import AsyncFleetConfig, FleetAggregator
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
@@ -92,8 +99,8 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
     staleness-merged aggregates.  Everything runs on ``device``.
     """
     acfg.validate()
-    _refuse_hosts(n_hosts, mesh)
     dev = resolve_device(device)
+    hosts = FleetHosts(fleet, fleet_mesh(n_hosts, mesh, dev))
     k = acfg.steps_per_round
     total_steps = acfg.rounds * k
     warmup = max(total_steps // 20, 1)
@@ -103,7 +110,8 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
     buckets = fleet_buckets(fleet)
     state = {s.device_id: _device_init(s, seed, dev,
                                        state_policy=state_policy)
-             for specs in buckets.values() for s in specs}
+             for specs in buckets.values() for s in specs
+             if hosts.mine(s.device_id)}
     local_step = {s.device_id: 0 for s in fleet}
     losses: Dict[int, List[torch.Tensor]] = {s.device_id: [] for s in fleet}
 
@@ -120,17 +128,19 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
         online = {d: t[1] for d, t in traffic.items()}
         selected = selected_devices(fleet, acfg, r)
 
-        # -- every online device trains its round; offline ones wait --
+        # -- every online device trains its round (on the rank that owns
+        # it); offline ones wait --
         for specs in buckets.values():
             for s in specs:
                 d = s.device_id
                 if not online[d]:
                     continue
-                params, opt = state[d]
-                losses[d].append(train_round(
-                    s, corpus, params, opt, start=local_step[d], steps=k,
-                    total_steps=total_steps, batch=batch, seq_len=seq_len,
-                    lr=lr, warmup=warmup, device=dev))
+                if d in state:
+                    params, opt = state[d]
+                    losses[d].append(train_round(
+                        s, corpus, params, opt, start=local_step[d], steps=k,
+                        total_steps=total_steps, batch=batch,
+                        seq_len=seq_len, lr=lr, warmup=warmup, device=dev))
                 local_step[d] += k
 
         # -- reports: selected ∩ online devices ship their fresh state --
@@ -147,14 +157,15 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
                     n_late_dropped += 1
                     lost_reports += 1
                     continue
-                params = state[d][0]
+                params = state[d][0] if d in state else None
+                if late_by and params is not None:
+                    # a late report is the state it was trained to, held
+                    # while the device trains on in place
+                    params = tree_map(lambda t: t.detach().clone(), params)
                 report = {
                     "device_id": d,
                     "bucket": cfg,
-                    # a late report is the state it was trained to, held
-                    # while the device trains on in place
-                    "params": (tree_map(lambda t: t.detach().clone(), params)
-                               if late_by else params),
+                    "params": params,       # None on the other ranks
                     "trained_round": r,
                     "arrival_round": r + late_by,
                     "bytes": device_upload_bytes(s.comm_cfg),
@@ -168,6 +179,9 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
         per_bucket: Dict = {}
         for rep in deliverable:
             rep["staleness"] = r - rep["trained_round"]
+            # the report reaches every rank from the one that trained it
+            rep["params"], _ = hosts.share(by_id[rep["device_id"]],
+                                           rep["params"], device=dev)
             per_bucket.setdefault(rep["bucket"], []).append(rep)
         round_bytes = 0
         for cfg, reps in per_bucket.items():
@@ -185,7 +199,7 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
             else:
                 comm_global += dev_bytes
                 round_bytes += dev_bytes
-        for rep in matured:          # the held copies are merged: free them
+        for rep in deliverable:      # merged: free the copies
             rep["params"] = None
 
         stale_merged = len(matured)
@@ -210,9 +224,13 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
     staleness = aggregator.merged_staleness
     uploads = []
     for s in fleet:
-        ls = losses[s.device_id]
-        uploads.append(_upload(s, corpus, state[s.device_id][0],
-                               torch.cat(ls) if ls else torch.zeros(0)))
+        d = s.device_id
+        own = state.pop(d, (None,))[0]
+        ls = losses[d]
+        params, ls = hosts.share(
+            s, own, local_step[d],
+            torch.cat(ls) if ls else torch.zeros(0, device=dev), device=dev)
+        uploads.append(_upload(s, corpus, params, ls))
 
     fleet_report = {
         "mode": "hierarchical" if acfg.hierarchical else "flat",
@@ -228,6 +246,6 @@ def train_fleet_async(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus,
         "comm_bytes_edge": int(comm_edge),
         "aggregates": {cfg.name: aggregator.aggregates[cfg]
                        for cfg in aggregator.aggregates},
-        "n_hosts": 1,
+        "n_hosts": hosts.n,
     }
     return uploads, fleet_report

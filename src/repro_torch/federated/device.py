@@ -15,9 +15,17 @@ parameter count, computed from meta tensors (no allocation).
 latency and availability for the async rounds (``async_fleet.py``), from
 the reference's numpy generators, so the draws are the same floats; a
 round of one device is ``train_round``.  ``state_policy`` ('' | 'bf16' |
-'int8') sets the AdamW moment storage.  Not ported: the vmapped bucket
-(devices run one after another) and multi-host sharding (``n_hosts`` /
-``mesh`` raise).
+'int8') sets the AdamW moment storage.
+
+Multi-host fleets (``n_hosts`` / a ``("hosts",)`` ``mesh`` from
+``launch/mesh.py::make_fleet_mesh``) run one rank a host: a rank trains
+only the lanes of each bucket that ``sharding.rules.host_lanes`` gives
+it (the reference's ``fleet_specs`` layout, its padding lanes left out),
+so it holds about ``1/n_hosts`` of the fleet's state, and then every
+upload goes from its owner to every rank, a broadcast a tensor
+(``FleetHosts``).  Lanes are independent, so the uploads equal
+``n_hosts=1``'s bit for bit.  Not ported: the vmapped bucket (devices
+run one after another).
 """
 from __future__ import annotations
 
@@ -27,14 +35,17 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.data.federated import FederatedCorpus
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (adamw_init, adamw_update, cosine_schedule,
                                scan_epoch)
+from repro_torch.sharding import rules
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import (tree_bytes, tree_leaves,
+from repro_torch.utils.pytree import (tree_bytes, tree_leaves, tree_map,
                                       tree_unflatten_like)
 
 
@@ -117,19 +128,23 @@ def device_upload_bytes(cfg: ModelConfig, embedding_dim: int = 32) -> int:
 # ---------------------------------------------------------------------------
 
 def train_step(params, opt, cfg: ModelConfig, batch, lr: float, *,
-               weight_decay: float = 0.0, freeze_mask=None):
+               weight_decay: float = 0.0, freeze_mask=None, mesh=None):
     """One training step, in place on ``params`` and ``opt``: the LM loss,
     its gradient with respect to every parameter (frozen ones included:
-    the clip norm covers them), and AdamW with ``freeze_mask``.  Returns
+    the clip norm covers them), and AdamW with ``freeze_mask``.  On a
+    ``mesh`` the MoE's experts are the rank's block (``models/moe.py::
+    shard_experts``, moments too) and the clip's norm sums each block
+    over the ranks that hold the others (``moe.clip_shards``).  Returns
     (loss, metrics, stats), tensors on the device."""
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
-    loss, metrics = M.loss_fn(params, cfg, batch)
+    loss, metrics = M.loss_fn(params, cfg, batch, mesh=mesh)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     del leaves
     _, _, stats = adamw_update(tree_unflatten_like(params, grads), opt,
                                params, lr=lr, weight_decay=weight_decay,
-                               freeze_mask=freeze_mask)
+                               freeze_mask=freeze_mask,
+                               shards=moe.clip_shards(params, cfg, mesh))
     return loss.detach(), metrics, stats
 
 
@@ -168,13 +183,6 @@ def _upload(spec: DeviceSpec, corpus: FederatedCorpus, params,
     }
 
 
-def _refuse_hosts(n_hosts: int, mesh) -> None:
-    if n_hosts != 1 or mesh is not None:
-        raise NotImplementedError(
-            f"n_hosts={n_hosts}, mesh={mesh!r}: multi-host fleets are not "
-            "ported yet")
-
-
 def train_round(spec: DeviceSpec, corpus: FederatedCorpus, params, opt, *,
                 start: int, steps: int, total_steps: int, batch: int,
                 seq_len: int, lr: float, warmup: int, device):
@@ -208,12 +216,21 @@ def train_device(spec: DeviceSpec, corpus: FederatedCorpus, *, steps: int,
     AdamW moment storage (``optim.adamw.resolve_moment_policy``).
     """
     del compiled
-    dev = resolve_device(device)
-    params, opt = _device_init(spec, seed, dev, params, state_policy)
+    return _upload(spec, corpus, *_train_lane(
+        spec, corpus, steps=steps, batch=batch, seq_len=seq_len, lr=lr,
+        seed=seed, state_policy=state_policy,
+        device=resolve_device(device), params=params))
+
+
+def _train_lane(spec: DeviceSpec, corpus: FederatedCorpus, *, steps: int,
+                batch: int, seq_len: int, lr: float, seed: int,
+                state_policy: str, device, params=None):
+    """``train_device``'s run: (params, per-step losses on the device)."""
+    params, opt = _device_init(spec, seed, device, params, state_policy)
     losses = train_round(spec, corpus, params, opt, start=0, steps=steps,
                          total_steps=steps, batch=batch, seq_len=seq_len,
-                         lr=lr, warmup=max(steps // 20, 1), device=dev)
-    return _upload(spec, corpus, params, losses)
+                         lr=lr, warmup=max(steps // 20, 1), device=device)
+    return params, losses
 
 
 def fleet_buckets(fleet: Sequence[DeviceSpec]
@@ -225,6 +242,67 @@ def fleet_buckets(fleet: Sequence[DeviceSpec]
     return buckets
 
 
+class FleetHosts:
+    """Where a fleet's lanes live on a ``("hosts",)`` mesh
+    (``launch/mesh.py::make_fleet_mesh``; None: every lane on this rank,
+    nothing shared).  Host ``h`` is rank ``mesh.mesh[h]`` and owns the
+    lanes ``rules.host_lanes`` gives it in each bucket; ``share`` hands a
+    lane's tensors from its owner to every rank of the process group."""
+
+    def __init__(self, fleet: Sequence[DeviceSpec], mesh=None):
+        self.mesh = mesh
+        self.n = 1 if mesh is None else mesh.size()
+        self.ranks = [0] if mesh is None else mesh.mesh.flatten().tolist()
+        coord = None if mesh is None else mesh.get_coordinate()
+        self.me = 0 if mesh is None else (None if coord is None
+                                          else coord[0])
+        self.host = {}
+        for specs in fleet_buckets(fleet).values():
+            for h in range(self.n):
+                for i in rules.host_lanes(len(specs), self.n, h):
+                    self.host[specs[i].device_id] = h
+
+    def mine(self, device_id: int) -> bool:
+        return self.host[device_id] == self.me
+
+    def share(self, spec: DeviceSpec, params, n_losses=None, losses=None,
+              device="cpu"):
+        """(params, losses) of ``spec``'s lane on every rank: the owner's
+        own, broadcast leaf by leaf (``n_losses`` f32 losses after them);
+        other ranks pass None and get tensors of ``spec.cfg``'s shapes on
+        ``device``.  Without a mesh, what was passed."""
+        if self.mesh is None:
+            return params, losses
+        if not self.mine(spec.device_id):
+            params = tree_map(
+                lambda m: torch.empty(m.shape, dtype=m.dtype, device=device),
+                M.init_params(spec.cfg, generator="meta"))
+            if n_losses is not None:
+                losses = torch.empty(n_losses, dtype=torch.float32,
+                                     device=device)
+        src = self.ranks[self.host[spec.device_id]]
+        with torch.no_grad():        # the owner's leaves may require grad
+            for t in tree_leaves(params):
+                dist.broadcast(t, src=src)
+            if n_losses:
+                dist.broadcast(losses, src=src)
+        return params, losses
+
+
+def fleet_mesh(n_hosts: int, mesh, device):
+    """The fleet's ``("hosts",)`` mesh: ``mesh``, or for ``n_hosts`` > 1
+    ``make_fleet_mesh(n_hosts)`` on ``device``'s backend (the process
+    group must be up), else None."""
+    if mesh is None and n_hosts > 1:
+        from repro_torch.launch.mesh import make_fleet_mesh
+        mesh = make_fleet_mesh(n_hosts, device=torch.device(device).type)
+    dims = getattr(mesh, "mesh_dim_names", None)
+    if mesh is not None and tuple(dims or ()) != ("hosts",):
+        raise ValueError(f"a fleet mesh is a DeviceMesh of the one dim "
+                         f"('hosts',), not {mesh!r}")
+    return mesh
+
+
 def train_fleet(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus, *,
                 steps: int, batch: int, seq_len: int, lr: float = 3e-3,
                 seed: int = 0, state_policy: str = "", n_hosts: int = 1,
@@ -232,13 +310,22 @@ def train_fleet(fleet: Sequence[DeviceSpec], corpus: FederatedCorpus, *,
     """Every device's ``train_device``, bucket by bucket and in fleet
     order within a bucket (the reference vmaps each bucket; its lanes are
     independent, so the uploads are the same).  ``state_policy`` sets
-    every device's moment storage.  Returns uploads in the fleet's
+    every device's moment storage.  ``n_hosts`` > 1 (or a ``("hosts",)``
+    ``mesh``): this rank trains its own lanes only (``FleetHosts``), and
+    every rank returns every upload.  Returns uploads in the fleet's
     original order."""
-    _refuse_hosts(n_hosts, mesh)
-    uploads: Dict[int, Dict] = {}
+    dev = resolve_device(device)
+    hosts = FleetHosts(fleet, fleet_mesh(n_hosts, mesh, dev))
+    run = dict(steps=steps, batch=batch, seq_len=seq_len, lr=lr, seed=seed,
+               state_policy=state_policy, device=dev)
+    trained = {}
     for specs in fleet_buckets(fleet).values():
         for spec in specs:
-            uploads[spec.device_id] = train_device(
-                spec, corpus, steps=steps, batch=batch, seq_len=seq_len,
-                lr=lr, seed=seed, state_policy=state_policy, device=device)
-    return [uploads[spec.device_id] for spec in fleet]
+            if hosts.mine(spec.device_id):
+                trained[spec.device_id] = _train_lane(spec, corpus, **run)
+    uploads = []
+    for spec in fleet:
+        params, losses = trained.pop(spec.device_id, (None, None))
+        uploads.append(_upload(spec, corpus, *hosts.share(
+            spec, params, steps, losses, device=dev)))
+    return uploads

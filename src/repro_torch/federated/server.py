@@ -22,8 +22,17 @@ in (e.g. the reference's, converted).
 
 The async fleet schedule (``AsyncFleetConfig``) and its staleness-
 discounted merge (``FleetAggregator``) serve ``async_fleet.py``;
-``ServerConfig.state_policy`` sets Phase II's AdamW moment storage.  Not
-ported yet, and refused with ``NotImplementedError``: meshes.
+``ServerConfig.state_policy`` sets Phase II's AdamW moment storage.
+
+``mesh`` (a ``("data", "model")`` ``DeviceMesh``, ``launch/mesh.py``)
+runs Phases II and III over the ranks of the process group, as the
+reference passes its mesh to the distill and tune epochs: Phase II's
+dense teacher and student run whole on every rank (the mesh changes
+nothing there), and Phase III cuts the merged MoE's experts to each
+rank's block (``models/moe.py::shard_experts``, their AdamW moments by
+``shard_opt_state``), tunes through the expert-parallel path and gathers
+the experts back (``gather_experts``), so ``run`` returns whole
+parameters, the same on every rank.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.core import clustering, distill, merge, proxy, tuning
 from repro_torch.core import vaa as vaa_mod
 from repro_torch.data.federated import FederatedCorpus
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.utils.device import resolve_device
@@ -185,20 +195,25 @@ class ServerConfig:
 
 class DeepFusionServer:
     """``device`` defaults to the card; pass ``device="cpu"`` to run on
-    the CPU.  ``on_step(step, loss)``, if given, runs after every Phase
-    II and Phase III step (e.g. to time it)."""
+    the CPU (on a ``mesh``, the rank's device of the mesh's type).
+    ``on_step(step, loss)``, if given, runs after every Phase II and
+    Phase III step (e.g. to time it)."""
 
     def __init__(self, cfg: ServerConfig, corpus: FederatedCorpus,
                  device_cfgs: Sequence[ModelConfig], *, mesh=None,
                  log: Callable[[str], None] = lambda s: None,
                  device="cuda", on_step: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError("a server mesh is not ported yet")
+        self.device = resolve_device(device)
+        if mesh is not None and getattr(mesh, "device_type",
+                                        None) != self.device.type:
+            raise ValueError(f"a server mesh is a DeviceMesh of the "
+                             f"server's device type ({self.device.type}), "
+                             f"not {mesh!r}")
+        self.mesh = mesh
         self.cfg = cfg
         self.corpus = corpus
         self.device_cfgs = list(device_cfgs)
         self.log = log
-        self.device = resolve_device(device)
         self.on_step = on_step
         self.report: Dict = {}
 
@@ -265,7 +280,8 @@ class DeepFusionServer:
                                      warmup=max(steps // 20, 1)),
             alpha=scfg.alpha, beta=scfg.beta, temperature=scfg.temperature,
             n_stages=scfg.n_stages, vaa_heads=scfg.vaa_heads, p_q=scfg.p_q,
-            optimizer_update=adamw_update, on_step=self.on_step)
+            optimizer_update=adamw_update, on_step=self.on_step,
+            mesh=self.mesh)
         batches = self.corpus.mixed_eval_batches(steps, scfg.distill_batch,
                                                  scfg.seq_len)
         batches = {k: v.to(dev) for k, v in batches.items()}
@@ -283,7 +299,9 @@ class DeepFusionServer:
         and tune it for ``tune_steps`` steps.  The MoE's own init is drawn
         from a ``torch.Generator`` seeded ``seed + 303`` (the reference's
         key; the draws differ from ``jax.random``), or taken from
-        ``init_params`` (e.g. the reference's init, converted).  Returns
+        ``init_params`` (e.g. the reference's init, converted).  On the
+        server's mesh the experts and their moments are cut to the rank's
+        block for the tune and gathered back after it.  Returns
         (moe_params, per-step losses)."""
         scfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(scfg.seed + 303)
@@ -294,17 +312,25 @@ class DeepFusionServer:
             moe_params)
         self.log(f"Phase III: trainable fraction "
                  f"{self.report['trainable_fraction']:.3f}")
+        if self.mesh is not None:
+            moe_params = moe.shard_experts(moe_params, scfg.moe_cfg,
+                                           self.mesh)
+            opt = moe.shard_opt_state(opt, scfg.moe_cfg, self.mesh)
         steps = scfg.tune_steps
         epoch = tuning.make_tune_epoch(
             scfg.moe_cfg, mask, steps=steps,
             schedule=cosine_schedule(scfg.tune_lr, steps,
                                      warmup=max(steps // 20, 1)),
-            on_step=self.on_step)
+            on_step=self.on_step, mesh=self.mesh)
         batches = self.corpus.mixed_eval_batches(steps, scfg.tune_batch,
                                                  scfg.seq_len,
                                                  seed_salt0=10_000)
         batches = {k: v.to(self.device) for k, v in batches.items()}
         moe_params, opt, losses = epoch(moe_params, opt, batches)
+        del opt
+        if self.mesh is not None:
+            moe_params = moe.gather_experts(moe_params, scfg.moe_cfg,
+                                            self.mesh)
         hist = [float(x) for x in losses.cpu()]  # the epoch's one sync
         self.log(f"Phase III: tune loss {hist[0]:.3f}->{hist[-1]:.3f}")
         return moe_params, hist

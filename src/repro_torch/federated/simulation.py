@@ -9,9 +9,11 @@ metrics).
 Everything runs on one ``device`` (the card unless the caller names the
 CPU).  ``server_cfg.schedule`` switches local training to async
 participation rounds (``async_fleet.train_fleet_async``) and ``traffic``
-sets every device's straggler model.  Not ported yet, and refused with
-``NotImplementedError`` before any training: multi-host fleets
-(``n_hosts``) and meshes.
+sets every device's straggler model.  ``n_hosts`` > 1 trains the fleet
+over that many ranks of the process group (``device.train_fleet``), as
+the reference shards it over a ``("hosts",)`` mesh; the server then runs
+whole on every rank, with no mesh, as in the reference.
+``evaluate_model(mesh=)`` takes the MoE's expert-parallel paths.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import torch
 from repro_torch.data.federated import FederatedCorpus
 from repro_torch.federated.async_fleet import train_fleet_async
 from repro_torch.federated.device import (STRAGGLER_PROFILES, DeviceSpec,
-                                          train_fleet)
+                                          fleet_mesh, train_fleet)
 from repro_torch.federated.server import DeepFusionServer, ServerConfig
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_leaves
@@ -57,9 +60,12 @@ def evaluate_model(params, cfg: ModelConfig, corpus: FederatedCorpus, *,
                    mesh=None) -> Dict[str, float]:
     """Per-domain + overall token perplexity (Eq. 3) and accuracy, on the
     device the parameters lie on.  Each batch's nll and token count (f32)
-    are summed as Python floats, in the reference's order."""
+    are summed as Python floats, in the reference's order.  ``params``
+    are whole; on a ``mesh`` (``launch/mesh.py``) each rank keeps its
+    block of the experts (``models/moe.py::shard_experts``) and the MoE
+    takes its expert-parallel path, every rank the same metrics."""
     if mesh is not None:
-        raise NotImplementedError("an evaluation mesh is not ported yet")
+        params = moe.shard_experts(params, cfg, mesh)
     dev = tree_leaves(params)[0].device
     out = {}
     nll_all, tok_all, acc_all = 0.0, 0.0, []
@@ -69,7 +75,8 @@ def evaluate_model(params, cfg: ModelConfig, corpus: FederatedCorpus, *,
             for i in range(n_batches):
                 b = corpus.domain_eval_batch(d, batch, seq_len, seed_salt=i)
                 _, m = M.loss_fn(params, cfg,
-                                 {k: v.to(dev) for k, v in b.items()})
+                                 {k: v.to(dev) for k, v in b.items()},
+                                 mesh=mesh)
                 nll += float(m["nll"])
                 tok += float(m["tokens"])
                 accs.append(float(m["accuracy"]))
@@ -135,10 +142,10 @@ def run_deepfusion(sim: SimulationConfig, server_cfg: ServerConfig,
     is built (with ``traffic``, see ``build_fleet``) and trained first:
     ``train_fleet``, device by device, or with ``server_cfg.schedule``
     (an ``AsyncFleetConfig``) async participation rounds, whose log lands
-    in ``report["fleet"]``.  Everything runs on ``device``."""
-    if n_hosts != 1:
-        raise NotImplementedError(
-            f"n_hosts={n_hosts}: multi-host fleets are not ported yet")
+    in ``report["fleet"]``.  ``n_hosts`` > 1 trains the fleet over that
+    many ranks (the process group must be up, with as many ranks; its
+    ``make_fleet_mesh`` is made, or refused, before any training; every
+    rank returns the same uploads).  Everything runs on ``device``."""
     acfg = server_cfg.schedule
     if acfg is not None:
         if acfg.steps_per_round <= 0:
@@ -150,17 +157,19 @@ def run_deepfusion(sim: SimulationConfig, server_cfg: ServerConfig,
     corpus = corpus or build_corpus(sim)
     fleet_report = None
     if uploads is None:
+        hosts = fleet_mesh(n_hosts, None, dev)
         fleet = build_fleet(sim, corpus, device_cfgs, full_cfgs=full_cfgs,
                             traffic=traffic)
         if acfg is not None:
             uploads, fleet_report = train_fleet_async(
                 fleet, corpus, acfg, batch=sim.device_batch,
-                seq_len=sim.seq_len, seed=sim.seed, log=log, device=dev)
+                seq_len=sim.seq_len, seed=sim.seed, mesh=hosts,
+                log=log, device=dev)
         else:
             uploads = train_fleet(fleet, corpus, steps=sim.device_steps,
                                   batch=sim.device_batch,
                                   seq_len=sim.seq_len, seed=sim.seed,
-                                  device=dev)
+                                  mesh=hosts, device=dev)
         for spec, up in zip(fleet, uploads):
             if not up["losses"]:
                 log(f"device {spec.device_id} (arch {spec.arch_id}, "

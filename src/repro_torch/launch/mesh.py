@@ -14,7 +14,10 @@ the group from ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
 (``env://`` rendezvous), or as one rank over an in-process store when
 they are not set.
 
-``make_fleet_mesh`` and ``make_production_mesh`` are not ported yet.
+``make_fleet_mesh`` lays a federated fleet over ``("hosts",)``: one
+rank a simulated host (``federated/device.py::train_fleet``).
+``make_production_mesh`` (the reference's (16, 16) and multi-pod
+meshes) is not ported yet.
 """
 from __future__ import annotations
 
@@ -101,6 +104,25 @@ def make_host_mesh(device="cuda"):
     """(1, world) over every rank (tests / examples)."""
     return _make((1, dist.get_world_size() if dist.is_initialized() else 0),
                  device)
+
+
+def make_fleet_mesh(n_hosts=None, device="cuda"):
+    """1-D ``("hosts",)`` mesh over the first ``n_hosts`` ranks of the
+    process group (default: every rank), one rank a simulated host of a
+    multi-host fleet (``federated/device.py::train_fleet``).  A rank past
+    ``n_hosts`` is outside the mesh: it owns no lanes and receives every
+    upload.  More hosts than ranks raise ``ValueError``, the reference's
+    oversubscription check, also before any group exists (one rank)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    kind = _device_type(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if n_hosts is None else int(n_hosts)
+    if not 1 <= n <= world:
+        raise ValueError(f"fleet mesh wants {n} hosts but the process group "
+                         f"has {world} rank(s) (torchrun --nproc-per-node N "
+                         "starts N)")
+    _check_group(kind)
+    return DeviceMesh(kind, list(range(n)), mesh_dim_names=("hosts",))
 
 
 def make_decode_mesh(n_devices=None, device="cuda"):

@@ -27,25 +27,35 @@ Fleet mode (``--fleet N``) instead drives the federated device fleet on
 ``--device``: synchronous one-shot by default, async participation
 rounds with ``--async-rounds`` (``--check-sync`` then also asserts that
 the same rounds on an ideal fleet reproduce ``train_fleet`` bit for
-bit).  One host only: ``--n-hosts`` above 1 and ``--production-mesh``
-are refused.
+bit).  ``--n-hosts K`` spreads the fleet over K ranks, one a simulated
+host (``launch/mesh.py::make_fleet_mesh``): under ``torchrun
+--nproc-per-node K`` (NCCL on the card, one rank a card; gloo on the
+CPU), only rank 0 printing; without ``torchrun`` one rank, so K above 1
+is the reference's oversubscription ``ValueError``.  As in the
+reference, ``--n-hosts`` reaches the fleet only: a single model ignores
+it.  ``--production-mesh`` is not ported yet and refused.
 
   PYTHONPATH=src python -m repro_torch.launch.train --fleet 8 \
       --async-rounds 3 --steps-per-round 2 --straggler-profile mild \
       --check-sync
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --fleet 8 --n-hosts 4 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import builtins
 import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.data.federated import FederatedCorpus
 from repro_torch.federated.device import train_step
+from repro_torch.launch import mesh as LM
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init, cosine_schedule
@@ -99,11 +109,26 @@ def _uploads_bitwise_equal(ua, ub) -> bool:
 
 
 def run_fleet(args) -> int:
+    """The fleet on ``--device``; over ``--n-hosts`` ranks (started here
+    if no process group is up, and ended here then) when above 1."""
+    device = resolve_device(args.device)
+    if args.n_hosts <= 1:
+        return _run_fleet(args, device)
+    started = LM.init_process_group(device)
+    try:
+        return _run_fleet(args, LM.local_device(device))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run_fleet(args, device) -> int:
     from repro_torch.federated import (STRAGGLER_PROFILES, AsyncFleetConfig,
                                        SimulationConfig, build_fleet,
                                        train_fleet, train_fleet_async)
 
-    device = resolve_device(args.device)
+    print = (builtins.print if args.n_hosts <= 1 or dist.get_rank() == 0
+             else (lambda *a, **k: None))
     sim = SimulationConfig(n_devices=args.fleet, n_domains=4, vocab=256,
                            seq_len=args.seq, device_steps=args.steps,
                            device_batch=args.batch, seed=0)
@@ -114,14 +139,15 @@ def run_fleet(args) -> int:
     if args.dropout is not None:
         traffic = dataclasses.replace(traffic, dropout_p=args.dropout)
     fleet = build_fleet(sim, corpus, _fleet_families(), traffic=traffic)
-    run = dict(batch=args.batch, seq_len=args.seq, device=device)
+    run = dict(batch=args.batch, seq_len=args.seq, n_hosts=args.n_hosts,
+               device=device)
 
     if args.async_rounds <= 0:
         t0 = time.time()
         uploads = train_fleet(fleet, corpus, steps=args.steps, **run)
         finals = [round(u["losses"][-1], 3) for u in uploads[:4]]
-        print(f"sync fleet: {len(uploads)} uploads in {time.time()-t0:.1f}s, "
-              f"final losses {finals}…")
+        print(f"sync fleet: {len(uploads)} uploads in {time.time()-t0:.1f}s "
+              f"on {args.n_hosts} host(s), final losses {finals}…")
         return 0
 
     acfg = AsyncFleetConfig(
@@ -176,7 +202,8 @@ def parse_args(argv=None):
                     help="train an N-device federated fleet instead of one "
                          "model")
     ap.add_argument("--n-hosts", type=int, default=1,
-                    help="1 only: multi-host fleets are not ported yet")
+                    help="fleet mode: spread the fleet over this many "
+                         "ranks (torchrun); a single model ignores it")
     ap.add_argument("--async-rounds", type=int, default=0,
                     help="> 0 switches the fleet to async participation "
                          "rounds")
@@ -200,9 +227,6 @@ def parse_args(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) != kw.get("default",
                                                               False):
             raise NotImplementedError(f"{flag} is not ported yet")
-    if args.n_hosts != 1:
-        raise NotImplementedError(
-            f"--n-hosts {args.n_hosts}: multi-host fleets are not ported yet")
     if args.fleet <= 0 and not args.arch:
         ap.error("--arch is required (unless running --fleet mode)")
     return args

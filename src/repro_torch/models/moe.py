@@ -43,7 +43,11 @@ each rank one device of the reference's ``shard_map`` mesh:
 
 A rank holds only its own experts (``shard_experts``, cut by
 ``sharding.rules.param_specs``; expert counts that do not divide the
-axis are padded with zero experts, which no token is routed to).  The
+axis are padded with zero experts, which no token is routed to, so
+their gradients are zero); ``gather_experts`` puts the whole stacks
+back together, and in training ``shard_opt_state`` cuts the AdamW
+moments the same way and ``clip_shards`` tells the clip which leaves
+are blocks (``optim/adamw.py``).  The
 router, the shared experts and the tokens are whole on every rank, and
 every rank computes the same output.  Gradients flow through the
 collectives with the reference's ``shard_map`` semantics: an output
@@ -516,13 +520,10 @@ def shard_experts(params, cfg: ModelConfig, mesh):
     ep = m.size if impl == "replicated_ep" else m.shape["model"]
     E_pad = _pad_experts(cfg.n_experts, ep)
 
-    def pad(path, leaf):
+    def pad(leaf):
         e_dim = leaf.ndim - 3
         extra = list(leaf.shape)
         extra[e_dim] = E_pad - leaf.shape[e_dim]
-        if extra[e_dim] < 0:
-            raise ValueError(f"{path}: {leaf.shape[e_dim]} experts, the "
-                             f"config has {cfg.n_experts}")
         if extra[e_dim] == 0:
             return leaf
         return torch.cat([leaf, leaf.new_zeros(extra)], e_dim)
@@ -530,15 +531,84 @@ def shard_experts(params, cfg: ModelConfig, mesh):
     coord = rules.coordinate(mesh)
 
     def cut(path, leaf):
-        if not re.search(rules.EXPERT_LEAF, path):
+        if not _is_stack(path, leaf):
             return leaf
-        leaf = pad(path, leaf)
+        if leaf.shape[leaf.ndim - 3] not in (cfg.n_experts, E_pad):
+            raise ValueError(f"{path}: {leaf.shape[leaf.ndim - 3]} experts, "
+                             f"the config has {cfg.n_experts} (already cut?)")
+        leaf = pad(leaf)
         spec = rules.leaf_spec(path, leaf, m, fsdp=False,
                                ep_all=impl == "replicated_ep")
         part = rules.block(leaf, spec, m, coord)
         return leaf if part.shape == leaf.shape else part.clone()
 
     return rules.map_with_paths(cut, params)
+
+
+def _is_stack(path: str, leaf) -> bool:
+    """A routed expert stack (..., E, D, F) or its moment of that shape;
+    a frozen leaf's 0-d moment is no stack."""
+    return bool(re.search(rules.EXPERT_LEAF, path)) and leaf.ndim >= 3
+
+
+def _expert_group(cfg: ModelConfig, mesh):
+    """The process group an expert stack is cut over on ``mesh``, or None
+    when ``moe_path`` keeps every expert (a2a: the rank's "model" group,
+    whose ranks hold the other blocks in block order; replicated_ep: the
+    whole mesh)."""
+    if mesh is None or not cfg.is_moe:
+        return None
+    impl = moe_path(cfg, mesh)
+    if impl == "dense":
+        return None
+    return (dist.group.WORLD if impl == "replicated_ep"
+            else mesh.get_group("model"))
+
+
+def gather_experts(params, cfg: ModelConfig, mesh):
+    """The inverse of ``shard_experts``: every rank's block of each routed
+    expert stack gathered over the ranks that hold the others, in block
+    order, and the zero padding cut off, so that every rank holds the
+    whole (..., E, D, F) stacks again.  Other leaves, and every leaf on
+    a path that keeps all experts, are returned as they are."""
+    group = _expert_group(cfg, mesh)
+    if group is None:
+        return params
+
+    def whole(path, leaf):
+        if not _is_stack(path, leaf):
+            return leaf
+        e_dim = leaf.ndim - 3
+        n = dist.get_world_size(group)
+        if n > 1:
+            parts = [torch.empty_like(leaf) for _ in range(n)]
+            dist.all_gather(parts, leaf.contiguous(), group=group)
+            leaf = torch.cat(parts, e_dim)
+        return leaf.narrow(e_dim, 0, cfg.n_experts)
+
+    return rules.map_with_paths(whole, params)
+
+
+def shard_opt_state(state, cfg: ModelConfig, mesh):
+    """AdamW state (``optim/adamw.py``) for ``shard_experts``' params: the
+    moments of each expert stack cut to the rank's block as the stack is
+    (a frozen stack's 0-d moments stay as they are), under every moment
+    policy; ``step`` and int8 ``v``'s per-tensor ``v_scale`` (the whole
+    tensor's scale) are kept."""
+    out = dict(state)
+    for k in ("m", "v"):
+        out[k] = shard_experts(state[k], cfg, mesh)
+    return out
+
+
+def clip_shards(params, cfg: ModelConfig, mesh):
+    """``adamw_update``'s ``shards`` for ``params`` on ``mesh``: (a tree
+    True at the expert stacks, their process group), or None where every
+    rank holds every expert (the norm then needs no sum over ranks)."""
+    group = _expert_group(cfg, mesh)
+    if group is None:
+        return None
+    return rules.map_with_paths(_is_stack, params), group
 
 
 def apply_moe(p, cfg: ModelConfig, x, mesh=None, live=None):

@@ -31,6 +31,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 # symmetric quantization ranges: int8 uses the full signed byte minus
 # the asymmetric -128; fp8 e4m3 (no infinities) saturates at +-448
@@ -176,7 +177,7 @@ class MomentPolicy:
 _V_ALPHA = 13.815511  # ln(1e6)
 
 
-def quantize_v(v_f32) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_v(v_f32, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor int8 quantization of a (non-negative) second moment.
 
     Codes are log-spaced in the sqrt domain: code q > 0 decodes to
@@ -187,9 +188,15 @@ def quantize_v(v_f32) -> Tuple[torch.Tensor, torch.Tensor]:
     step.  Returns ``(q, scale)`` with a 0-d float32 ``scale``.  The f32
     ops are the reference's, in its order; ``log`` may differ from XLA's
     by an ulp, so a code at a level boundary can differ by one.
+    ``group``: ``v_f32`` is this rank's block of a tensor cut over that
+    process group, and the scale is the whole tensor's (the largest
+    value over the group).
     """
     r = torch.sqrt(v_f32)
-    scale = torch.clamp_min(torch.max(r), _EPS)
+    amax = torch.max(r)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp_min(amax, _EPS)
     lvl = 127.0 + torch.log(torch.clamp_min(r, _EPS) / scale) * (
         127.0 / _V_ALPHA)
     q = torch.clamp(torch.round(lvl), 1.0, 127.0)

@@ -17,11 +17,22 @@ re-quantized.  Where the reference returns new trees, the port updates
 the parameter and moment tensors in place, under ``torch.no_grad()``, to
 hold one copy of each (a 1.1B model's f32 moments alone are 8.8 GB), and
 makes the f32 temporaries of one leaf at a time.
+
+On a mesh the reference's arrays are global, so its norm sees every
+expert once.  A rank of the port holds a block of each expert stack
+(``models/moe.py::shard_experts``) and the whole of every other leaf,
+with the same gradient on every rank.  ``shards=(mask, group)`` says
+so: the leaves True in ``mask`` are this rank's blocks of tensors cut
+over the process group ``group``, their Σg² is summed over it before
+it joins the norm (the other leaves count once, on every rank alike),
+and an int8 ``v`` of such a leaf is quantized with the group's largest
+value, the global tensor's scale.  ``moe.clip_shards`` builds it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import quant
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -81,10 +92,20 @@ def _sq_sum(g):
                for c in g.reshape(-1).split(_CHUNK))
 
 
-def _clip_scale(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float, shards=None):
     """(min(1, max_norm / ||grads||), ||grads||), the norm in f32 over
-    all leaves, both 0-d tensors on the device (no host sync)."""
-    gnorm = torch.sqrt(sum(_sq_sum(g) for g in tree_leaves(grads)))
+    all leaves (``shards``: see the module docstring), summed in leaf
+    order, both 0-d tensors on the device (no host sync)."""
+    sq = [_sq_sum(g) for g in tree_leaves(grads)]
+    if shards is not None:
+        mask, group = shards
+        cut = [i for i, m in enumerate(tree_leaves(mask)) if m]
+        if cut:
+            part = torch.stack([sq[i] for i in cut])
+            dist.all_reduce(part, group=group)
+            for j, i in enumerate(cut):
+                sq[i] = part[j]
+    gnorm = torch.sqrt(sum(sq))
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), gnorm
 
 
@@ -100,11 +121,13 @@ def global_norm_clip(grads, max_norm: float):
 def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.0, freeze_mask=None,
-                 clip_norm: float = 1.0):
+                 clip_norm: float = 1.0, shards=None):
     """One AdamW step, in place on ``params`` and ``state``.  Returns
     (params, state, {"grad_norm": 0-d tensor}).  Moments are read in
     f32 (an int8 ``v`` dequantized with its scale), updated in f32 and
-    stored back at their own dtype (int8 ``v`` re-quantized)."""
+    stored back at their own dtype (int8 ``v`` re-quantized).
+    ``shards=(mask, group)``: the leaves cut over ranks (module
+    docstring); None on one device."""
     if freeze_mask is None:
         freeze_mask = tree_map(lambda _: True, params)
     v_quantized = "v_scale" in state
@@ -113,7 +136,7 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
     if clip_norm:
         # the norm covers every leaf; only trainable gradients are scaled
         # (a frozen expert bank's clipped copy would go unused)
-        scale, gnorm = _clip_scale(grads, clip_norm)
+        scale, gnorm = _clip_scale(grads, clip_norm, shards)
     else:
         gnorm = torch.zeros((), dtype=torch.float32)
     # the reference forms the bias corrections in f32
@@ -122,7 +145,7 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
     c2 = float(f32(1.0) - f32(b2) ** f32(step))
     lr = float(f32(lr))
 
-    def upd(p, g, m, v, vs, trainable):
+    def upd(p, g, m, v, vs, trainable, cut):
         if not trainable:
             return
         if scale is not None:
@@ -138,18 +161,21 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
         p.copy_((p.float() - lr * delta).to(p.dtype))
         m.copy_(m_new)
         if v_quantized:
-            q, s = quant.quantize_v(v_new)
+            # a block of a cut leaf takes the whole tensor's scale
+            q, s = quant.quantize_v(v_new,
+                                    group=shards[1] if cut else None)
             v.copy_(q)
             vs.copy_(s)
         else:
             v.copy_(v_new)
 
-    vscales = (tree_leaves(state["v_scale"]) if v_quantized
-               else [None] * len(tree_leaves(params)))
-    for p, g, m, v, vs, t in zip(tree_leaves(params), tree_leaves(grads),
-                                 tree_leaves(state["m"]),
-                                 tree_leaves(state["v"]), vscales,
-                                 tree_leaves(freeze_mask)):
-        upd(p, g, m, v, vs, t)
+    n = len(tree_leaves(params))
+    vscales = tree_leaves(state["v_scale"]) if v_quantized else [None] * n
+    cuts = tree_leaves(shards[0]) if shards is not None else [False] * n
+    for p, g, m, v, vs, t, c in zip(tree_leaves(params), tree_leaves(grads),
+                                    tree_leaves(state["m"]),
+                                    tree_leaves(state["v"]), vscales,
+                                    tree_leaves(freeze_mask), cuts):
+        upd(p, g, m, v, vs, t, c)
     state["step"] = step
     return params, state, {"grad_norm": gnorm}

@@ -2,9 +2,9 @@
 from repro_torch.sharding.rules import (abstract_mesh, as_abstract,
                                         batch_spec, block, cache_specs,
                                         data_axes_of, fleet_specs,
-                                        opt_state_specs, paged_cache_specs,
-                                        param_specs)
+                                        host_lanes, opt_state_specs,
+                                        paged_cache_specs, param_specs)
 
 __all__ = ["abstract_mesh", "as_abstract", "batch_spec", "block",
-           "cache_specs", "data_axes_of", "fleet_specs", "opt_state_specs",
-           "paged_cache_specs", "param_specs"]
+           "cache_specs", "data_axes_of", "fleet_specs", "host_lanes",
+           "opt_state_specs", "paged_cache_specs", "param_specs"]

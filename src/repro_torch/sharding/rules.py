@@ -18,9 +18,10 @@ A mesh here is anything with axis names and sizes: ``abstract_mesh``
 (no devices), or a ``DeviceMesh`` from ``launch/mesh.py``.  ``block``
 cuts a rank's block of a tensor by its spec, the part
 ``jax.device_put`` with a ``NamedSharding`` plays in the reference.
-In this slice only the MoE's expert weights are cut that way
-(``models/moe.py::shard_experts``); every other spec here describes the
-layout the tensor-parallel slice will realise.  The reference's
+Only the MoE's expert weights (and their AdamW moments) are cut that
+way (``models/moe.py::shard_experts``), and a fleet's lanes are dealt
+to hosts by ``host_lanes``; every other spec here describes the layout
+the tensor-parallel slice will realise.  The reference's
 ``named`` and ``host_resident_bytes`` read JAX shardings and have no
 counterpart.
 """
@@ -198,6 +199,16 @@ def fleet_specs(tree, mesh):
         return (None,) * nd
 
     return tree_map(spec, tree)
+
+
+def host_lanes(n_lanes: int, n_hosts: int, h: int) -> range:
+    """The lanes of a bucket of ``n_lanes`` devices that host ``h`` of
+    ``n_hosts`` owns: the contiguous run ``fleet_specs`` gives it once
+    the reference has padded the bucket to a multiple of the host count
+    (with copies of lane 0, discarded after the round), padding lanes
+    left out.  The last hosts may own fewer lanes, or none."""
+    per = -(-n_lanes // n_hosts)
+    return range(min(h * per, n_lanes), min((h + 1) * per, n_lanes))
 
 
 def batch_spec(batch, mesh):

@@ -73,6 +73,17 @@ from repro_torch.models import layers
 from repro_torch.models import model as M
 from repro_torch.models import ssm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one thread a test process, so that parallel test workers do not
+    # oversubscribe the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FACTOR = {"tinyllama-1.1b": 1.05, "mamba2-1.3b": 0.99}
 BLOCK_LIMIT = 0.45
 DENSE_BLOCK_LIMIT = 0.25

@@ -25,6 +25,17 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref
 from test_torch_kernels_gpu import HEAD_DIMS, bf16_err_over_limit
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one thread a test process, so that parallel test workers do not
+    # oversubscribe the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NEG_INF = -1.0e30
 
 CASES = {

@@ -360,12 +360,19 @@ def test_dropped_device_rejoins_where_it_paused(corpora):
 
 
 def test_multi_host_fleets_are_refused(corpora):
+    """Multi-host fleets are ported (tests/test_torch_fleet_hosts.py, on
+    4 ranks).  Refused, as the reference refuses them: more hosts than
+    ranks (here one, no process group), and a mesh that is not a
+    ``("hosts",)`` DeviceMesh."""
     _, tc = corpora
     acfg = server.AsyncFleetConfig(rounds=1, steps_per_round=1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="fleet mesh wants 2 hosts"):
         af.train_fleet_async(_fleet(True, 2), tc, acfg, n_hosts=2,
                              device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="fleet mesh wants 2 hosts"):
+        dev.train_fleet(_fleet(True, 2), tc, steps=1, n_hosts=2,
+                        device="cpu", **KW)
+    with pytest.raises(ValueError, match="'hosts'"):
         dev.train_fleet(_fleet(True, 2), tc, steps=1, mesh=object(),
                         device="cpu", **KW)
 
@@ -433,6 +440,9 @@ def test_train_launcher_fleet_check_sync_on_the_cpu():
                          "--batch", "2", "--seq", "16"])
     assert rc == 0, out.getvalue()
     assert "check-sync OK" in out.getvalue()
-    for flag in (["--n-hosts", "2"], ["--production-mesh"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train.main(["--fleet", "4", "--device", "cpu", *flag])
+    # more hosts than ranks (no torchrun: one) is the reference's
+    # oversubscription error; the production mesh stays refused
+    with pytest.raises(ValueError, match="fleet mesh wants 2 hosts"):
+        train.main(["--fleet", "4", "--device", "cpu", "--n-hosts", "2"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train.main(["--fleet", "4", "--device", "cpu", "--production-mesh"])

@@ -122,24 +122,34 @@ def test_unported_engine_options_raise(small, cls, kw, err, match):
 
 
 # sharded serving's flags are ported (tests/test_torch_serve_sharded.py):
-# --check-unsharded without --sharded is the reference's usage error, and
-# the other cases hold what stays refused, the training launcher's
-# production mesh and multi-host fleets
+# --check-unsharded without --sharded is the reference's usage error;
+# multi-host fleets are ported (tests/test_torch_fleet_hosts.py): a single
+# model ignores --n-hosts, as the reference does, and a fleet of more hosts
+# than ranks is the reference's oversubscription error; what stays refused
+# is the training launcher's production mesh
 @pytest.mark.parametrize("launcher,flag,err", [
     ("serve", ["--check-unsharded"], SystemExit),
     ("train", ["--production-mesh"], NotImplementedError),
-    ("train", ["--n-hosts", "2"], NotImplementedError),
-    ("train", ["--fleet", "4", "--n-hosts", "2"], NotImplementedError)],
+    ("train", ["--n-hosts", "2", "--steps", "1", "--batch", "1", "--seq",
+               "8"], None),
+    ("train", ["--fleet", "4", "--n-hosts", "2"], ValueError)],
     ids=["check-unsharded", "production-mesh", "n-hosts",
          "fleet-n-hosts"])
 def test_unported_launcher_flags_raise(launcher, flag, err, capsys):
     import importlib
     mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    argv = ["--arch", "tinyllama-1.1b", "--device", "cpu", *flag]
+    if err is None:
+        losses = mod.main(argv)
+        assert len(losses) == 1 and np.isfinite(losses).all()
+        return
     with pytest.raises(err) as exc:
-        mod.main(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
+        mod.main(argv)
     if err is SystemExit:
         assert exc.value.code == 2
         assert "requires --sharded" in capsys.readouterr().err
+    elif err is ValueError:
+        assert "fleet mesh wants 2 hosts" in str(exc.value)
     else:
         assert "not ported yet" in str(exc.value)
 

@@ -45,6 +45,17 @@ from repro_torch.optim import cosine_schedule
 from repro_torch.serve import PagedServeEngine, ServeEngine
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten_like
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one thread a test process, so that parallel test workers do not
+    # oversubscribe the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-4)
 RTOL = 1e-5
 
@@ -432,17 +443,27 @@ def test_convert_round_trips_moe_leaves(moe_params):
 
 
 # the expert-parallel paths are ported (tests/test_torch_moe_ep.py): their
-# cases hold that they run over a mesh only, and the mesh case holds what
-# stays refused, a mesh behind the federated server
+# cases hold that they run over a mesh only; a mesh behind the federated
+# server is ported too (tests/test_torch_server_mesh.py), and the mesh
+# case holds what stays refused, the multi-pod ("pod", "data") axes
 @pytest.mark.parametrize("what", ["a2a", "replicated_ep", "mesh"])
 def test_unported_moe_paths_raise(moe_params, what):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     cfg, pt, _ = moe_params
+    p = M._layer(pt["blocks"]["sub0"]["moe"], 0)
+    x = torch.zeros((1, 2, cfg.d_model))
     if what in ("a2a", "replicated_ep"):
-        p = M._layer(pt["blocks"]["sub0"]["moe"], 0)
         with pytest.raises(ValueError, match="runs over a mesh"):
-            moe.apply_moe(p, cfg.replace(moe_impl=what),
-                          torch.zeros((1, 2, cfg.d_model)))
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            server.DeepFusionServer(server.ServerConfig(moe_cfg=cfg), None,
-                                    [], mesh=object(), device="cpu")
+            moe.apply_moe(p, cfg.replace(moe_impl=what), x)
+        return
+    # one gloo rank over an in-process store, its mesh with a "pod" axis
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        pods = init_device_mesh("cpu", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        with pytest.raises(NotImplementedError, match="multi-pod"):
+            moe.apply_moe(p, cfg.replace(moe_impl="a2a"), x, pods)
+    finally:
+        dist.destroy_process_group()

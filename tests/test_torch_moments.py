@@ -42,6 +42,17 @@ from repro_torch.optim import adamw
 
 from test_torch_train import port_cfg  # repo root on sys.path
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one thread a test process, so that parallel test workers do not
+    # oversubscribe the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POLICIES = ["", "bf16", "int8"]
 STEPS = 6
 PARAM_ATOL = 1e-6
@@ -225,7 +236,7 @@ def test_adamw_update_matches_reference(policy):
 
 def test_linear_v_codebook_breaks_the_update_limit(monkeypatch):
     """A planted fault: int8 v on linear levels (v / amax * 127)."""
-    def q_lin(v):
+    def q_lin(v, group=None):
         scale = torch.clamp_min(v.max(), 1e-12)
         return torch.round(v / scale * 127.0).to(torch.int8), scale
 

@@ -38,6 +38,17 @@ from repro.models import quant as jq
 from repro_torch.kernels.paged_attn import ops as pa
 from test_torch_kernels_gpu import bf16_err_over_limit
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # one thread a test process, so that parallel test workers do not
+    # oversubscribe the cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NEG_INF = -1.0e30
 N_SM = 132          # an H100 SXM's SMs: the split the card would run
 KEY_GROUPS = 2      # csrc: KG, groups of warps that split a tile's keys

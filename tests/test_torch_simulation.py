@@ -317,9 +317,11 @@ def test_build_fleet_matches_reference_and_its_errors():
 
 @pytest.mark.parametrize("what", ["traffic", "n_hosts", "schedule"])
 def test_unported_options_refused_before_training(what, monkeypatch):
-    """Multi-host fleets are not ported and raise; a bad straggler
-    profile or schedule is refused as the reference refuses it.  All
-    three before any training."""
+    """More hosts than ranks (here one, no process group) is the
+    reference's oversubscription error (multi-host fleets are ported:
+    tests/test_torch_fleet_hosts.py); a bad straggler profile or schedule
+    is refused as the reference refuses it.  All three before any
+    training."""
     sim, scfg, fam = _configs(port=True)
 
     def no_training(*a, **k):
@@ -332,9 +334,9 @@ def test_unported_options_refused_before_training(what, monkeypatch):
     if what == "schedule":
         scfg = dataclasses.replace(scfg, schedule=server.AsyncFleetConfig(
             deadline_policy="wait-forever"))
-    err, match = ((NotImplementedError, "not ported yet") if what == "n_hosts"
-                  else (ValueError, {"traffic": "straggler profile",
-                                     "schedule": "deadline_policy"}[what]))
+    err, match = ValueError, {"traffic": "straggler profile",
+                              "n_hosts": "fleet mesh wants 2 hosts",
+                              "schedule": "deadline_policy"}[what]
     with pytest.raises(err, match=match):
         simulation.run_deepfusion(_port_sim(sim), scfg, fam, device="cpu",
                                   **kw)
